@@ -1,0 +1,265 @@
+"""Weights into the port: convert/from_jax.py covers every parameter of each
+slice model, and a reference-layout state dict reaches the port through the
+numpy converters of tortoise_tpu/convert/torch_import.py."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from test_torch_import_hygiene import run_without_jax
+from tortoise_tpu.convert import torch_import as ti
+from tortoise_tpu_torch import weights as port_weights
+from tortoise_tpu_torch.convert.from_jax import from_jax
+
+torch.set_num_threads(2)
+
+D, LAYERS, HEADS = 64, 2, 2  # tiny widths; the vocoder has one fixed config
+
+
+def _jax_ar():
+    from tortoise_tpu.models.autoregressive import (UnifiedVoice, UnifiedVoiceConfig,
+                                                    init_unified_voice)
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice as P
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig as PC
+
+    kw = dict(layers=LAYERS, model_dim=D, heads=HEADS, max_text_tokens=20, max_mel_tokens=30)
+    return (init_unified_voice(UnifiedVoice(UnifiedVoiceConfig(**kw)), 0)["params"],
+            P(PC(**kw)))
+
+
+def _jax_diffusion():
+    from tortoise_tpu.models.diffusion_decoder import (DiffusionTts, DiffusionTtsConfig,
+                                                       init_diffusion_tts)
+    from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts as P
+    from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig as PC
+
+    kw = dict(model_channels=D, num_layers=LAYERS, in_latent_channels=D, num_heads=HEADS)
+    return (init_diffusion_tts(DiffusionTts(DiffusionTtsConfig(**kw)),
+                               jax.random.PRNGKey(0))["params"], P(PC(**kw)))
+
+
+def _clvp_kw():
+    return dict(dim_text=D, dim_speech=D, dim_latent=D, text_enc_depth=LAYERS,
+                text_heads=HEADS, speech_enc_depth=LAYERS, speech_heads=HEADS)
+
+
+def _jax_clvp():
+    from tortoise_tpu.models.clvp import CLVP, CLVPConfig
+    from tortoise_tpu_torch.models.clvp import CLVP as P
+    from tortoise_tpu_torch.models.clvp import CLVPConfig as PC
+
+    jm = CLVP(CLVPConfig(**_clvp_kw()))
+    return (jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32),
+                    jnp.zeros((1, 4), jnp.int32))["params"], P(PC(**_clvp_kw())))
+
+
+def _jax_vocoder():
+    from tortoise_tpu.models.vocoder import UnivNetConfig, UnivNetGenerator
+    from tortoise_tpu_torch.models.vocoder import UnivNetGenerator as P
+
+    jm = UnivNetGenerator(UnivNetConfig())
+    return (jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 12, 100)),
+                    jnp.zeros((1, 12, 64)))["params"], P())
+
+
+MODELS = {"autoregressive": _jax_ar, "diffusion_decoder": _jax_diffusion, "clvp": _jax_clvp,
+          "vocoder": _jax_vocoder}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_from_jax_covers_every_parameter(name):
+    params, port = MODELS[name]()
+    sd = from_jax(port, params)
+    assert set(sd) == set(port.state_dict())
+    port.load_state_dict(sd, strict=True)
+    # the layout change is a transpose, never a copy of something else
+    some = next(k for k in sd if k.endswith("weight") and sd[k].ndim >= 2)
+    assert sd[some].shape == port.state_dict()[some].shape
+
+
+# --- reference (tortoise-tts) state-dict layouts, random values -----------
+
+def _r(*shape):
+    return torch.randn(shape) * 0.1
+
+
+def _attn_block(sd, p, ch, heads, rel):
+    sd.update({f"{p}.norm.weight": _r(ch), f"{p}.norm.bias": _r(ch),
+               f"{p}.qkv.weight": _r(3 * ch, ch, 1), f"{p}.qkv.bias": _r(3 * ch),
+               f"{p}.proj_out.weight": _r(ch, ch, 1), f"{p}.proj_out.bias": _r(ch)})
+    if rel:
+        sd[f"{p}.relative_pos_embeddings.relative_attention_bias.weight"] = _r(32, heads)
+
+
+def _ref_autoregressive():
+    sd = {"conditioning_encoder.init.weight": _r(D, 80, 1),
+          "conditioning_encoder.init.bias": _r(D),
+          "text_embedding.weight": _r(256, D), "mel_embedding.weight": _r(8194, D),
+          "text_pos_embedding.emb.weight": _r(22, D), "mel_pos_embedding.emb.weight": _r(34, D),
+          "gpt.ln_f.weight": _r(D), "gpt.ln_f.bias": _r(D),
+          "final_norm.weight": _r(D), "final_norm.bias": _r(D),
+          "text_head.weight": _r(256, D), "text_head.bias": _r(256),
+          "mel_head.weight": _r(8194, D), "mel_head.bias": _r(8194)}
+    for i in range(6):
+        _attn_block(sd, f"conditioning_encoder.attn.{i}", D, HEADS, rel=False)
+    for i in range(LAYERS):
+        h = f"gpt.h.{i}"
+        for n in ("ln_1", "ln_2"):
+            sd.update({f"{h}.{n}.weight": _r(D), f"{h}.{n}.bias": _r(D)})
+        for n, (i_, o_) in {"attn.c_attn": (D, 3 * D), "attn.c_proj": (D, D),
+                            "mlp.c_fc": (D, 4 * D), "mlp.c_proj": (4 * D, D)}.items():
+            sd.update({f"{h}.{n}.weight": _r(i_, o_), f"{h}.{n}.bias": _r(o_)})
+    return sd, lambda s: ti.unified_voice_params(s, layers=LAYERS)
+
+
+def _resblock(sd, p, ch):
+    sd.update({f"{p}.in_layers.0.weight": _r(ch), f"{p}.in_layers.0.bias": _r(ch),
+               f"{p}.in_layers.2.weight": _r(ch, ch, 1), f"{p}.in_layers.2.bias": _r(ch),
+               f"{p}.emb_layers.1.weight": _r(2 * ch, ch), f"{p}.emb_layers.1.bias": _r(2 * ch),
+               f"{p}.out_layers.0.weight": _r(ch), f"{p}.out_layers.0.bias": _r(ch),
+               f"{p}.out_layers.3.weight": _r(ch, ch, 3), f"{p}.out_layers.3.bias": _r(ch)})
+
+
+def _ref_diffusion():
+    c = D
+    sd = {}
+    for name, shape in {"inp_block": (c, 100, 3), "time_embed.0": (c, c),
+                        "time_embed.2": (c, c), "latent_conditioner.0": (c, c, 3),
+                        "contextual_embedder.0": (c, 100, 3),
+                        "contextual_embedder.1": (2 * c, c, 3),
+                        "integrating_conv": (c, 2 * c, 1), "mel_head": (100, c, 3),
+                        "out.2": (200, c, 3)}.items():
+        sd.update({f"{name}.weight": _r(*shape), f"{name}.bias": _r(shape[0])})
+    for name in ("code_norm", "out.0"):
+        sd.update({f"{name}.weight": _r(c), f"{name}.bias": _r(c)})
+    sd["code_embedding.weight"] = _r(8193, c)
+    sd["unconditioned_embedding"] = _r(1, c, 1)
+    for i in range(3):
+        _attn_block(sd, f"code_converter.{i}", c, HEADS, rel=True)
+        _resblock(sd, f"conditioning_timestep_integrator.{i}.resblk", c)
+        _attn_block(sd, f"conditioning_timestep_integrator.{i}.attn", c, HEADS, rel=True)
+        _resblock(sd, f"layers.{LAYERS + i}", c)
+    for i in range(4):
+        _attn_block(sd, f"latent_conditioner.{i + 1}", c, HEADS, rel=True)
+    for i in range(5):
+        _attn_block(sd, f"contextual_embedder.{i + 2}", 2 * c, HEADS, rel=True)
+    for i in range(LAYERS):
+        _resblock(sd, f"layers.{i}.resblk", c)
+        _attn_block(sd, f"layers.{i}.attn", c, HEADS, rel=True)
+    return sd, lambda s: ti.diffusion_tts_params(s, num_layers=LAYERS)
+
+
+def _ref_clvp():
+    inner, ff = HEADS * 64, 2 * D
+    sd = {"text_emb.weight": _r(256, D), "speech_emb.weight": _r(8192, D),
+          "to_text_latent.weight": _r(D, D), "to_speech_latent.weight": _r(D, D),
+          "temperature": torch.tensor(1.0)}
+    for enc in ("text_transformer", "speech_transformer"):
+        p = f"{enc}.transformer"
+        sd.update({f"{p}.norm.weight": _r(D), f"{p}.norm.bias": _r(D)})
+        for d in range(LAYERS):
+            a, f = f"{p}.attn_layers.layers.{2 * d}", f"{p}.attn_layers.layers.{2 * d + 1}"
+            sd.update({f"{a}.0.0.g": _r(D), f"{f}.0.0.g": _r(D),
+                       f"{a}.1.wrap.to_q.weight": _r(inner, D),
+                       f"{a}.1.wrap.to_k.weight": _r(inner, D),
+                       f"{a}.1.wrap.to_v.weight": _r(inner, D),
+                       f"{a}.1.wrap.to_out.weight": _r(D, inner),
+                       f"{a}.1.wrap.to_out.bias": _r(D),
+                       f"{f}.1.wrap.net.0.proj.weight": _r(2 * ff, D),
+                       f"{f}.1.wrap.net.0.proj.bias": _r(2 * ff),
+                       f"{f}.1.wrap.net.3.weight": _r(D, ff), f"{f}.1.wrap.net.3.bias": _r(D)})
+    return sd, ti.clvp_params
+
+
+def _wn(sd, p, shape):
+    sd.update({f"{p}.weight_g": _r(shape[0], 1, 1).abs() + 0.5, f"{p}.weight_v": _r(*shape),
+               f"{p}.bias": _r(shape[1] if p.endswith("convt_pre.1") else shape[0])})
+
+
+def _ref_vocoder():
+    sd = {}
+    _wn(sd, "conv_pre", (32, 64, 7))
+    _wn(sd, "conv_post.1", (1, 32, 7))
+    for i, s in enumerate((8, 8, 4)):
+        kp = f"res_stack.{i}.kernel_predictor"
+        _wn(sd, f"{kp}.input_conv.0", (64, 100, 5))
+        for j in range(3):
+            _wn(sd, f"{kp}.residual_convs.{j}.1", (64, 64, 3))
+            _wn(sd, f"{kp}.residual_convs.{j}.3", (64, 64, 3))
+        _wn(sd, f"{kp}.kernel_conv", (32 * 64 * 3 * 4, 64, 3))
+        _wn(sd, f"{kp}.bias_conv", (64 * 4, 64, 3))
+        _wn(sd, f"res_stack.{i}.convt_pre.1", (32, 32, 2 * s))
+        for j in range(4):
+            _wn(sd, f"res_stack.{i}.conv_blocks.{j}.1", (32, 32, 3))
+    return sd, ti.univnet_params
+
+
+REFERENCE = {"autoregressive": _ref_autoregressive, "diffusion_decoder": _ref_diffusion,
+             "clvp": _ref_clvp, "vocoder": _ref_vocoder}
+
+
+@pytest.mark.parametrize("name", list(REFERENCE))
+def test_reference_layout_loads_through_torch_import(name):
+    torch.manual_seed(0)
+    sd, convert = REFERENCE[name]()
+    _, port = MODELS[name]()
+    missing, unexpected = port.load_state_dict(from_jax(port, convert(sd)), strict=False)
+    assert not missing and not unexpected
+    if name == "autoregressive":  # HF Conv1D (in, out) -> torch Linear (out, in)
+        np.testing.assert_array_equal(port.gpt.h_scan.block.attn.c_attn.weight[1].detach(),
+                                      sd["gpt.h.1.attn.c_attn.weight"].T)
+
+
+def test_load_weights_reads_a_reference_checkpoint(tmp_path):
+    torch.manual_seed(0)
+    sd, _ = _ref_vocoder()
+    torch.save({"model_g": sd}, tmp_path / "vocoder.pth")
+    _, port = MODELS["vocoder"]()
+    assert port_weights.load_weights("vocoder", port, str(tmp_path), False, 0) == "reference"
+    want = ti.fold_weight_norm(sd["conv_pre.weight_g"], sd["conv_pre.weight_v"])
+    np.testing.assert_allclose(port.conv_pre.weight.detach().numpy(), want, rtol=1e-6)
+    with pytest.raises(FileNotFoundError):
+        port_weights.load_weights("clvp", MODELS["clvp"]()[1], str(tmp_path), False, 0)
+
+
+@pytest.mark.parametrize("name", ["autoregressive", "diffusion_decoder", "clvp"])
+def test_reference_checkpoint_loads_without_jax(name, tmp_path):
+    """torch_import stacks layers with jax.tree.map; where jax cannot be
+    imported (the GPU machine) the port's stand-in gives the same weights."""
+    torch.manual_seed(0)
+    sd, convert = REFERENCE[name]()
+    _, port = MODELS[name]()
+    want = from_jax(port, convert(sd))
+    torch.save(sd, tmp_path / port_weights.REFERENCE_CHECKPOINTS[name])
+    torch.save(port, tmp_path / "model.pt")
+    proc = run_without_jax(f"""
+        import torch
+        from tortoise_tpu_torch.weights import load_weights
+        model = torch.load({str(tmp_path / "model.pt")!r}, weights_only=False)
+        assert load_weights({name!r}, model, {str(tmp_path)!r}, False, 0) == "reference"
+        assert "jax" not in sys.modules
+        torch.save(model.state_dict(), {str(tmp_path / "got.pt")!r})
+    """)
+    assert proc.returncode == 0, proc.stderr
+    got = torch.load(tmp_path / "got.pt")
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+
+
+def test_random_init_is_seeded_and_full():
+    from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
+
+    a, b = CLVP(CLVPConfig(**_clvp_kw())), CLVP(CLVPConfig(**_clvp_kw()))
+    port_weights.init_random(a, 5)
+    port_weights.init_random(b, 5)
+    for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert torch.equal(x, y), k
+        assert torch.isfinite(x).all(), k
+    w = a.text_transformer.layers_scan.attn.to_q.weight
+    assert abs(w.std().item() - D ** -0.5) < 0.1 * D ** -0.5
+    port_weights.cast_for_inference(a, torch.bfloat16)
+    assert w.dtype == torch.bfloat16
+    assert a.text_transformer.layers_scan.attn_norm.g.dtype == torch.float32

@@ -1,0 +1,133 @@
+"""Shared building blocks: GroupNorm32, AttentionBlock, ConditioningEncoder.
+
+Port of ``tortoise_tpu/models/blocks.py`` (itself the reference's
+arch_util.py). Activations are (batch, time, channels); normalizations run
+in float32 and return the input dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tortoise_tpu_torch.models.layers import Dense, Embed, Norm
+from tortoise_tpu_torch.ops import attn as attn_ops
+
+
+def norm_num_groups(channels: int) -> int:
+    """Group count heuristic (reference arch_util.py:26-41)."""
+    groups = 32
+    if channels <= 16:
+        groups = 8
+    elif channels <= 64:
+        groups = 16
+    while channels % groups != 0:
+        groups = int(groups / 2)
+    assert groups > 2
+    return groups
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm in float32. With ``mask`` ((B, T) bool) the statistics cover
+    valid positions only and padded positions come out zero, so a
+    right-padded run equals an unpadded one."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, lead: tuple = ()):
+        super().__init__()
+        self.GroupNorm_0 = Norm(channels, lead)
+        self.groups = norm_num_groups(channels)
+        self.eps = eps
+
+    def forward(self, x, mask=None, l: int | None = None):
+        scale, bias = self.GroupNorm_0.params(l)
+        b, t, c = x.shape
+        if mask is None:
+            y = F.group_norm(x.float().transpose(1, 2), self.groups, scale, bias, self.eps)
+            return y.transpose(1, 2).to(x.dtype)
+        g = self.groups
+        m = mask.float()[:, :, None]                              # (B, T, 1)
+        xg = (x.float() * m).reshape(b, t, g, c // g)
+        count = m.sum(dim=1, keepdim=True) * (c // g)             # (B, 1, 1)
+        mean = xg.sum(dim=(1, 3)) / count[:, 0]                   # (B, G)
+        dev = xg - mean[:, None, :, None]
+        var = (dev ** 2 * m[..., None]).sum(dim=(1, 3)) / count[:, 0]
+        xn = (dev * torch.rsqrt(var[:, None, :, None] + self.eps)).reshape(b, t, c)
+        return ((xn * scale + bias) * m).to(x.dtype)
+
+
+class AttentionBlock(nn.Module):
+    """Self-attention over time with the diffusion-codebase head layout
+    (per-head [q|k|v] channel interleave), 1/sqrt(sqrt(d)) applied to q and k,
+    float32 softmax, residual output.
+
+    ``valid_mask`` ((B, T) bool) excludes padded keys and zeroes padded
+    outputs. ``rel_bias`` is the layer's pre-scaled diagonal relative-position
+    vector (H, 2T-1); a block with ``relative_pos_embeddings`` and no
+    ``rel_bias`` builds it from its own bucket table. ``flash`` routes the
+    attention through kernel K3 (``ops/attn.py``), the other path is the
+    plain einsum (``tortoise_tpu/models/blocks.py:253-281``).
+    """
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 relative_pos_embeddings: bool = False, lead: tuple = ()):
+        super().__init__()
+        self.num_heads = num_heads
+        self.GroupNorm32_0 = GroupNorm32(channels, lead=lead)
+        self.qkv = Dense(channels, 3 * channels, lead=lead)
+        self.proj_out = Dense(channels, channels, lead=lead)
+        self.rel_pos = Embed(32, num_heads, lead=lead) if relative_pos_embeddings else None
+
+    def forward(self, x, valid_mask=None, rel_bias=None, flash: bool = False,
+                l: int | None = None):
+        b, t, c = x.shape
+        h = self.num_heads
+        ch = c // h
+        y = self.GroupNorm32_0(x, mask=valid_mask, l=l)
+        qkv = self.qkv(y, l=l).reshape(b, t, h, 3, ch)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        if rel_bias is None and self.rel_pos is not None:
+            table = self.rel_pos.weight if l is None else self.rel_pos.weight[l]
+            rel_bias = attn_ops.rel_bias_vector(table, t, ch ** 0.5)
+        if flash:
+            if rel_bias is None:
+                raise ValueError("the flash path needs a relative-position bias")
+            lens = (torch.full((b,), t, dtype=torch.int32, device=x.device)
+                    if valid_mask is None else valid_mask.sum(-1).to(torch.int32))
+            o = attn_ops.flash_rel_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), rel_bias.float().contiguous(), lens)
+            out = o.transpose(1, 2).reshape(b, t, c)
+        else:
+            scale = 1.0 / np.sqrt(np.sqrt(ch))
+            logits = torch.einsum("bthd,bshd->bhts", (q * scale).float(), (k * scale).float())
+            if rel_bias is not None:
+                logits = logits + attn_ops.expand_rel_bias(rel_bias.float(), t)[None]
+            if valid_mask is not None:
+                logits = logits.masked_fill(~valid_mask[:, None, None, :],
+                                            torch.finfo(torch.float32).min)
+            w = torch.softmax(logits, dim=-1).to(x.dtype)
+            out = torch.einsum("bhts,bshd->bthd", w, v.to(x.dtype)).reshape(b, t, c)
+        out = x + self.proj_out(out, l=l)
+        if valid_mask is not None:
+            out = out * valid_mask[:, :, None].to(out.dtype)
+        return out
+
+
+class ConditioningEncoder(nn.Module):
+    """Mel clip -> one conditioning vector: 1x1 conv then an attention stack,
+    taking the t=0 vector (reference autoregressive.py:204-228)."""
+
+    def __init__(self, spec_dim: int, embedding_dim: int, attn_blocks: int = 6,
+                 num_attn_heads: int = 4):
+        super().__init__()
+        self.init = Dense(spec_dim, embedding_dim)
+        self.n_blocks = attn_blocks
+        for i in range(attn_blocks):
+            setattr(self, f"attn_{i}", AttentionBlock(embedding_dim, num_attn_heads))
+
+    def forward(self, mel_btc):
+        h = self.init(mel_btc)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"attn_{i}")(h)
+        return h[:, 0]

@@ -1,0 +1,108 @@
+"""Leaf parameter modules shared by every model of the port.
+
+Each holds the parameters of one flax leaf module of ``tortoise_tpu`` under
+the same attribute path, so a port parameter ``a.b.weight`` is the JAX tree's
+``a/b/kernel`` (or ``scale`` / ``embedding``) in torch layout; see
+``convert/from_jax.py``. ``lead`` adds leading axes for layers that the JAX
+package stacks under ``nn.scan``; ``forward(..., l=i)`` then uses layer ``i``.
+
+Activations keep the JAX package's (batch, time, channels) layout; the conv
+modules transpose to torch's (batch, channels, time) around the call.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _pick(t: torch.Tensor | None, l: int | None):
+    return t if (t is None or l is None) else t[l]
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: weight (*lead, out, in), bias (*lead, out). The input
+    is cast to the weight's dtype, as flax casts to its compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 lead: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(*lead, out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(*lead, out_features)) if bias else None
+
+    def forward(self, x, l: int | None = None):
+        w = _pick(self.weight, l)
+        return F.linear(x.to(w.dtype), w, _pick(self.bias, l))
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over time on (B, T, C) input: weight (*lead, out, in, K)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, lead: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(*lead, out_ch, in_ch, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(*lead, out_ch))
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+
+    def forward(self, x, l: int | None = None):
+        w = _pick(self.weight, l)
+        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, _pick(self.bias, l),
+                     stride=self.stride, padding=self.padding, dilation=self.dilation)
+        return y.transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """torch ``ConvTranspose1d`` on (B, T, C): weight (in, out, K). The JAX
+    package stores it as a time-flipped (K, in, out) dilated-conv kernel."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
+                 padding: int, output_padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
+
+    def forward(self, x):
+        y = F.conv_transpose1d(x.to(self.weight.dtype).transpose(1, 2), self.weight,
+                               self.bias, stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding)
+        return y.transpose(1, 2)
+
+
+class Norm(nn.Module):
+    """Scale/bias of a flax LayerNorm or GroupNorm: weight (= scale), bias."""
+
+    def __init__(self, channels: int, lead: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(*lead, channels))
+        self.bias = nn.Parameter(torch.zeros(*lead, channels))
+
+    def params(self, l: int | None = None):
+        return _pick(self.weight, l).float(), _pick(self.bias, l).float()
+
+
+class LayerNorm(Norm):
+    """flax ``nn.LayerNorm(dtype=float32)``: returns float32."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, lead: tuple = ()):
+        super().__init__(channels, lead)
+        self.eps = eps
+
+    def forward(self, x, l: int | None = None):
+        w, b = self.params(l)
+        return F.layer_norm(x.float(), (x.shape[-1],), w, b, self.eps)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed`` (or a bucket table): weight (*lead, num, dim)."""
+
+    def __init__(self, num: int, dim: int, lead: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(*lead, num, dim))
+
+    def forward(self, idx):
+        return F.embedding(idx, self.weight)
+
+
+LEAF_TYPES = (Dense, Conv1d, ConvTranspose1d, Norm, Embed)

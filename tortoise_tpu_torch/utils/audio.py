@@ -1,0 +1,134 @@
+"""Audio loading, resampling, the voice registry and conditioning helpers.
+
+Port of ``tortoise_tpu/utils/audio.py`` plus ``format_conditioning`` and
+``deterministic_state`` from ``tortoise_tpu/api_fast.py``. Wav files only
+(scipy); resampling goes through ``tortoise_tpu.native`` when its library
+builds and scipy's polyphase resampler otherwise, exactly as in the JAX
+package. Voices come from ``tortoise_tpu/voices`` and the directories given.
+"""
+from __future__ import annotations
+
+import os
+import random
+import time
+from glob import glob
+
+import numpy as np
+import torch
+from scipy.io.wavfile import read as wav_read
+from scipy.signal import resample_poly
+
+from tortoise_tpu_torch.ops import mel as mel_ops
+
+BUILTIN_VOICES_DIR = os.path.join(os.path.dirname(os.path.realpath(__file__)), "..", "..",
+                                  "tortoise_tpu", "voices")
+
+
+def load_wav(path: str) -> tuple[np.ndarray, int]:
+    sr, data = wav_read(path)
+    norms = {np.dtype(np.int32): 2 ** 31, np.dtype(np.int16): 2 ** 15}
+    if data.dtype in norms:
+        norm = norms[data.dtype]
+    elif data.dtype in (np.float16, np.float32, np.float64):
+        norm = 1.0
+    elif data.dtype == np.uint8:
+        data, norm = data.astype(np.int16) - 128, 128
+    else:
+        raise NotImplementedError(f"unsupported wav dtype: {data.dtype}")
+    return data.astype(np.float32) / norm, sr
+
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    if orig_sr == target_sr:
+        return audio
+    from tortoise_tpu import native
+
+    if audio.ndim == 1 and native.available():
+        return native.resample(audio, orig_sr, target_sr)
+    if audio.ndim == 2 and audio.shape[0] == 1 and native.available():
+        return native.resample(audio[0], orig_sr, target_sr)[None]
+    g = np.gcd(int(orig_sr), int(target_sr))
+    return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+def load_audio(path: str, sampling_rate: int) -> np.ndarray:
+    """A wav clip -> float32 (1, T) in [-1, 1] at ``sampling_rate``."""
+    if os.path.splitext(path)[1].casefold() != ".wav":
+        raise ValueError(f"only wav clips are supported: {path}")
+    audio, sr = load_wav(path)
+    if audio.ndim > 1:
+        audio = audio[0] if audio.shape[0] < 5 else audio[:, 0]
+    return np.clip(resample(audio, sr, sampling_rate), -1, 1)[None, :]
+
+
+def pad_or_truncate(t: np.ndarray, length: int) -> np.ndarray:
+    if t.shape[-1] == length:
+        return t
+    if t.shape[-1] < length:
+        return np.pad(t, [(0, 0)] * (t.ndim - 1) + [(0, length - t.shape[-1])])
+    return t[..., :length]
+
+
+def get_voices(extra_voice_dirs: list[str] = ()) -> dict[str, list[str]]:
+    voices: dict[str, list[str]] = {}
+    for d in [BUILTIN_VOICES_DIR, *extra_voice_dirs]:
+        if not os.path.isdir(d):
+            continue
+        for sub in sorted(os.listdir(d)):
+            subj = os.path.join(d, sub)
+            if os.path.isdir(subj):
+                voices[sub] = sorted(glob(f"{subj}/*.wav")) + sorted(glob(f"{subj}/*.npz"))
+    return voices
+
+
+def load_voice(voice: str, extra_voice_dirs: list[str] = ()):
+    """-> (clips, latents): a list of (1, T) clips at 22.05 kHz, or an
+    (auto, diffusion) latent pair from a voice that holds only a latent .npz."""
+    if voice == "random":
+        return None, None
+    paths = get_voices(extra_voice_dirs)[voice]
+    wavs = [p for p in paths if p.endswith(".wav")]
+    latents = [p for p in paths if p.endswith(".npz") and not p.endswith(".clips.npz")]
+    if latents and not wavs:
+        z = np.load(latents[0])
+        return None, (z["auto"], z["diffusion"] if "diffusion" in z else None)
+    return [load_audio(p, 22050) for p in wavs], None
+
+
+def load_voices(voices: list[str], extra_voice_dirs: list[str] = ()):
+    """Several voices: clips concatenate, latent voices average."""
+    latents, clips = [], []
+    for voice in voices:
+        if voice == "random":
+            return None, None
+        clip, latent = load_voice(voice, extra_voice_dirs)
+        if latent is None:
+            clips.extend(clip)
+        else:
+            latents.append(latent)
+        if clips and latents:
+            raise ValueError("can only combine raw audio voices or latent voices, not both")
+    if not latents:
+        return clips, None
+    auto = np.stack([a for a, _ in latents]).mean(axis=0)
+    diff = [d for _, d in latents if d is not None]
+    return None, (auto, np.stack(diff).mean(axis=0) if diff else None)
+
+
+def deterministic_state(seed=None) -> int:
+    """The seed of a synthesis (the clock when none is given)."""
+    return int(time.time()) if seed is None else int(seed)
+
+
+def format_conditioning(clip: np.ndarray, mel_norms, device, rng: random.Random,
+                        cond_length: int = 132300) -> torch.Tensor:
+    """22.05 kHz clip (1, T) -> (1, T_mel, 80) conditioning mel: crop (at an
+    offset drawn from ``rng``) or pad to 6 s, then the tacotron mel."""
+    gap = clip.shape[-1] - cond_length
+    if gap < 0:
+        clip = np.pad(clip, ((0, 0), (0, -gap)))
+    elif gap > 0:
+        start = rng.randint(0, gap)
+        clip = clip[:, start:start + cond_length]
+    wav = torch.as_tensor(np.ascontiguousarray(clip), dtype=torch.float32, device=device)
+    return mel_ops.tacotron_mel(wav, mel_norms).transpose(1, 2)
