@@ -13,10 +13,12 @@ Phases, each of which raises on failure (nothing falls back):
   4. K3 (relative-position attention) against its plain version at B=2,
      H=16, D=64, T in {256, 2229}, per-row valid lengths below T;
   5. the full-width TextToSpeech (seeded random weights, voice
-     train_dotrice): one decode step and one diffusion forward with and
-     without the kernels, then three requests (ultra_fast, ultra_fast, fast
-     with classifier-free guidance) with the kernels' launch counters reset
-     just before them.
+     train_dotrice): K2 at the fast request's shapes (96 candidates, a cache
+     from a real prefill, the last decode position) layer by layer and whole,
+     with planted one-row-off cache reads that the check must catch; one
+     diffusion forward with and without K3; then three requests (ultra_fast,
+     ultra_fast, fast with classifier-free guidance) with the kernels' launch
+     counters reset just before them.
 
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel, and {"ok": true, "device": {...}}. The full record also goes
@@ -38,12 +40,30 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the layers: 0.05 x max|plain| (the JAX package bounds its 3-layer test of
 # this kernel at 0.03, tests/test_fused_decode_step.py)
 K2_REL_BOUND = 0.05
+# K2 one layer at a time on the main path's shapes, each layer given the
+# plain version's input, so nothing compounds: every (candidate, head)
+# attention output relative to its own max|plain|, and every hidden row
+# relative to its own max|plain|
+K2_HEAD_REL_BOUND = 0.02
+K2_ROW_REL_BOUND = 0.02
 # K3: bf16 output of a softmax-weighted mean of O(1) values; the plain
 # version rounds the weights to bf16, the kernel keeps them f32
 K3_ABS_BOUND = 0.02
 # fused vs unfused decode step / flash vs einsum diffusion forward at full
 # width, bf16 model: relative to max|unfused|
 MODEL_REL_BOUND = 0.05
+
+# (preset, text, seed) of the three requests; the fast one decodes its
+# preset's 96 candidates in one batch and runs classifier-free guidance
+REQUESTS = [
+    ("ultra_fast", "The quick brown fox jumps over the lazy dog.", 11),
+    ("ultra_fast", "Tortoise is a text to speech program built with a focus on "
+                   "multi-voice capabilities.", 12),
+    ("fast", "This request runs classifier free guidance, so the diffusion "
+             "batch holds two rows.", 13),
+]
+FAST_TEXT = REQUESTS[2][1]
+FAST_CANDIDATES = 96
 
 
 def _nvidia_smi() -> str:
@@ -89,7 +109,6 @@ def check_decode_step(record: dict) -> dict:
         "wfc2": rand(L, C, 4 * C, std=(4 * C) ** -0.5), "bfc2": rand(L, C, std=0.02),
     }
     cases, worst = [], 0.0
-    timing = {}
     for b in (1, 16):
         cache = {"k": rand(L, b, T, C), "v": rand(L, b, T, C)}
         x = rand(b, C)
@@ -110,15 +129,13 @@ def check_decode_step(record: dict) -> dict:
             if pos == 500:
                 ms = _time_ms(lambda: fused_decode_step(stacked, x, cache, pos, H), 20)
                 plain_ms = _time_ms(lambda: fused_decode_step_plain(stacked, x, cache, pos, H), 5)
-                timing[b] = (ms, plain_ms)
                 case.update(ms=ms, plain_ms=plain_ms)
                 print(f"K2 B={b:2d} pos=500: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     record["k2"] = cases
-    ms, plain_ms = timing[16]
+    # ms and plain_ms come from check_decode_main_path
     return {"name": "fused_decode_step", "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/decode_step.cu",
-            "replaces": "tortoise_tpu/ops/decode_step_pallas.py:267",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "replaces": "tortoise_tpu/ops/decode_step_pallas.py:267", "max_abs_err": worst}
 
 
 def check_flash_attention(record: dict) -> dict:
@@ -155,31 +172,133 @@ def check_flash_attention(record: dict) -> dict:
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
-def check_models(tts, record: dict) -> None:
-    """The kernels inside the full-width models against the plain paths."""
+def _head_rel_err(got, want, heads: int) -> float:
+    """Largest error over (batch row, head) of a (B, C) attention output,
+    each relative to that head's max|want|."""
+    b, c = want.shape
+    g = got.float().reshape(b, heads, c // heads)
+    w = want.float().reshape(b, heads, c // heads)
+    err = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-6)
+    return err.max().item()
+
+
+def _row_rel_err(got, want) -> float:
+    """Largest error over rows (the last dim) relative to that row's max|want|."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-6)).max().item()
+
+
+def check_decode_main_path(tts, clips, record: dict) -> dict:
+    """K2 at the fast request's shapes: 96 candidates, a cache filled by a
+    real prefill of the request's prompt plus 498 teacher-forced mel tokens,
+    padded to a multiple of 256 as the sampler pads it, and the last decode
+    step's position. Layer by layer (each layer gets the plain version's
+    input), every head's attention output is held to K2_HEAD_REL_BOUND; the
+    same comparison against the plain version reading the cache one row
+    short or long (pos -/+ 1) or one prefix row wrong must exceed it. Then the
+    whole 30-layer step, per row, and the fused against the unfused sampler
+    step."""
+    import random
+
+    import numpy as np
     import torch
 
     from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, _gpt_step
     from tortoise_tpu_torch.models.gpt2 import init_kv_cache
+    from tortoise_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
 
-    ar = tts.autoregressive
+    ar, cfg = tts.autoregressive, tts.autoregressive.config
+    heads, max_gen = cfg.heads, 500
+    b = min(FAST_CANDIDATES, tts.autoregressive_batch_size)
     g = torch.Generator(device="cuda").manual_seed(2)
+    ids = np.pad(np.asarray(tts.tokenizer.encode(FAST_TEXT))[None], ((0, 0), (0, 1)))
+    tb = -(-ids.shape[1] // tts.text_bucket) * tts.text_bucket
+    text = torch.as_tensor(np.pad(ids, ((0, 0), (0, tb - ids.shape[1]))), device="cuda")
+    stacked = tts._ar_stacked
     with torch.inference_mode():
-        prompt = torch.randn((4, 40, ar.config.model_dim), generator=g, device="cuda") \
-            .to(tts.dtype)
-        cache = init_kv_cache(ar.config.gpt_config, 4, 768, device="cuda")
-        ar.gpt(prompt, cache=cache, cache_index=0)
-        emb = ar.decode_embed(torch.tensor([[5], [17], [300], [8000]], device="cuda"), 0)
-        cache2 = {k: v.clone() for k, v in cache.items()}
-        fused = _gpt_step(ar, SamplerSettings(fused_step=True), tts._ar_stacked, emb, cache, 40)
-        plain = _gpt_step(ar, SamplerSettings(fused_step=False), None, emb, cache2, 40)
-        err = (fused.float() - plain.float()).abs().max().item()
-        bound = MODEL_REL_BOUND * plain.float().abs().max().item()
-        print(f"UnifiedVoice decode step, K2 vs layer stack: max|err| {err:.4g} (bound {bound:.4g})")
-        if err > bound:
-            raise AssertionError("K2 decode step disagrees with the layer stack")
+        latent, _ = tts.get_conditioning_latents(clips, crop_rng=random.Random(0))
+        prompt = ar.compute_prompt(latent, text).expand(b, -1, -1)
+        p_len = prompt.shape[1]
+        steps = max_gen - 2                      # the last step the sampler takes
+        pos = p_len + steps
+        t_cache = -(-(p_len + max_gen) // 256) * 256
+        toks = torch.randint(0, cfg.start_mel_token, (b, steps + 1), generator=g, device="cuda")
+        mel = torch.cat([ar.decode_embed(toks[:, s:s + 1], s) for s in range(steps)], dim=1)
+        cache = init_kv_cache(cfg.gpt_config, b, t_cache, device="cuda")
+        ar.gpt(torch.cat([prompt, mel], dim=1), cache=cache, cache_index=0)
+        emb = ar.decode_embed(toks[:, steps:], steps)
+        print(f"K2 main path: B={b} prompt {p_len} rows, cache T={t_cache}, pos={pos}")
 
-        dm = tts.diffusion
+        x = emb[:, 0].to(torch.bfloat16)
+        r = p_len + steps // 2                   # the prefix row read wrongly
+        attn_err, hidden_err = 0.0, 0.0
+        planted = {"pos-1": 0.0, "pos+1": 0.0, "row": 0.0}
+        for l in range(cfg.layers):
+            st = {n: t_[l:l + 1] for n, t_ in stacked.items()}
+            ca = {n: t_[l:l + 1] for n, t_ in cache.items()}
+            got = fused_decode_step(st, x, ca, pos, heads, with_attention=True)
+            want = fused_decode_step_plain(st, x, ca, pos, heads, with_attention=True)
+            attn_err = max(attn_err, _head_rel_err(got[3], want[3], heads))
+            hidden_err = max(hidden_err, _row_rel_err(got[0], want[0]))
+            # the faults: one row short; one row long, that row holding the
+            # step's own k/v as if written before the step; row r read as r + 1
+            ahead = {n: t_.clone() for n, t_ in ca.items()}
+            ahead["k"][0, :, pos], ahead["v"][0, :, pos] = got[1][0], got[2][0]
+            wrong_row = {n: t_.clone() for n, t_ in ca.items()}
+            for t_ in wrong_row.values():
+                t_[0, :, r] = t_[0, :, r + 1]
+            for name, p, c in (("pos-1", pos - 1, ca), ("pos+1", pos + 1, ahead),
+                               ("row", pos, wrong_row)):
+                wrong = fused_decode_step_plain(st, x, c, p, heads, with_attention=True)[3]
+                planted[name] = max(planted[name], _head_rel_err(got[3], wrong, heads))
+            x = want[0]
+        print(f"K2 per layer, attention heads: max rel err {attn_err:.4g} (bound "
+              f"{K2_HEAD_REL_BOUND}); hidden rows {hidden_err:.4g}; planted faults "
+              + ", ".join(f"{k} {v:.4g}" for k, v in planted.items()))
+        if attn_err > K2_HEAD_REL_BOUND:
+            raise AssertionError(f"K2 attention disagrees with its plain version: {attn_err}")
+        if hidden_err > K2_ROW_REL_BOUND:
+            raise AssertionError(f"K2 layer output disagrees with its plain version: "
+                                 f"{hidden_err}")
+        if min(planted.values()) <= K2_HEAD_REL_BOUND:
+            raise AssertionError(f"the attention check cannot see a planted cache fault: "
+                                 f"{planted}")
+
+        x = emb[:, 0].to(torch.bfloat16)
+        got = fused_decode_step(stacked, x, cache, pos, heads)
+        want = fused_decode_step_plain(stacked, x, cache, pos, heads)
+        step_errs = [_row_rel_err(a, w) for a, w in zip(got, want)]
+        print("K2 30 layers: max per-row rel err hidden/k/v = "
+              + "/".join(f"{e:.4g}" for e in step_errs) + f" (bound {K2_REL_BOUND})")
+        if max(step_errs) > K2_REL_BOUND:
+            raise AssertionError(f"K2 disagrees with its plain version: {step_errs}")
+        ms = _time_ms(lambda: fused_decode_step(stacked, x, cache, pos, heads), 20)
+        plain_ms = _time_ms(lambda: fused_decode_step_plain(stacked, x, cache, pos, heads), 5)
+        print(f"K2 B={b} pos={pos} T={t_cache}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+        # last: both sampler steps write the step's rows into the cache
+        fused = _gpt_step(ar, SamplerSettings(fused_step=True), stacked, emb, cache, pos)
+        plain = _gpt_step(ar, SamplerSettings(fused_step=False), None, emb, cache, pos)
+        sampler_err = _row_rel_err(fused, plain)
+        print(f"UnifiedVoice decode step, K2 vs layer stack: max per-row rel err "
+              f"{sampler_err:.4g} (bound {MODEL_REL_BOUND})")
+        if sampler_err > MODEL_REL_BOUND:
+            raise AssertionError("K2 decode step disagrees with the layer stack")
+    record["k2_main_path"] = {
+        "B": b, "pos": pos, "T": t_cache, "attn_head_rel_err": attn_err,
+        "layer_hidden_rel_err": hidden_err, "planted": planted,
+        "step_row_rel_err": step_errs, "sampler_row_rel_err": sampler_err,
+        "ms": ms, "plain_ms": plain_ms}
+    return {"ms": ms, "plain_ms": plain_ms}
+
+
+def check_diffusion(tts, record: dict) -> None:
+    """The diffusion forward with K3 against the einsum attention, full width."""
+    import torch
+
+    dm = tts.diffusion
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.inference_mode():
         t, n = 320, 300
         x = torch.randn((2, t, 100), generator=g, device="cuda")
         pre = torch.randn((2, t, dm.config.model_channels), generator=g, device="cuda") \
@@ -189,35 +308,26 @@ def check_models(tts, record: dict) -> None:
         biases = dm.rel_bias_vectors(t)
         out_flash = dm(x, steps, pre, valid_len=valid, rel_biases=biases, flash=True)
         out_plain = dm(x, steps, pre, valid_len=valid, rel_biases=biases, flash=False)
-        err2 = (out_flash[:, :n] - out_plain[:, :n]).abs().max().item()
-        bound2 = MODEL_REL_BOUND * out_plain[:, :n].abs().max().item()
-        print(f"DiffusionTts forward, K3 vs einsum attention: max|err| {err2:.4g} "
-              f"(bound {bound2:.4g})")
-        if err2 > bound2:
+        err = (out_flash[:, :n] - out_plain[:, :n]).abs().max().item()
+        bound = MODEL_REL_BOUND * out_plain[:, :n].abs().max().item()
+        print(f"DiffusionTts forward, K3 vs einsum attention: max|err| {err:.4g} "
+              f"(bound {bound:.4g})")
+        if err > bound:
             raise AssertionError("K3 diffusion forward disagrees with the einsum path")
-    record["model_checks"] = {"decode_step": [err, bound], "diffusion": [err2, bound2]}
+    record["diffusion_check"] = [err, bound]
 
 
-def run_pipeline(tts, record: dict) -> dict:
+def run_pipeline(tts, clips, record: dict) -> dict:
     import torch
 
     from tortoise_tpu_torch.ops.attn import flash_rel_attention
     from tortoise_tpu_torch.ops.decode_step import fused_decode_step
-    from tortoise_tpu_torch.utils.audio import load_voice
 
-    clips, _ = load_voice("train_dotrice")
-    requests = [
-        ("ultra_fast", "The quick brown fox jumps over the lazy dog.", 11),
-        ("ultra_fast", "Tortoise is a text to speech program built with a focus on "
-                       "multi-voice capabilities.", 12),
-        ("fast", "This request runs classifier free guidance, so the diffusion "
-                 "batch holds two rows.", 13),
-    ]
     counters = (fused_decode_step, flash_rel_attention)
     for fn in counters:
         fn.launches = 0
     results = []
-    for preset, text, seed in requests:
+    for preset, text, seed in REQUESTS:
         before = [fn.launches for fn in counters]
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -254,6 +364,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from tortoise_tpu_torch.api import TextToSpeech
     from tortoise_tpu_torch.ops import _build
+    from tortoise_tpu_torch.utils.audio import load_voice
 
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
@@ -273,8 +384,10 @@ def main() -> int:
     record["init_s"] = time.perf_counter() - t0
     print(f"TextToSpeech (full width, random weights) ready in {record['init_s']:.1f} s; "
           f"AR batch {tts.autoregressive_batch_size}")
-    check_models(tts, record)
-    launches = run_pipeline(tts, record)
+    clips, _ = load_voice("train_dotrice")
+    rows[0].update(check_decode_main_path(tts, clips, record))
+    check_diffusion(tts, record)
+    launches = run_pipeline(tts, clips, record)
     for row in rows:
         row["launches"] = launches[row["name"]]
     if "jax" in sys.modules:

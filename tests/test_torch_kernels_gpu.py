@@ -7,14 +7,36 @@ machine with a GPU and no jax (tests/conftest.py imports jax; skip it there):
 
 Without a CUDA device the gpu cases skip; the others run anywhere.
 """
+import warnings
+
 import pytest
 import torch
 
+from tortoise_tpu_torch.api import TextToSpeech
+from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
+from tortoise_tpu_torch.models.clvp import CLVPConfig
+from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig
 from tortoise_tpu_torch.ops import _build
 from tortoise_tpu_torch.ops.attn import flash_rel_attention, flash_rel_attention_plain
 from tortoise_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
 
 torch.set_num_threads(2)
+
+# tiny models whose attention heads are 64 wide, the kernels' head dim
+TINY = dict(
+    ar_config=UnifiedVoiceConfig(layers=2, model_dim=128, heads=2, max_text_tokens=60,
+                                 max_mel_tokens=80),
+    diffusion_config=DiffusionTtsConfig(model_channels=128, num_layers=2,
+                                        in_latent_channels=128, num_heads=2),
+    clvp_config=CLVPConfig(dim_text=128, dim_speech=128, dim_latent=128, text_enc_depth=2,
+                           text_heads=2, speech_enc_depth=2, speech_heads=2))
+
+
+def _tiny_tts(device, **kwargs):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return TextToSpeech(device=device, enable_redaction=False, autoregressive_batch_size=2,
+                            **TINY, **kwargs)
 
 
 @pytest.fixture
@@ -99,8 +121,35 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
-    from tortoise_tpu_torch.api import TextToSpeech
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TextToSpeech(device="cuda", enable_redaction=False)
+
+
+def test_cpu_defaults_to_plain_versions():
+    tts = _tiny_tts("cpu")
+    assert not tts.gpt_fused_step and not tts.flash_attn
+
+
+@pytest.mark.gpu
+def test_float32_model_on_cuda_still_runs_both_kernels(cuda):
+    """half=False keeps the kernels: they cast their inputs to bf16."""
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    tts = _tiny_tts(cuda, half=False)
+    assert tts.gpt_fused_step and tts.flash_attn
+    clips, _ = load_voice("train_dotrice")
+    before = (fused_decode_step.launches, flash_rel_attention.launches)
+    wav = tts.tts_with_preset("A short test.", preset="ultra_fast", voice_samples=clips,
+                              num_autoregressive_samples=2, diffusion_iterations=3,
+                              max_mel_tokens=24, use_deterministic_seed=3, verbose=False)
+    assert fused_decode_step.launches > before[0] and flash_rel_attention.launches > before[1]
+    assert wav.dtype == torch.float32 and torch.isfinite(wav).all()
+
+
+@pytest.mark.gpu
+def test_float32_cache_on_cuda_needs_the_plain_decode_asked_for(cuda):
+    with pytest.raises(ValueError, match="gpt_fused_step=False"):
+        _tiny_tts(cuda, kv_cache_dtype="f32")
+    tts = _tiny_tts(cuda, kv_cache_dtype="f32", gpt_fused_step=False)
+    assert not tts.gpt_fused_step and tts.flash_attn

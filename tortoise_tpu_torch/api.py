@@ -132,11 +132,16 @@ class TextToSpeech:
                                       "caches are ported (int8 waits, ROADMAP.md Queue 2)")
         self.kv_cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kv_cache_dtype]
         self.dtype = torch.bfloat16 if half else torch.float32
-        # K2 and K3 compute in bf16; the CPU takes their plain versions only
-        # when asked to explicitly
-        self.gpt_fused_step = (is_cuda and half and self.kv_cache_dtype == torch.bfloat16
-                               if gpt_fused_step is None else gpt_fused_step)
-        self.flash_attn = is_cuda and half if flash_attn is None else flash_attn
+        # On CUDA both kernels run unless the caller turns one off. They
+        # compute in bf16 and cast their inputs at the call boundary, as the
+        # JAX fused step does, so half=False keeps them. The CPU takes their
+        # plain versions only when asked to explicitly.
+        self.gpt_fused_step = is_cuda if gpt_fused_step is None else gpt_fused_step
+        self.flash_attn = is_cuda if flash_attn is None else flash_attn
+        if is_cuda and self.gpt_fused_step and self.kv_cache_dtype != torch.bfloat16:
+            raise ValueError("gpt_fused_step: kernel K2 reads a bf16 KV cache; with "
+                             "kv_cache_dtype='f32' pass gpt_fused_step=False to decode "
+                             "with the plain layer stack")
         self.text_bucket = text_bucket
         self.tokenizer = VoiceBpeTokenizer(vocab_file=tokenizer_vocab_file,
                                            use_basic_cleaners=tokenizer_basic)

@@ -102,10 +102,13 @@ def _check_cuda_args(q, k, v, bias_vec, valid_len):
 
 
 def flash_rel_attention(q, k, v, bias_vec, valid_len):
-    """q, k, v (B, H, T, 64) bf16; bias_vec (H, 2T-1) float32; valid_len (B,)
-    int32. Returns (B, H, T, 64) in q's dtype."""
+    """q, k, v (B, H, T, 64); bias_vec (H, 2T-1) float32; valid_len (B,)
+    int32. Returns (B, H, T, 64) in q's dtype. On CUDA q, k and v are cast
+    to bf16, the kernel's only compute dtype."""
     if not q.is_cuda:
         return flash_rel_attention_plain(q, k, v, bias_vec, valid_len)
+    out_dtype = q.dtype
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     _check_cuda_args(q, k, v, bias_vec, valid_len)
     b, h, t, _ = q.shape
     lib = _build.load("flash_rel_attn", _SIGNATURE)
@@ -115,7 +118,7 @@ def flash_rel_attention(q, k, v, bias_vec, valid_len):
                                 valid_len.data_ptr(), out.data_ptr(), b, h, t, stream)
     _build.check(err, "flash_rel_attn kernel")
     flash_rel_attention.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 flash_rel_attention.launches = 0

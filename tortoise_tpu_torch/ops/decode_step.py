@@ -84,8 +84,9 @@ def _attention(q, k_cur, v_cur, k_prev, v_prev, heads):
 
 
 def fused_decode_step_plain(stacked: dict, x: torch.Tensor, cache: dict, pos: int,
-                            heads: int):
-    """Plain PyTorch K2 with the TPU kernel's rounding order."""
+                            heads: int, with_attention: bool = False):
+    """Plain PyTorch K2 with the TPU kernel's rounding order.
+    ``with_attention`` also returns the last layer's attention output (B, C)."""
     x = x.to(torch.bfloat16)
     s = stacked
     n_layers = s["wqkv"].shape[0]
@@ -102,7 +103,8 @@ def fused_decode_step_plain(stacked: dict, x: torch.Tensor, cache: dict, pos: in
         h2 = _layer_norm(x, s["ln2"][l])
         f = _gelu_new(_dense(h2, s["wfc"][l], s["bfc"][l]).float()).to(torch.bfloat16)
         x = x + _dense(f, s["wfc2"][l], s["bfc2"][l])
-    return x, torch.stack(k_rows), torch.stack(v_rows)
+    out = (x, torch.stack(k_rows), torch.stack(v_rows))
+    return out + (attn,) if with_attention else out
 
 
 def _check_cuda_args(stacked, x, cache, pos, heads):
@@ -129,12 +131,15 @@ def _check_cuda_args(stacked, x, cache, pos, heads):
         raise ValueError("cache k and v shapes differ")
 
 
-def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, heads: int):
+def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, heads: int,
+                      with_attention: bool = False):
     """One decode step over all layers. x: (B, C) embedding (cast to bf16, the
     kernel's only compute dtype). Returns (hidden (B, C), k_rows (L, B, C),
-    v_rows (L, B, C)), bf16. CPU tensors take the plain version."""
+    v_rows (L, B, C)), bf16. ``with_attention`` also returns the last layer's
+    attention output (B, C), which the kernel leaves in its scratch: checks
+    hold it against the plain version's. CPU tensors take the plain version."""
     if not x.is_cuda:
-        return fused_decode_step_plain(stacked, x, cache, pos, heads)
+        return fused_decode_step_plain(stacked, x, cache, pos, heads, with_attention)
     x = x.to(torch.bfloat16)
     _check_cuda_args(stacked, x, cache, pos, heads)
     lcount, b, t, c = cache["k"].shape
@@ -153,7 +158,7 @@ def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, hea
         lcount, b, t, c, int(pos), stream)
     _build.check(err, "decode_step kernel")
     fused_decode_step.launches += 1
-    return hidden, k_rows, v_rows
+    return (hidden, k_rows, v_rows, attn) if with_attention else (hidden, k_rows, v_rows)
 
 
 fused_decode_step.launches = 0

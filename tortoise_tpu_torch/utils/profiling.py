@@ -1,0 +1,123 @@
+"""Device-time breakdown of TextToSpeech requests on one GPU.
+
+    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json]
+
+Builds the full-width TextToSpeech (seeded random weights, voice
+train_dotrice), answers one unprofiled warm-up request, then answers one
+ultra_fast and one fast request (classifier-free guidance, 96 candidates)
+under ``torch.profiler``. For each it reports the profiled wall seconds,
+the device busy time (the union of the device events' intervals), the busy
+share of the profiled wall, device time by kernel family and the stage
+seconds. Only device events are summed: the profiler also lists every aten
+op with the time of the kernels it launched, and adding those would count
+each kernel twice. The profiler's own host cost stretches the wall, so the
+busy share is a lower bound for an unprofiled request.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+# kernel name fragment -> family, first match wins
+FAMILIES = (
+    ("rows_gemm_kernel", "K2 gemm"),
+    ("decode_attention_kernel", "K2 attention"),
+    ("flash_rel_attn_kernel", "K3"),
+    ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
+    ("cudnn", "cuBLAS/cuDNN"), ("conv", "cuBLAS/cuDNN"),
+)
+REQUESTS = (
+    ("ultra_fast", "The quick brown fox jumps over the lazy dog.", 11),
+    ("fast", "This request runs classifier free guidance, so the diffusion "
+             "batch holds two rows.", 13),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fragment, fam in FAMILIES:
+        if fragment.lower() in low:
+            return fam
+    return "other"
+
+
+def device_breakdown(events) -> dict:
+    """Device events (each with ``name``, ``start_us``, ``end_us``) -> busy
+    milliseconds, first-to-last span and milliseconds by family."""
+    spans = sorted((e["start_us"], e["end_us"]) for e in events)
+    busy, cur_start, cur_end = 0.0, None, None
+    for s, e in spans:
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    by_family: dict[str, float] = {}
+    for e in events:
+        fam = family(e["name"])
+        by_family[fam] = by_family.get(fam, 0.0) + (e["end_us"] - e["start_us"]) / 1000.0
+    return {"device_busy_ms": busy / 1000.0,
+            "device_span_ms": (max(e for _, e in spans) - spans[0][0]) / 1000.0 if spans else 0.0,
+            "ms_by_family": by_family, "n_device_events": len(events)}
+
+
+def _device_events(prof) -> list[dict]:
+    return [{"name": e.name, "start_us": e.time_range.start, "end_us": e.time_range.end}
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_requests(tts, clips) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    tts.tts_with_preset(REQUESTS[0][1], preset="ultra_fast", voice_samples=clips,
+                        use_deterministic_seed=10, verbose=False)
+    out = {}
+    for preset, text, seed in REQUESTS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tts.tts_with_preset(text, preset=preset, voice_samples=clips,
+                                use_deterministic_seed=seed, verbose=False)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+        res = device_breakdown(_device_events(prof))
+        res.update(wall_ms_profiled=wall_ms,
+                   busy_share_of_wall=res["device_busy_ms"] / wall_ms,
+                   stages_s=tts.last_stage_timings)
+        out[preset] = res
+    return out
+
+
+def main() -> int:
+    import subprocess
+
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default=os.path.join("build", "profile.json"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: torch sees no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    tts = TextToSpeech(device="cuda", enable_redaction=False)
+    clips, _ = load_voice("train_dotrice")
+    result = {"nvidia_smi": smi, **profile_requests(tts, clips)}
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

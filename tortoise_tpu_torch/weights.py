@@ -89,7 +89,13 @@ def _layer_stacking_without_jax():
     only use of jax. Unless jax is loaded already, a stand-in ``jax`` module
     holding just that function is importable while the conversion runs, so a
     checkpoint loads where jax is not installed and the port never imports
-    it."""
+    it.
+
+    The stand-in is process-wide: another thread that imports jax while a
+    conversion runs gets it. That is acceptable only while checkpoints are
+    converted once, in ``TextToSpeech.__init__``, and the repo ships none;
+    the lasting fix is a numpy tree map that ``torch_import`` takes as a
+    parameter (ROADMAP.md, Queue 1)."""
     if "jax" in sys.modules:
         yield
         return
