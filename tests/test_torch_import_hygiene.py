@@ -39,7 +39,8 @@ def run_without_jax(code: str) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120, cwd=ROOT)
 
 
-@pytest.mark.parametrize("module", ["tortoise_tpu_torch.api", "chip_smoke"])
+@pytest.mark.parametrize("module", ["tortoise_tpu_torch.api", "tortoise_tpu_torch.api_fast",
+                                    "chip_smoke"])
 def test_port_imports_without_jax(module):
     proc = run_without_jax(f"""
         import {module}

@@ -1,4 +1,5 @@
-"""The CUDA kernels K2 and K3 against their plain PyTorch versions, on the GPU.
+"""The CUDA kernels K2 (every weight x cache variant) and K3 against their
+plain PyTorch versions, on the GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with a GPU and no jax (tests/conftest.py imports jax; skip it there):
@@ -18,7 +19,8 @@ from tortoise_tpu_torch.models.clvp import CLVPConfig
 from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig
 from tortoise_tpu_torch.ops import _build
 from tortoise_tpu_torch.ops.attn import flash_rel_attention, flash_rel_attention_plain
-from tortoise_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_plain
+from tortoise_tpu_torch.ops.decode_step import (fused_decode_step, fused_decode_step_plain,
+                                                quantize_cache, quantize_stack, variant)
 
 torch.set_num_threads(2)
 
@@ -71,6 +73,49 @@ def test_decode_step_kernel_matches_plain(cuda, b, pos):
     for a, w in zip(got, want):
         w = w.float()
         assert (a.float() - w).abs().max().item() <= 0.03 * w.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8_weights", "int8_cache", "int8_weights_int8_cache"])
+@pytest.mark.parametrize("b,pos", [(1, 0), (3, 37), (16, 200)])
+def test_decode_step_int8_kernels_match_plain(cuda, kind, b, pos):
+    L, C, H, T = 2, 1024, 16, 256
+    g = torch.Generator(device=cuda).manual_seed(1)
+    stacked = _stack(g, cuda, L, C)
+    cache = {k: torch.randn((L, b, T, C), generator=g, device=cuda).to(torch.bfloat16)
+             for k in ("k", "v")}
+    if "weights" in kind:
+        stacked = quantize_stack(stacked)
+    if "cache" in kind:
+        cache = quantize_cache(cache, H)
+    assert variant(stacked, cache) == kind
+    x = torch.randn((b, C), generator=g, device=cuda).to(torch.bfloat16)
+    before = fused_decode_step.launches_by_variant[kind]
+    got = fused_decode_step(stacked, x, cache, pos, H)
+    assert fused_decode_step.launches_by_variant[kind] == before + 1
+    want = fused_decode_step_plain(stacked, x, cache, pos, H)
+    for a, w in zip(got, want):
+        w = w.float()
+        assert (a.float() - w).abs().max().item() <= 0.03 * w.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_decode_step_int8_kernels_reject_bad_scales(cuda):
+    L, C, H, T = 1, 1024, 16, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    stacked = quantize_stack(_stack(g, cuda, L, C))
+    cache = quantize_cache({k: torch.zeros((L, 2, T, C), dtype=torch.bfloat16, device=cuda)
+                         for k in "kv"}, H)
+    x = torch.zeros((2, C), dtype=torch.bfloat16, device=cuda)
+    bad = dict(cache, k_scale=cache["k_scale"].transpose(2, 3).contiguous())  # (L, B, T, H)
+    with pytest.raises(ValueError, match="k_scale"):
+        fused_decode_step(stacked, x, bad, 0, H)
+    with pytest.raises(ValueError, match="v_scale"):
+        fused_decode_step(stacked, x, {n: t for n, t in cache.items() if n != "v_scale"}, 0, H)
+    with pytest.raises(ValueError, match="sfc"):
+        fused_decode_step(dict(stacked, sfc=stacked["sfc"][:, :C].contiguous()), x, cache, 0, H)
+    with pytest.raises(ValueError, match="bqkv"):
+        fused_decode_step(dict(stacked, bqkv=stacked["bqkv"].bfloat16()), x, cache, 0, H)
 
 
 @pytest.mark.gpu
@@ -153,3 +198,25 @@ def test_float32_cache_on_cuda_needs_the_plain_decode_asked_for(cuda):
         _tiny_tts(cuda, kv_cache_dtype="f32")
     tts = _tiny_tts(cuda, kv_cache_dtype="f32", gpt_fused_step=False)
     assert not tts.gpt_fused_step and tts.flash_attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gpt_weights,kind", [("bf16", "bf16"), ("int8", "int8_weights"),
+                                              ("int8_decode", "int8_weights")])
+def test_fast_path_on_cuda_runs_its_k2_variant(cuda, gpt_weights, kind):
+    """TextToSpeechFast on CUDA decodes with K2 by default, the variant its
+    gpt_weights select, in tts and in tts_stream (same codes both ways)."""
+    from tortoise_tpu_torch.api_fast import TextToSpeechFast
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tts = TextToSpeechFast(device=cuda, ar_config=TINY["ar_config"], gpt_weights=gpt_weights)
+    assert tts.gpt_fused_step
+    before = fused_decode_step.launches_by_variant[kind]
+    wav = tts.tts("A short test.", use_deterministic_seed=3, max_mel_tokens=24, verbose=False)
+    codes = tts.last_codes
+    assert fused_decode_step.launches_by_variant[kind] > before
+    chunks = list(tts.tts_stream("A short test.", use_deterministic_seed=3, max_mel_tokens=24,
+                                 verbose=False))
+    assert (tts.last_codes == codes).all() and sum(len(c) for c in chunks) == wav.shape[2]
+    assert wav.dtype == torch.float32 and torch.isfinite(wav).all()

@@ -219,3 +219,38 @@ def test_unported_options_raise(pair):
     with pytest.raises(NotImplementedError, match="CVVP"):
         ptts.tts(TEXT, conditioning_latents=(np.zeros((1, 128)), np.zeros((1, 256))),
                  cvvp_amount=0.5, verbose=False)
+
+
+def test_tts_without_voice_uses_random_latents(pair):
+    """No voice and no latents: random voice latents from the two random-latent
+    generators, seeded by the request's seed."""
+    _, ptts = pair
+    kw = dict(num_autoregressive_samples=2, diffusion_iterations=2, max_mel_tokens=16,
+              use_deterministic_seed=4, verbose=False)
+    wav = ptts.tts(TEXT, **kw)
+    assert wav.shape[:2] == (1, 1) and wav.shape[2] % 256 == 0 and torch.isfinite(wav).all()
+    auto, diff = ptts.get_random_conditioning_latents(4)
+    assert auto.shape == (1, 128) and diff.shape == (1, 256)
+    assert torch.equal(ptts.get_random_conditioning_latents(4)[0], auto)
+
+
+@pytest.mark.parametrize("kv_cache_dtype,gpt_weights", [("int8", "bf16"), ("int8", "int8"),
+                                                        ("bf16", "int8_decode")])
+def test_int8_options_run_end_to_end(kv_cache_dtype, gpt_weights):
+    """The int8 cache and int8 GPT weights through tts_with_preset (bf16 model,
+    K2's plain version on the CPU): a finite clip of the usual shape, K2's
+    stack int8 where the weights are."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tts = papi.TextToSpeech(
+            device="cpu", autoregressive_batch_size=2, enable_redaction=False,
+            kv_cache_dtype=kv_cache_dtype, gpt_weights=gpt_weights, gpt_fused_step=True,
+            ar_config=UnifiedVoiceConfig(**AR), diffusion_config=DiffusionTtsConfig(**DIFF),
+            clvp_config=CLVPConfig(**CLVP))
+    assert tts.kv_cache_dtype == {"int8": torch.int8, "bf16": torch.bfloat16}[kv_cache_dtype]
+    assert (tts._ar_stacked["wqkv"].dtype == torch.int8) == (gpt_weights != "bf16")
+    clips, _ = load_voice("train_dotrice")
+    wav = tts.tts_with_preset(TEXT, preset="ultra_fast", voice_samples=clips,
+                              num_autoregressive_samples=2, diffusion_iterations=2,
+                              max_mel_tokens=16, use_deterministic_seed=3, verbose=False)
+    assert wav.shape[:2] == (1, 1) and torch.isfinite(wav).all() and wav.abs().max() <= 1.0

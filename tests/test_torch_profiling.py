@@ -9,6 +9,9 @@ from tortoise_tpu_torch.utils import profiling
 @pytest.mark.parametrize("name,fam", [
     ("void tt::(anonymous namespace)::rows_gemm_kernel<1, 0>(...)", "K2 gemm"),
     ("tt::(anonymous namespace)::decode_attention_kernel(...)", "K2 attention"),
+    ("void tt::(anonymous namespace)::rows_gemm_kernel<signed char, 1, 0>(...)", "K2 gemm int8"),
+    ("void tt::(anonymous namespace)::decode_attention_kernel<signed char>(...)",
+     "K2 attention int8"),
     ("flash_rel_attn_kernel", "K3"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS/cuDNN"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel", "cuBLAS/cuDNN"),

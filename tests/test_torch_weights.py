@@ -64,8 +64,46 @@ def _jax_vocoder():
                     jnp.zeros((1, 12, 64)))["params"], P())
 
 
+def _jax_ar_int8():
+    """UnifiedVoice with QuantDense block denses: int8 kernels, qscale, bias."""
+    from tortoise_tpu.models.autoregressive import (UnifiedVoice, UnifiedVoiceConfig,
+                                                    init_unified_voice)
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice as P
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig as PC
+
+    kw = dict(layers=LAYERS, model_dim=D, heads=HEADS, max_text_tokens=20, max_mel_tokens=30,
+              quant_weights=True)
+    params = init_unified_voice(UnifiedVoice(UnifiedVoiceConfig(**kw)), 0)["params"]
+    assert params["gpt"]["h_scan"]["block"]["attn"]["c_attn"]["kernel"].dtype == jnp.int8
+    return params, P(PC(**kw))
+
+
+HIFI = dict(in_channels=D, upsample_initial_channel=64, cond_channels=D)
+
+
+def _jax_hifigan():
+    from tortoise_tpu.models.hifigan import HifiganConfig, HifiganGenerator
+    from tortoise_tpu_torch.models.hifigan import HifiganConfig as PC
+    from tortoise_tpu_torch.models.hifigan import HifiganGenerator as P
+
+    jm = HifiganGenerator(HifiganConfig(**HIFI))
+    return (jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, D)), jnp.zeros((1, D)))["params"],
+            P(PC(**HIFI)))
+
+
+def _jax_rlg(channels):
+    def make():
+        from tortoise_tpu.models.random_latent import RandomLatentConverter
+        from tortoise_tpu_torch.models.random_latent import RandomLatentConverter as P
+
+        jm = RandomLatentConverter(channels)
+        return jm.init(jax.random.PRNGKey(0), jnp.zeros((1, channels)))["params"], P(channels)
+    return make
+
+
 MODELS = {"autoregressive": _jax_ar, "diffusion_decoder": _jax_diffusion, "clvp": _jax_clvp,
-          "vocoder": _jax_vocoder}
+          "vocoder": _jax_vocoder, "autoregressive_int8": _jax_ar_int8,
+          "hifidecoder": _jax_hifigan, "rlg_auto": _jax_rlg(D), "rlg_diffuser": _jax_rlg(2 * D)}
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -196,8 +234,41 @@ def _ref_vocoder():
     return sd, ti.univnet_params
 
 
+def _wn_hifi(sd, p, shape, out_ch):
+    sd.update({f"{p}.weight_g": _r(shape[0], 1, 1).abs() + 0.5, f"{p}.weight_v": _r(*shape),
+               f"{p}.bias": _r(out_ch)})
+
+
+def _ref_hifigan():
+    """reference HifiganGenerator: weight-normed convs, ConvTranspose1d
+    weights (in, out, K), ResBlock1 convs1/convs2."""
+    sd = {"cond_layer.weight": _r(64, D, 1), "cond_layer.bias": _r(64)}
+    _wn_hifi(sd, "conv_pre", (64, D, 7), 64)
+    ch = 64
+    for i, k in enumerate((16, 16, 4, 4)):
+        _wn_hifi(sd, f"ups.{i}", (ch, ch // 2, k), ch // 2)
+        ch //= 2
+        for j, rk in enumerate((3, 7, 11)):
+            for n in range(3):
+                for conv in ("convs1", "convs2"):
+                    _wn_hifi(sd, f"resblocks.{3 * i + j}.{conv}.{n}", (ch, ch, rk), ch)
+    _wn_hifi(sd, "conv_post", (1, ch, 7), 1)
+    return sd, ti.hifigan_params
+
+
+def _ref_rlg(channels):
+    def make():
+        sd = {}
+        for i in range(6):
+            sd.update({f"layers.{i}.weight": _r(channels, channels),
+                       f"layers.{i}.bias": _r(channels)})
+        return sd, ti.rlg_params
+    return make
+
+
 REFERENCE = {"autoregressive": _ref_autoregressive, "diffusion_decoder": _ref_diffusion,
-             "clvp": _ref_clvp, "vocoder": _ref_vocoder}
+             "clvp": _ref_clvp, "vocoder": _ref_vocoder, "hifidecoder": _ref_hifigan,
+             "rlg_auto": _ref_rlg(D), "rlg_diffuser": _ref_rlg(2 * D)}
 
 
 @pytest.mark.parametrize("name", list(REFERENCE))
@@ -210,6 +281,9 @@ def test_reference_layout_loads_through_torch_import(name):
     if name == "autoregressive":  # HF Conv1D (in, out) -> torch Linear (out, in)
         np.testing.assert_array_equal(port.gpt.h_scan.block.attn.c_attn.weight[1].detach(),
                                       sd["gpt.h.1.attn.c_attn.weight"].T)
+    if name == "hifidecoder":     # the transposed conv's kernel, un-flipped: torch's own
+        np.testing.assert_allclose(port.up_1.weight.detach().numpy(), ti.fold_weight_norm(
+            sd["ups.1.weight_g"], sd["ups.1.weight_v"]), rtol=1e-6)
 
 
 def test_load_weights_reads_a_reference_checkpoint(tmp_path):
@@ -224,7 +298,8 @@ def test_load_weights_reads_a_reference_checkpoint(tmp_path):
         port_weights.load_weights("clvp", MODELS["clvp"]()[1], str(tmp_path), False, 0)
 
 
-@pytest.mark.parametrize("name", ["autoregressive", "diffusion_decoder", "clvp"])
+@pytest.mark.parametrize("name", ["autoregressive", "diffusion_decoder", "clvp", "hifidecoder",
+                                  "rlg_auto"])
 def test_reference_checkpoint_loads_without_jax(name, tmp_path):
     """torch_import stacks layers with jax.tree.map; where jax cannot be
     imported (the GPU machine) the port's stand-in gives the same weights."""
@@ -263,3 +338,42 @@ def test_random_init_is_seeded_and_full():
     port_weights.cast_for_inference(a, torch.bfloat16)
     assert w.dtype == torch.bfloat16
     assert a.text_transformer.layers_scan.attn_norm.g.dtype == torch.float32
+
+
+def test_int8_model_quantizes_a_float_reference_checkpoint(tmp_path):
+    """gpt_weights="int8": a full-precision reference checkpoint loads into
+    QuantDense layers quantized per output channel, as the JAX package's
+    quantize_gpt_weights does on its converted tree."""
+    from tortoise_tpu import weights as jax_weights
+
+    torch.manual_seed(0)
+    sd, convert = _ref_autoregressive()
+    torch.save(sd, tmp_path / "autoregressive.pth")
+    _, port = MODELS["autoregressive_int8"]()
+    assert port_weights.load_weights("autoregressive", port, str(tmp_path), False, 0) == \
+        "reference"
+    want = jax_weights.quantize_gpt_weights(convert(sd))["gpt"]["h_scan"]["block"]["mlp_fc"]
+    got = port.gpt.h_scan.block.mlp_fc
+    assert got.weight.dtype == torch.int8
+    np.testing.assert_array_equal(got.weight.numpy(), np.swapaxes(want["kernel"], -1, -2))
+    np.testing.assert_array_equal(got.qscale.detach().numpy(), want["qscale"])
+
+
+def test_random_init_of_int8_and_random_latent_layers():
+    """QuantDense: int8 weights uniform in [-127, 127], qscale
+    1/(127 sqrt(in)); EqualLinear: N(0, 1/lr_mul^2); and qscale stays f32
+    under cast_for_inference."""
+    from tortoise_tpu_torch.models.layers import QuantDense
+    from tortoise_tpu_torch.models.random_latent import RandomLatentConverter
+
+    q = QuantDense(256, 64, lead=(2,))
+    port_weights.init_random(q, 3)
+    w = q.weight.numpy()
+    assert w.dtype == np.int8 and w.min() == -127 and w.max() == 127
+    assert abs(w.astype(np.float32).std() - 254 / np.sqrt(12)) < 3
+    np.testing.assert_allclose(q.qscale.detach().numpy(), 1 / (127 * 16.0), rtol=1e-6)
+    port_weights.cast_for_inference(q, torch.bfloat16)
+    assert q.qscale.dtype == torch.float32 and q.bias.dtype == torch.bfloat16
+    r = RandomLatentConverter(64)
+    port_weights.init_random(r, 3)
+    assert abs(r.eq_0.weight.std().item() - 10.0) < 0.5 and not r.eq_0.bias.any()

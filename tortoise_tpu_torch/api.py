@@ -7,8 +7,12 @@ and CLVP re-ranking; teacher-forced latent re-extraction for the winners;
 DiffusionTts sampling (kernel K3 in its 13 per-step attention blocks on
 CUDA); UnivNet vocoding.
 
-Not ported yet (ROADMAP.md): CVVP re-ranking, redaction, random voice
-latents, the int8 KV cache and weights.
+Options as in the JAX package: ``kv_cache_dtype="int8"`` (int8 rows plus
+f32 scales, about 0.53x the bf16 cache's bytes per candidate) and
+``gpt_weights`` "bf16" | "int8" (int8 block denses everywhere) |
+"int8_decode" (bf16 model, int8 weights only in K2's stack); ``tts``
+without a voice draws random voice latents. Not ported yet (ROADMAP.md):
+CVVP re-ranking, redaction.
 """
 from __future__ import annotations
 
@@ -30,38 +34,77 @@ from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, sample_speech
 from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
 from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
 from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts, DiffusionTtsConfig
+from tortoise_tpu_torch.models.random_latent import RandomLatentConverter, sample_random_latent
 from tortoise_tpu_torch.models.vocoder import UnivNetConfig, UnivNetGenerator
 from tortoise_tpu_torch.ops import mel as mel_ops
-from tortoise_tpu_torch.ops.decode_step import prepare_stacked_params
+from tortoise_tpu_torch.ops.decode_step import prepare_stacked_params, quantize_gpt_denses
 from tortoise_tpu_torch.utils import audio as audio_utils
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 
 CALM_TOKEN = 83  # mel code for silence (reference api.py:409)
-# one candidate's bf16 KV cache holds 2 (k, v) x L x T x C values; T = 1024
-# rows covers the longest prompt of the shipped config plus 500 mel tokens,
-# padded to a multiple of 256 as the sampler pads it
+# T = 1024 cache rows cover the longest prompt of the shipped config plus 500
+# mel tokens, padded to a multiple of 256 as the sampler pads it
 _SIZING_CACHE_ROWS = 1024
+KV_CACHE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+
+
+def kv_cache_bytes_per_candidate(config: UnifiedVoiceConfig, rows: int,
+                                 kv_cache_dtype: torch.dtype) -> int:
+    """One candidate's KV cache: 2 (k, v) x L x rows x C values, plus with
+    int8 the two f32 scale slabs, 2 x L x H x rows (about 0.53x bf16)."""
+    per = 2 * config.layers * rows * config.model_dim \
+        * torch.empty((), dtype=kv_cache_dtype).element_size()
+    if kv_cache_dtype == torch.int8:
+        per += 2 * config.layers * config.heads * rows * 4
+    return per
 
 
 def pick_best_batch_size_for_device(device, config: UnifiedVoiceConfig = UnifiedVoiceConfig(),
                                     kv_cache_dtype: torch.dtype = torch.bfloat16) -> int:
     """Candidates decoded at once. CUDA: half the free device memory
-    (``torch.cuda.mem_get_info``) over one candidate's cache bytes,
-    2 * L * T * C * itemsize at T = 1024, rounded down to a power of two and
-    kept within [1, 128] (at 80 GB this gives 128, the JAX package's tier for
-    30 GB and up). CPU: 32, the reference's default."""
+    (``torch.cuda.mem_get_info``) over one candidate's cache bytes at
+    T = 1024, rounded down to a power of two and kept within [1, 128], or
+    [1, 256] for the int8 cache (at 80 GB: 128 and 256, the JAX package's
+    tiers for 30 GB and up, which double for int8). CPU: 32, the
+    reference's default."""
     device = torch.device(device)
     if device.type != "cuda":
         b = 32
     else:
         free, _ = torch.cuda.mem_get_info(device)
-        per = 2 * config.layers * _SIZING_CACHE_ROWS * config.model_dim \
-            * torch.empty((), dtype=kv_cache_dtype).element_size()
+        per = kv_cache_bytes_per_candidate(config, _SIZING_CACHE_ROWS, kv_cache_dtype)
         fit = max(1, (free // 2) // per)
-        b = min(128, 1 << (int(fit).bit_length() - 1))
+        cap = 256 if kv_cache_dtype == torch.int8 else 128
+        b = min(cap, 1 << (int(fit).bit_length() - 1))
     logging.getLogger(__name__).info("autoregressive_batch_size=%d on %s", b, device)
     return b
+
+
+def load_autoregressive(config: UnifiedVoiceConfig, gpt_weights: str, device, dtype,
+                        models_dir, allow_random: bool, fused: bool):
+    """UnifiedVoice with its weights (seed 0 when random), cast to ``dtype``,
+    and K2's weight stack when ``fused``. Returns (model, source, stack or
+    None). ``gpt_weights``: "bf16"; "int8", QuantDense block denses
+    throughout and an int8 stack; "int8_decode", a full-precision model
+    whose stack alone is int8, quantized from the f32 weights before the
+    cast, as the JAX package's ``int8_decode`` does."""
+    cfg = weights_lib.resolve_gpt_quant(config, gpt_weights)
+    with torch.device(device):
+        model = UnifiedVoice(cfg)
+    source = weights_lib.load_weights("autoregressive", model, models_dir, allow_random, 0)
+    quantized = quantize_gpt_denses(model.gpt) if fused and gpt_weights == "int8_decode" \
+        else None
+    model = weights_lib.cast_for_inference(model, dtype).eval()
+    return model, source, (prepare_stacked_params(model.gpt, quantized) if fused else None)
+
+
+def load_random_latent_converter(name: str, channels: int, device, models_dir,
+                                 allow_random: bool, seed: int) -> RandomLatentConverter:
+    with torch.device(device):
+        model = RandomLatentConverter(channels)
+    weights_lib.load_weights(name, model, models_dir, allow_random, seed)
+    return model.eval()
 
 
 def fix_autoregressive_output(codes: np.ndarray, stop_token: int,
@@ -108,7 +151,8 @@ class TextToSpeech:
                  enable_redaction=True, kv_cache=True, half=True, device="cuda",
                  tokenizer_vocab_file=None, tokenizer_basic=False,
                  allow_random_weights=True, text_bucket: int = 32, kv_cache_dtype="bf16",
-                 gpt_fused_step: bool | None = None, flash_attn: bool | None = None,
+                 gpt_weights="bf16", gpt_fused_step: bool | None = None,
+                 flash_attn: bool | None = None,
                  ar_config: UnifiedVoiceConfig | None = None,
                  diffusion_config: DiffusionTtsConfig | None = None,
                  clvp_config: CLVPConfig | None = None):
@@ -127,10 +171,10 @@ class TextToSpeech:
             # package, and the pipeline is held to it
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if kv_cache_dtype not in ("bf16", "f32"):
-            raise NotImplementedError(f"kv_cache_dtype={kv_cache_dtype!r}: only bf16 and f32 "
-                                      "caches are ported (int8 waits, ROADMAP.md Queue 2)")
-        self.kv_cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[kv_cache_dtype]
+        if kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: one of "
+                             f"{tuple(KV_CACHE_DTYPES)}")
+        self.kv_cache_dtype = KV_CACHE_DTYPES[kv_cache_dtype]
         self.dtype = torch.bfloat16 if half else torch.float32
         # On CUDA both kernels run unless the caller turns one off. They
         # compute in bf16 and cast their inputs at the call boundary, as the
@@ -138,14 +182,16 @@ class TextToSpeech:
         # plain versions only when asked to explicitly.
         self.gpt_fused_step = is_cuda if gpt_fused_step is None else gpt_fused_step
         self.flash_attn = is_cuda if flash_attn is None else flash_attn
-        if is_cuda and self.gpt_fused_step and self.kv_cache_dtype != torch.bfloat16:
-            raise ValueError("gpt_fused_step: kernel K2 reads a bf16 KV cache; with "
+        if is_cuda and self.gpt_fused_step and self.kv_cache_dtype == torch.float32:
+            raise ValueError("gpt_fused_step: kernel K2 reads a bf16 or int8 KV cache; with "
                              "kv_cache_dtype='f32' pass gpt_fused_step=False to decode "
                              "with the plain layer stack")
         self.text_bucket = text_bucket
         self.tokenizer = VoiceBpeTokenizer(vocab_file=tokenizer_vocab_file,
                                            use_basic_cleaners=tokenizer_basic)
         self.mel_norms = mel_ops.load_mel_norms().to(self.device)
+        self._models_dir, self._allow_random = models_dir, allow_random_weights
+        self.rlg_auto = self.rlg_diffusion = None
 
         def build(name, ctor, seed, dtype):
             with torch.device(self.device):
@@ -154,11 +200,10 @@ class TextToSpeech:
                                               seed)
             return weights_lib.cast_for_inference(model, dtype).eval(), source
 
-        self.ar_cfg = ar_config or UnifiedVoiceConfig()
-        self.autoregressive, self.ar_source = build(
-            "autoregressive", lambda: UnifiedVoice(self.ar_cfg), 0, self.dtype)
-        self._ar_stacked = (prepare_stacked_params(self.autoregressive.gpt)
-                            if self.gpt_fused_step else None)
+        self.autoregressive, self.ar_source, self._ar_stacked = load_autoregressive(
+            ar_config or UnifiedVoiceConfig(), gpt_weights, self.device, self.dtype, models_dir,
+            allow_random_weights, self.gpt_fused_step)
+        self.ar_cfg = self.autoregressive.config
         self.diff_cfg = diffusion_config or DiffusionTtsConfig(
             in_latent_channels=self.ar_cfg.model_dim)
         self.diffusion, self.diffusion_source = build(
@@ -199,6 +244,21 @@ class TextToSpeech:
         if return_mels:
             return auto_latent, diffusion_latent, auto_conds, diffusion_conds
         return auto_latent, diffusion_latent
+
+    @torch.inference_mode()
+    def get_random_conditioning_latents(self, seed: int = 0):
+        """Random voice latents (AR (1, D), diffusion (1, 2D)) from the two
+        random-latent generators, one ``torch.Generator`` seeded with
+        ``seed`` drawing the AR noise first (reference api.py:301-309)."""
+        if self.rlg_auto is None:
+            d = self.ar_cfg.model_dim
+            self.rlg_auto = load_random_latent_converter(
+                "rlg_auto", d, self.device, self._models_dir, self._allow_random, 5)
+            self.rlg_diffusion = load_random_latent_converter(
+                "rlg_diffuser", 2 * d, self.device, self._models_dir, self._allow_random, 6)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return (sample_random_latent(self.rlg_auto, gen),
+                sample_random_latent(self.rlg_diffusion, gen))
 
     def do_spectrogram_diffusion(self, latents, diffusion_conditioning, *,
                                  diffusion_iterations, cond_free, cond_free_k, temperature,
@@ -265,9 +325,6 @@ class TextToSpeech:
         if cvvp_amount:
             raise NotImplementedError("CVVP re-ranking is not ported yet (ROADMAP.md); "
                                       "use cvvp_amount=0")
-        if voice_samples is None and conditioning_latents is None:
-            raise NotImplementedError("random voice latents are not ported yet (ROADMAP.md); "
-                                      "pass voice_samples or conditioning_latents")
         timer = StageTimer(enabled=True)
         det_seed = deterministic_state(use_deterministic_seed)
         gen = torch.Generator(device=self.device).manual_seed(det_seed)
@@ -291,9 +348,12 @@ class TextToSpeech:
             if voice_samples is not None:
                 auto_latent, diff_latent = self.get_conditioning_latents(
                     voice_samples, crop_rng=random.Random(det_seed))
-            else:
+            elif conditioning_latents is not None:
                 auto_latent, diff_latent = (torch.as_tensor(c, device=dev).to(self.dtype)
                                             for c in conditioning_latents)
+            else:
+                auto_latent, diff_latent = (c.to(self.dtype) for c in
+                                            self.get_random_conditioning_latents(det_seed))
             self._sync()
 
         if verbose:

@@ -6,11 +6,14 @@ the conversion walks the port model and reads each leaf module's JAX
 counterpart, changing layout by module type:
 
 * Dense ``kernel (…, in, out)`` -> ``weight (…, out, in)``;
+* QuantDense ``kernel`` int8 ``(…, in, out)`` -> int8 ``weight (…, out, in)``,
+  with ``qscale`` and ``bias`` as they are;
 * Conv ``kernel (…, K, in, out)`` -> ``weight (…, out, in, K)``;
 * ConvTranspose (time-flipped ``(K, in, out)``) -> ``weight (in, out, K)``;
 * LayerNorm/GroupNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
-* any other parameter (``g``, ``temperature``, ``unconditioned_embedding``)
-  is copied under its own name.
+* any other parameter (``g``, ``temperature``, ``unconditioned_embedding``,
+  the EqualLinear ``weight``/``bias`` of the random-latent generators, whose
+  JAX layout is torch's) is copied under its own name.
 
 ``…`` is the leading layer axis of the scan-stacked layers, kept as is.
 JAX entries the port does not hold (the diffusion model's discrete-code
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tortoise_tpu_torch.models.layers import Conv1d, ConvTranspose1d, Dense, Embed, Norm
+from tortoise_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Dense, Embed, Norm,
+                                              QuantDense)
 
 
 def _lookup(tree: Mapping, path: list[str], key: str) -> Mapping:
@@ -41,6 +45,14 @@ def _convert(module: nn.Module, name: str, sub: Mapping) -> np.ndarray:
     a = lambda k: np.asarray(sub[k], dtype=np.float32)
     if isinstance(module, Dense):
         return np.swapaxes(a("kernel"), -1, -2) if name == "weight" else a("bias")
+    if isinstance(module, QuantDense):
+        if name == "weight":
+            k = np.asarray(sub["kernel"])
+            if k.dtype != np.int8:
+                raise ValueError("QuantDense needs an int8 kernel: quantize the JAX tree first "
+                                 "(weights.quantize_gpt_weights)")
+            return np.swapaxes(k, -1, -2)
+        return a(name)
     if isinstance(module, Conv1d):
         return np.swapaxes(a("kernel"), -1, -3) if name == "weight" else a("bias")
     if isinstance(module, ConvTranspose1d):

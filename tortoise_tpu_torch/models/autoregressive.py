@@ -36,10 +36,12 @@ class UnifiedVoiceConfig:
     start_mel_token: int = 8192
     stop_mel_token: int = 8193
     types: int = 1
+    quant_weights: bool = False  # int8 GPT block denses (gpt2.QuantDense)
 
     @property
     def gpt_config(self) -> GPT2Config:
-        return GPT2Config(n_layer=self.layers, n_embd=self.model_dim, n_head=self.heads)
+        return GPT2Config(n_layer=self.layers, n_embd=self.model_dim, n_head=self.heads,
+                          quant_weights=self.quant_weights)
 
     @property
     def text_vocab(self) -> int:

@@ -7,8 +7,10 @@ as the JAX package stacks them under ``nn.scan``; the decode kernel K2 reads
 the same stack.
 
 The cache is {"k", "v"} of (L, B, T_max, C), the JAX package's B-major
-merged-channel layout. Unlike the JAX functional cache, ``forward`` writes
-the new rows into the given cache tensors IN PLACE.
+merged-channel layout; the int8 cache adds f32 "k_scale"/"v_scale" of
+(L, B, H, T_max), one symmetric scale per (batch, head, position), T-minor as
+the decode kernel reads them. Unlike the JAX functional cache, ``forward``
+writes the new rows into the given cache tensors IN PLACE.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm
+from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm, QuantDense
 from tortoise_tpu_torch.ops.attention import chunked_decode_attention_merged
 
 NEG_INF = -1e9
@@ -31,6 +33,8 @@ class GPT2Config:
     n_embd: int = 1024
     n_head: int = 16
     ln_eps: float = 1e-5
+    # weight-only int8 block denses (QuantDense); see weights.resolve_gpt_quant
+    quant_weights: bool = False
 
 
 def gelu_new(x):
@@ -38,11 +42,16 @@ def gelu_new(x):
     return 0.5 * x * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x ** 3)))
 
 
+def _dense(cfg: GPT2Config, in_f: int, out_f: int, lead: tuple):
+    return QuantDense(in_f, out_f, lead) if cfg.quant_weights else Dense(in_f, out_f, lead=lead)
+
+
 class _Attention(nn.Module):
-    def __init__(self, c: int, lead: tuple):
+    def __init__(self, cfg: GPT2Config, lead: tuple):
         super().__init__()
-        self.c_attn = Dense(c, 3 * c, lead=lead)
-        self.c_proj = Dense(c, c, lead=lead)
+        c = cfg.n_embd
+        self.c_attn = _dense(cfg, c, 3 * c, lead)
+        self.c_proj = _dense(cfg, c, c, lead)
 
 
 class _Block(nn.Module):
@@ -53,18 +62,34 @@ class _Block(nn.Module):
         lead = (cfg.n_layer,)
         c = cfg.n_embd
         self.ln_1 = Norm(c, lead)
-        self.attn = _Attention(c, lead)
+        self.attn = _Attention(cfg, lead)
         self.ln_2 = Norm(c, lead)
-        self.mlp_fc = Dense(c, 4 * c, lead=lead)
-        self.mlp_proj = Dense(4 * c, c, lead=lead)
+        self.mlp_fc = _dense(cfg, c, 4 * c, lead)
+        self.mlp_proj = _dense(cfg, 4 * c, c, lead)
 
 
 def init_kv_cache(config: GPT2Config, batch: int, max_len: int, dtype=torch.bfloat16,
                   device=None) -> dict[str, torch.Tensor]:
-    """Zeroed (L, B, T_max, C) k and v buffers."""
+    """Zeroed (L, B, T_max, C) k and v buffers; ``dtype=torch.int8`` adds the
+    zeroed f32 scale slabs (L, B, H, T_max)."""
     shape = (config.n_layer, batch, max_len, config.n_embd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sshape = (config.n_layer, batch, config.n_head, max_len)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return cache
+
+
+def quantize_kv_rows(x: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows (..., C) -> (int8 (..., C), f32 scales (..., H)): symmetric per
+    head, s = max(max|x| / 127, 1e-8), q = round(x / s), as the JAX
+    package's int8 cache writes (``models/gpt2.py`` and ``ar_sampler._gpt_step``)."""
+    *lead, c = x.shape
+    r = x.float().reshape(*lead, heads, c // heads)
+    s = torch.clamp_min(r.abs().amax(-1) / 127.0, 1e-8)
+    return torch.round(r / s[..., None]).to(torch.int8).reshape(*lead, c), s
 
 
 class GPT2Stack(nn.Module):
@@ -86,13 +111,30 @@ class GPT2Stack(nn.Module):
         dtype = q.dtype
         if cache is not None:
             kc, vc = cache["k"], cache["v"]
-            kc[l, :, cache_index:cache_index + t] = k.to(kc.dtype)
-            vc[l, :, cache_index:cache_index + t] = v.to(vc.dtype)
+            ks, vs = cache.get("k_scale"), cache.get("v_scale")
+            rows = slice(cache_index, cache_index + t)
+            if ks is not None:      # int8 cache: quantized rows, (B, H, t) scales
+                kc[l, :, rows], k_s = quantize_kv_rows(k, h)
+                vc[l, :, rows], v_s = quantize_kv_rows(v, h)
+                ks[l, :, :, rows] = k_s.transpose(1, 2)
+                vs[l, :, :, rows] = v_s.transpose(1, 2)
+            else:
+                kc[l, :, rows] = k.to(kc.dtype)
+                vc[l, :, rows] = v.to(vc.dtype)
             if t == 1 and kc.shape[2] % 256 == 0:
                 return chunked_decode_attention_merged(q[:, 0], kc, vc, l, cache_index,
-                                                       heads=h)[:, None]
+                                                       heads=h, k_scale=ks,
+                                                       v_scale=vs)[:, None]
             n = cache_index + t     # keys past the last query are masked anyway
-            k, v = kc[l, :, :n].to(dtype), vc[l, :, :n].to(dtype)
+
+            def read(buf, scale):   # prefix rows, dequantized from the int8 cache
+                x = buf[l, :, :n]
+                if scale is not None:
+                    x = (x.float().reshape(b, n, h, dh)
+                         * scale[l, :, :, :n].transpose(1, 2)[..., None]).reshape(b, n, c)
+                return x.to(dtype)
+
+            k, v = read(kc, ks), read(vc, vs)
         n = k.shape[1]
         qh = q.reshape(b, t, h, dh).transpose(1, 2)
         kh = k.reshape(b, n, h, dh).transpose(1, 2)
@@ -110,7 +152,7 @@ class GPT2Stack(nn.Module):
         cached prefix; otherwise plain causal attention. Returns
         (ln_f(x) in the compute dtype, cache)."""
         blk = self.h_scan.block
-        dtype = blk.attn.c_attn.weight.dtype
+        dtype = blk.attn.c_attn.bias.dtype    # the weight may be int8 (QuantDense)
         c = self.config.n_embd
         x = emb.to(dtype)
         for l in range(self.config.n_layer):

@@ -35,6 +35,36 @@ class Dense(nn.Module):
         return F.linear(x.to(w.dtype), w, _pick(self.bias, l))
 
 
+def quantize_rows(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a float weight (*lead, out, in):
+    scale s = max(max|w| over in, 1e-12) / 127, q = round(w / s) (half to
+    even) clipped to +-127. Returns (q int8, s float32 (*lead, out)), the
+    rule of ``tortoise_tpu/weights.py::quantize_gpt_weights``."""
+    w = w.float()
+    s = w.abs().amax(-1).clamp_min(1e-12) / 127.0
+    q = torch.round(w / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+class QuantDense(nn.Module):
+    """Weight-only int8 dense (``tortoise_tpu/models/gpt2.py::QuantDense``):
+    int8 weight (*lead, out, in), f32 per-output ``qscale`` and bias. The
+    product accumulates in f32, then ``acc * qscale + bias`` rounds once to
+    the input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int, lead: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(*lead, out_features, in_features,
+                                               dtype=torch.int8), requires_grad=False)
+        self.qscale = nn.Parameter(torch.ones(*lead, out_features))
+        self.bias = nn.Parameter(torch.zeros(*lead, out_features))
+
+    def forward(self, x, l: int | None = None):
+        w, s, b = _pick(self.weight, l), _pick(self.qscale, l), _pick(self.bias, l)
+        acc = F.linear(x.float(), w.float())
+        return (acc * s.float() + b.float()).to(x.dtype)
+
+
 class Conv1d(nn.Module):
     """flax ``nn.Conv`` over time on (B, T, C) input: weight (*lead, out, in, K)."""
 
@@ -103,6 +133,3 @@ class Embed(nn.Module):
 
     def forward(self, idx):
         return F.embedding(idx, self.weight)
-
-
-LEAF_TYPES = (Dense, Conv1d, ConvTranspose1d, Norm, Embed)

@@ -12,9 +12,12 @@ import torch
 
 
 def chunked_decode_attention_merged(q, ck, cv, layer_idx: int, cache_index: int, *,
-                                    heads: int) -> torch.Tensor:
+                                    heads: int, k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, C); ck/cv: (L, B, T_max, C). Attends to rows 0..cache_index of
-    layer ``layer_idx`` in float32; returns (B, C) in q's dtype."""
+    layer ``layer_idx`` in float32; returns (B, C) in q's dtype. With the
+    int8 cache, ``k_scale``/``v_scale`` (L, B, H, T_max) factor out of the
+    dot products: k scales multiply the logits, v scales the softmax weights
+    (whose sum runs over the unscaled weights)."""
     b, c = q.shape
     dh = c // heads
     n = cache_index + 1
@@ -22,5 +25,9 @@ def chunked_decode_attention_merged(q, ck, cv, layer_idx: int, cache_index: int,
     v = cv[layer_idx, :, :n].float().reshape(b, n, heads, dh)
     qf = q.float().reshape(b, heads, dh)
     logits = torch.einsum("bhd,bthd->bht", qf, k) / np.sqrt(dh)
+    if k_scale is not None:
+        logits = logits * k_scale[layer_idx, :, :, :n]
     w = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        w = w * v_scale[layer_idx, :, :, :n]
     return torch.einsum("bht,bthd->bhd", w, v).reshape(b, c).to(q.dtype)

@@ -1,6 +1,6 @@
 """Device-time breakdown of TextToSpeech requests on one GPU.
 
-    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json]
+    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2]
 
 Builds the full-width TextToSpeech (seeded random weights, voice
 train_dotrice), answers one unprofiled warm-up request, then answers one
@@ -12,6 +12,12 @@ seconds. Only device events are summed: the profiler also lists every aten
 op with the time of the kernels it launched, and adding those would count
 each kernel twice. The profiler's own host cost stretches the wall, so the
 busy share is a lower bound for an unprofiled request.
+
+``--k2`` profiles K2's decode step alone instead, each weight x cache
+variant at full width (L=30, C=1024, pos=500, T=768, B in {1, 16}): per
+step the CUDA-event time of 10 back-to-back steps, the device busy time and
+the device time by kernel family, so the launch gaps (event time minus busy
+time) show beside the kernels' own time.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import torch
 
 # kernel name fragment -> family, first match wins
 FAMILIES = (
+    ("rows_gemm_kernel<signed char", "K2 gemm int8"),
     ("rows_gemm_kernel", "K2 gemm"),
+    ("decode_attention_kernel<signed char", "K2 attention int8"),
     ("decode_attention_kernel", "K2 attention"),
     ("flash_rel_attn_kernel", "K3"),
     ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
@@ -95,6 +103,49 @@ def profile_requests(tts, clips) -> dict:
     return out
 
 
+def profile_k2_variants(steps: int = 10) -> dict:
+    """Per-step times of each K2 variant on random full-width inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step, quantize_cache,
+                                                    quantize_stack, variant)
+
+    L, C, H, T, pos = 30, 1024, 16, 768, 500
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *s, std=1.0: (torch.randn(s, generator=g, device="cuda") * std).bfloat16()
+    bf = {"ln1": torch.stack([1 + rand(L, C, std=0.1), rand(L, C, std=0.1)], 1).contiguous(),
+          "ln2": torch.stack([1 + rand(L, C, std=0.1), rand(L, C, std=0.1)], 1).contiguous()}
+    for key, (n, k) in {"qkv": (3 * C, C), "proj": (C, C), "fc": (4 * C, C),
+                        "fc2": (C, 4 * C)}.items():
+        bf["w" + key], bf["b" + key] = rand(L, n, k, std=k ** -0.5), rand(L, n, std=0.02)
+    out = {}
+    for b in (1, 16):
+        bcache = {n: rand(L, b, T, C) for n in ("k", "v")}
+        qcache = quantize_cache(bcache, H)
+        x = rand(b, C)
+        for stacked in (bf, quantize_stack(bf)):
+            for cache in (bcache, qcache):
+                run = lambda: fused_decode_step(stacked, x, cache, pos, H)
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    start.record()
+                    for _ in range(steps):
+                        run()
+                    end.record()
+                    torch.cuda.synchronize()
+                res = device_breakdown(_device_events(prof))
+                out[f"{variant(stacked, cache)} B={b}"] = {
+                    "step_ms": start.elapsed_time(end) / steps,
+                    "device_busy_ms_per_step": res["device_busy_ms"] / steps,
+                    "ms_by_family_per_step": {k: v / steps
+                                              for k, v in res["ms_by_family"].items()},
+                    "kernels_per_step": res["n_device_events"] / steps}
+    return out
+
+
 def main() -> int:
     import subprocess
 
@@ -103,15 +154,20 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "profile.json"))
+    parser.add_argument("--k2", action="store_true",
+                        help="profile K2's decode step per variant instead of requests")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: torch sees no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    tts = TextToSpeech(device="cuda", enable_redaction=False)
-    clips, _ = load_voice("train_dotrice")
-    result = {"nvidia_smi": smi, **profile_requests(tts, clips)}
+    if args.k2:
+        result = {"nvidia_smi": smi, **profile_k2_variants()}
+    else:
+        tts = TextToSpeech(device="cuda", enable_redaction=False)
+        clips, _ = load_voice("train_dotrice")
+        result = {"nvidia_smi": smi, **profile_requests(tts, clips)}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

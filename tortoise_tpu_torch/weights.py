@@ -8,35 +8,81 @@ or, when allowed, from a seeded ``torch.Generator`` at full width.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import sys
 import types
 import warnings
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
 from tortoise_tpu_torch.convert.from_jax import from_jax
-from tortoise_tpu_torch.models.layers import Conv1d, ConvTranspose1d, Dense, Embed, Norm
+from tortoise_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Dense, Embed, Norm,
+                                              QuantDense, quantize_rows)
+from tortoise_tpu_torch.models.random_latent import EqualLinear
 
 REFERENCE_CHECKPOINTS = {
     "autoregressive": "autoregressive.pth",
     "diffusion_decoder": "diffusion_decoder.pth",
     "clvp": "clvp2.pth",
     "vocoder": "vocoder.pth",
+    "hifidecoder": "hifidecoder.pth",
+    "rlg_auto": "rlg_auto.pth",
+    "rlg_diffuser": "rlg_diffuser.pth",
 }
 # names of float parameters that stay float32 under cast_for_inference, as in
 # tortoise_tpu/weights.py::cast_for_inference
-_KEEP_F32 = ("Norm", "norm", "ln_")
+_KEEP_F32 = ("Norm", "norm", "ln_", "qscale")
+GPT_WEIGHTS = ("bf16", "int8", "int8_decode")
+_QUANT_NAMES = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
+
+
+def resolve_gpt_quant(cfg, gpt_weights: str):
+    """A ``gpt_weights`` option applied to a UnifiedVoiceConfig: "int8" turns
+    on the int8 block denses (QuantDense) everywhere; "bf16" and
+    "int8_decode" (int8 only in the decode kernel's stack) keep the model
+    full precision."""
+    if gpt_weights not in GPT_WEIGHTS:
+        raise ValueError(f"gpt_weights={gpt_weights!r}: one of {GPT_WEIGHTS}")
+    if gpt_weights == "int8" and not cfg.quant_weights:
+        cfg = dataclasses.replace(cfg, quant_weights=True)
+    return cfg
+
+
+def quantize_gpt_weights(params: dict) -> dict:
+    """A JAX-layout UnifiedVoice param tree with the GPT stack's block dense
+    kernels (c_attn/c_proj/mlp_fc/mlp_proj; (in, out) or stacked (L, in,
+    out)) quantized per output channel ({kernel int8, qscale f32, bias}), as
+    ``tortoise_tpu/weights.py::quantize_gpt_weights``; already-int8 kernels
+    pass through. numpy in, numpy out."""
+    def walk(d, name=""):
+        if not isinstance(d, Mapping):
+            return d
+        if name in _QUANT_NAMES and "kernel" in d:
+            k = np.asarray(d["kernel"])
+            if k.dtype == np.int8:
+                return d
+            q, s = quantize_rows(torch.from_numpy(np.array(k, np.float32)).transpose(-1, -2))
+            return dict(d, kernel=q.transpose(-1, -2).numpy(), qscale=s.numpy())
+        return {k: walk(v, k) for k, v in d.items()}
+
+    out = dict(params)
+    if "gpt" in out:
+        out["gpt"] = walk(out["gpt"])
+    return out
 
 
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int) -> None:
     """Fill every parameter from a seeded generator on the model's device:
     dense/conv weights N(0, 1/fan_in), embeddings N(0, 0.02^2), the
-    unconditioned embedding N(0, 1), biases 0, norm scales and the CLVP
-    temperature 1."""
+    unconditioned embedding N(0, 1), EqualLinear weights N(0, 1/lr_mul^2),
+    biases 0, norm scales and the CLVP temperature 1. An int8 QuantDense
+    weight is uniform in [-127, 127] with qscale 1/(127 sqrt(in)), the JAX
+    package's random init of that layer."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -45,7 +91,14 @@ def init_random(model: nn.Module, seed: int) -> None:
 
     for _, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
-            if isinstance(module, (Dense, Conv1d, ConvTranspose1d)) and name == "weight":
+            if isinstance(module, QuantDense) and name != "bias":
+                if name == "weight":
+                    p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=dev))
+                else:
+                    p.fill_(1.0 / (127.0 * module.weight.shape[-1] ** 0.5))
+            elif isinstance(module, EqualLinear) and name == "weight":
+                normal_(p, 1.0 / module.lr_mul)
+            elif isinstance(module, (Dense, Conv1d, ConvTranspose1d)) and name == "weight":
                 if isinstance(module, Dense):
                     fan_in = p.shape[-1]
                 elif isinstance(module, Conv1d):
@@ -123,9 +176,14 @@ def convert_reference_checkpoint(name: str, path: str, model: nn.Module) -> dict
             s, num_layers=model.config.num_layers),
         "clvp": ti.clvp_params,
         "vocoder": ti.univnet_params,
+        "hifidecoder": ti.hifigan_params,
+        "rlg_auto": ti.rlg_params,
+        "rlg_diffuser": ti.rlg_params,
     }
     with _layer_stacking_without_jax():
         params = converters[name](sd)
+    if name == "autoregressive" and model.config.gpt_config.quant_weights:
+        params = quantize_gpt_weights(params)
     return from_jax(model, params)
 
 
