@@ -14,29 +14,46 @@ Phases, each of which raises on failure (nothing falls back):
      full width: L=30, C=1024, H=16, B in {1, 16}, pos in {0, 37, 500},
      T=768;
   4. K3 (relative-position attention) against its plain version at B=2,
-     H=16, D=64, T in {256, 2229}, per-row valid lengths below T;
-  5. the full-width TextToSpeech (seeded random weights, voice
+     H=16, D=64, T in {256, 2229}, per-row valid lengths below T, timed
+     beside scaled_dot_product_attention with the bias as a float mask;
+  5. K4 (UnivNet's location-variable convolution) against its plain
+     version and the shifted-reshape einsum form at F=2186 frames (a
+     500-token clip), hop in {8, 64, 256}, B=1, f32;
+  6. K1 (one layer's decode attention with the row write) against its
+     plain version and scaled_dot_product_attention at L=30, C=1024, H=16,
+     T=768, B in {1, 16, 96}, pos in {0, 37, 500, 767}, over bf16 and f32
+     caches: the row write bit-exact, every other row untouched;
+  7. the full-width TextToSpeech (seeded random weights, voice
      train_dotrice): K2 at the fast request's shapes (96 candidates, the
-     last decode position) over a bf16 cache and over an int8 cache, each
-     filled by a real prefill, layer by layer and whole, with planted
-     faults the checks must catch (cache rows read one off; int8 scales
-     read one position off); one diffusion forward with and without K3;
-     then three requests (ultra_fast, ultra_fast, fast with
-     classifier-free guidance);
-  6. the fast path, TextToSpeechFast with bf16 and with int8_decode GPT
+     last decode position) over a bf16 cache and over an int8 cache, and
+     K1 over an f32 cache, each filled by a real prefill, layer by layer,
+     with planted faults the checks must catch (cache rows read one off;
+     int8 scales read one position off); one diffusion forward with and
+     without K3; one UnivNet forward with and without K4; then three
+     requests (ultra_fast, ultra_fast, fast with classifier-free guidance);
+  8. the fast path, TextToSpeechFast with bf16 and with int8_decode GPT
      weights: a warm-up tts and short stream, a timed tts, a tts_stream of
      the same text and seed (its codes equal tts's, its chunks equal the
      full decode of its own latents, its wav is near tts's), and on the
      bf16 instance a tts_batch of three texts with a random voice;
-  7. one quality ultra_fast request with the int8 KV cache for each of
+  9. one quality ultra_fast request with the int8 KV cache for each of
      gpt_weights "int8_decode" and "bf16", with the cache's bytes beside the
-     bf16 cache's.
-Before each path of phases 5-7 every launch counter is set to 0, and read
-after it: the "launches" of the kernels line sum those runs only.
+     bf16 cache's, and one with the f32 cache and gpt_fused_step=False: K1
+     in every layer of every decode step;
+ 10. the full-knob CLI (tortoise_tpu_torch.apps.main) in this process,
+     writing a 24 kHz wav.
+Before each path of phases 7-10 every launch counter is set to 0, and read
+after it: the "launches" of the kernels line sum those runs only. Every
+UnivNet forward of those paths launches K4 12 times, and K4's plain version
+never runs on the card there.
 
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel and K2 variant, and {"ok": true, "device": {...}}. The full
-record also goes to build/chip_smoke.json.
+record also goes to build/chip_smoke.json. A row's bound_ms is the least
+time the card could take for the row's timed call: the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate for their type (bf16 989 TFLOP/s, f32
+without tensor cores 67 TFLOP/s; NVIDIA's H100 SXM data sheet).
 """
 from __future__ import annotations
 
@@ -74,6 +91,16 @@ MODEL_REL_BOUND = 0.05
 # latents: float32 convolutions over other lengths, so other cuDNN
 # algorithms and summation orders; the wav is in [-1, 1]
 STREAM_ABS_BOUND = 1e-3
+# K4: f32 sums of the same products in another order, relative to the
+# call's max|plain|
+K4_REL_BOUND = 1e-5
+# UnivNet's wav (in [-1, 1]) with K4 against the einsum LVC, contractive
+# weights: the f32 tolerance of the JAX package's vocoder tests
+UNIVNET_ABS_BOUND = 1e-4
+# K1, every (batch row, head) relative to its own max|plain|: a bf16 output
+# rounds once (one bf16 ulp, 2^-8); an f32 one differs in summation order
+K1_BF16_BOUND = 1e-2
+K1_F32_BOUND = 1e-5
 # tts_stream's wav against tts's, same codes: the stream decodes the
 # sampler's own latents (K2's steps over a bf16 cache), tts re-extracts them
 # teacher-forced (the bf16 layer stack); those differ by ~2.6% per row
@@ -99,6 +126,15 @@ BATCH_TEXTS = ["One sentence of a batch.", "A second, longer sentence of the sam
 K2_VARIANTS = ("bf16", "int8_weights", "int8_cache", "int8_weights_int8_cache")
 K2_SOURCE = "tortoise_tpu_torch/csrc/decode_step.cu"
 K2_REPLACES = "tortoise_tpu/ops/decode_step_pallas.py:267"
+K1_NAME, K3_NAME, K4_NAME = ("decode_attention_merged", "flash_rel_attention",
+                             "location_variable_convolution_lvc")
+# UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
+LVC_HOPS = (8, 64, 256)
+LVC_CALLS_PER_FORWARD = 12
+# frames of a 500-token clip: 2176 mel frames plus UnivNet's 10 padding frames
+LVC_FRAMES = 2186
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def _nvidia_smi() -> str:
@@ -121,6 +157,18 @@ def _time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` and doing ``flops`` of type
+    ``dtype`` on the card, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _k2_row_name(variant: str) -> str:
@@ -186,15 +234,33 @@ def check_decode_step(record: dict) -> dict:
                         print(f"K2 {var:24s} B={b:2d} pos=500: kernel {ms:.3f} ms, "
                               f"plain {plain_ms:.3f} ms")
                         if b == 1:
-                            rows[var].update(ms=ms, plain_ms=plain_ms, timed_at="B=1 pos=500")
+                            rows[var].update(ms=ms, plain_ms=plain_ms, timed_at="B=1 pos=500",
+                                             library_ms=None)
+                            rows[var]["bound_ms"], rows[var]["bound_by"] = _k2_bound(
+                                stacked, x, cache, pos, L, C)
     record["k2"] = cases
     return rows
+
+
+def _k2_bound(stacked, x, cache, pos, layers, c):
+    """K2's least time for one step: every weight once, the cache's rows
+    0..pos-1 (and their scales), x in and out, the step's k/v rows out; two
+    operations per weight and row, four per cached value attended."""
+    b = x.shape[0]
+    read = sum(_nbytes(t_[..., :pos] if "scale" in n else t_[:, :, :pos])
+               for n, t_ in cache.items())
+    nbytes = _nbytes(*stacked.values()) + 2 * _nbytes(x) + read + 2 * layers * b * c * 2
+    flops = 2 * b * layers * 12 * c * c + 4 * b * layers * (pos + 1) * c
+    return _bound(nbytes, flops, "bf16")
 
 
 def check_flash_attention(record: dict) -> dict:
     import torch
 
-    from tortoise_tpu_torch.ops.attn import flash_rel_attention, flash_rel_attention_plain
+    import torch.nn.functional as F
+
+    from tortoise_tpu_torch.ops.attn import (expand_rel_bias, flash_rel_attention,
+                                             flash_rel_attention_plain)
 
     B, H, D = 2, 16, 64
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -211,18 +277,177 @@ def check_flash_attention(record: dict) -> dict:
                   for b, n in enumerate(valid.tolist()))
         ms = _time_ms(lambda: flash_rel_attention(q, k, v, bias, valid), 20)
         plain_ms = _time_ms(lambda: flash_rel_attention_plain(q, k, v, bias, valid), 5)
+        # the library call: the bias and the key mask as one float mask
+        keys = torch.arange(t, device="cuda")[None, :] < valid[:, None]
+        mask = (expand_rel_bias(bias, t)[None]
+                + torch.where(keys, 0.0, float("-inf"))[:, None, None, :]).to(torch.bfloat16)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        sdpa_err = max((sdpa()[b, :, :n] - want[b, :, :n]).float().abs().max().item()
+                       for b, n in enumerate(valid.tolist()))
+        library_ms = _time_ms(sdpa, 20)
+        del mask
+        n_valid = sum(valid.tolist())
+        bound_ms, bound_by = _bound(
+            2 * H * D * 2 * (B * t + n_valid) + _nbytes(bias, valid), 4 * H * D * t * n_valid,
+            "bf16")
         cases.append({"T": t, "valid_len": valid.tolist(), "err": err, "bound": K3_ABS_BOUND,
-                      "ms": ms, "plain_ms": plain_ms})
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "library_max_abs_err": sdpa_err, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
         print(f"K3 B={B} H={H} T={t} valid={valid.tolist()}: max|err| {err:.4g} "
-              f"(bound {K3_ABS_BOUND}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"(bound {K3_ABS_BOUND}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA {library_ms:.3f} ms (max|err| {sdpa_err:.4g}), bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         if err > K3_ABS_BOUND:
             raise AssertionError(f"K3 disagrees with its plain version at T={t}: {err}")
-        worst, timing = max(worst, err), (ms, plain_ms)
+        worst = max(worst, err)
+        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
     record["k3"] = cases
-    return {"name": "flash_rel_attention", "route": "cuda",
+    return {"name": K3_NAME, "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/flash_rel_attn.cu",
             "replaces": "tortoise_tpu/ops/attn_pallas.py:89",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, "timed_at": f"B={B} T=2229", **timing}
+
+
+def check_lvc(record: dict) -> dict:
+    """K4 against its plain version at the main path's shapes (UnivNet c32,
+    F=2186, B=1, f32), its inputs laid out as UnivNet hands them over;
+    timed beside
+    the plain version and the shifted-reshape einsum form (the JAX
+    package's production LVC). The row's times are the sums over one
+    UnivNet forward's 12 calls (4 per hop), its bound that of their bytes
+    and operations together."""
+    import torch
+
+    from tortoise_tpu_torch.models.vocoder import location_variable_convolution
+    from tortoise_tpu_torch.ops.lvc import (location_variable_convolution_lvc,
+                                            location_variable_convolution_lvc_plain)
+
+    b, f, ci, co, k, layers = 1, LVC_FRAMES, 32, 64, 3, 4
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases, worst = [], 0.0
+    per_forward = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    work = [0, 0]   # bytes, operations of one forward's calls
+    for hop in LVC_HOPS:
+        # x as UnivNet hands it over: the (B, T, Ci) view of a channels-first conv output
+        x = torch.randn((b, ci, f * hop), generator=g, device="cuda").transpose(1, 2)
+        # kernels and bias as UnivNet hands them over: slices [:, l] of (B, L, F, ...)
+        kern = torch.randn((b, layers, f, ci, co, k), generator=g, device="cuda")[:, 2]
+        bias = torch.randn((b, layers, f, co), generator=g, device="cuda")[:, 2]
+        got = location_variable_convolution_lvc(x, kern, bias, hop)
+        torch.cuda.synchronize()
+        want = location_variable_convolution_lvc_plain(x, kern, bias, hop)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        einsum_err = (location_variable_convolution(x, kern, bias, hop) - want).abs().max().item()
+        ms = _time_ms(lambda: location_variable_convolution_lvc(x, kern, bias, hop), 20)
+        plain_ms = _time_ms(lambda: location_variable_convolution_lvc_plain(x, kern, bias, hop), 5)
+        library_ms = _time_ms(lambda: location_variable_convolution(x, kern, bias, hop), 20)
+        nbytes, flops = _nbytes(x, kern, bias, got), 2 * b * f * hop * co * ci * k
+        bound_ms, bound_by = _bound(nbytes, flops, "f32")
+        case = {"hop": hop, "F": f, "max_abs_err": err, "rel_err": err / scale,
+                "bound": K4_REL_BOUND, "einsum_rel_err": einsum_err / scale, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+        cases.append(case)
+        print(f"K4 hop={hop:3d} F={f}: max|err| {err:.4g} = {err / scale:.3g} x max|plain| "
+              f"(bound {K4_REL_BOUND}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if err > K4_REL_BOUND * scale:
+            raise AssertionError(f"K4 disagrees with its plain version: {case}")
+        worst = max(worst, err)
+        calls = LVC_CALLS_PER_FORWARD // len(LVC_HOPS)
+        for key in per_forward:
+            per_forward[key] += case[key] * calls
+        work[0] += nbytes * calls
+        work[1] += flops * calls
+        del x, kern, bias, got, want
+    record["k4"] = cases
+    bound_ms, bound_by = _bound(*work, "f32")
+    return {"name": K4_NAME, "route": "cuda", "source": "tortoise_tpu_torch/csrc/lvc.cu",
+            "replaces": "tortoise_tpu/ops/lvc_pallas.py:52", "max_abs_err": worst,
+            "timed_at": f"one UnivNet forward's 12 calls, F={f}", **per_forward,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _k1_inputs(g, b, c, q_dtype):
+    import torch
+
+    qkv = torch.randn((b, 3 * c), generator=g, device="cuda").to(q_dtype)
+    return qkv.split(c, dim=-1)   # q, k_new, v_new: views, rows 3C apart
+
+
+def check_decode_attention_merged(record: dict) -> dict:
+    """K1 against its plain version at full width over bf16 and f32 caches:
+    every (batch row, head) within its bound, the row write bit-exact and
+    every other row untouched (the whole cache equals the plain version's
+    after each call). Timed at pos=500 beside the plain version and the row
+    write plus scaled_dot_product_attention over the strided prefix views;
+    the row's numbers are B=16, pos=500, bf16 cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
+
+    L, C, H, T, layer, dh = 30, 1024, 16, 768, 7, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases, row, worst = [], None, 0.0
+    for q_dtype, c_dtype, bound in ((torch.bfloat16, torch.bfloat16, K1_BF16_BOUND),
+                                    (torch.float32, torch.float32, K1_F32_BOUND),
+                                    (torch.bfloat16, torch.float32, K1_BF16_BOUND)):
+        what = f"q {str(q_dtype)[6:]}, cache {str(c_dtype)[6:]}"
+        for b in (1, 16, 96):
+            cache = {n: torch.randn((L, b, T, C), generator=g, device="cuda").to(c_dtype)
+                     for n in "kv"}
+            plain = {n: t_.clone() for n, t_ in cache.items()}
+            for pos in (0, 37, 500, 767):
+                q, kn, vn = _k1_inputs(g, b, C, q_dtype)
+                got = decode_attention_merged(q, kn, vn, cache["k"], cache["v"], layer, pos,
+                                              heads=H)
+                torch.cuda.synchronize()
+                want = decode_attention_merged_plain(q, kn, vn, plain["k"], plain["v"], layer,
+                                                     pos, heads=H)
+                exact = torch.equal(cache["k"], plain["k"]) and torch.equal(cache["v"], plain["v"])
+                err = _head_rel_err(got, want, H)
+                abs_err = (got.float() - want.float()).abs().max().item()
+                case = {"q": str(q_dtype), "cache": str(c_dtype), "B": b, "pos": pos,
+                        "head_rel_err": err, "max_abs_err": abs_err, "bound": bound,
+                        "cache_equal": exact}
+                if pos == 500:
+                    def sdpa():
+                        kc, vc = cache["k"][layer], cache["v"][layer]
+                        kc[:, pos], vc[:, pos] = kn.to(c_dtype), vn.to(c_dtype)
+                        view = lambda t_: t_[:, :pos + 1].view(b, pos + 1, H, dh).transpose(1, 2)
+                        return F.scaled_dot_product_attention(
+                            q.to(c_dtype).reshape(b, H, 1, dh), view(kc), view(vc))
+                    case["ms"] = _time_ms(lambda: decode_attention_merged(
+                        q, kn, vn, cache["k"], cache["v"], layer, pos, heads=H), 20)
+                    case["plain_ms"] = _time_ms(lambda: decode_attention_merged_plain(
+                        q, kn, vn, plain["k"], plain["v"], layer, pos, heads=H), 5)
+                    case["library_ms"] = _time_ms(sdpa, 20)
+                    case["bound_ms"], case["bound_by"] = _bound(
+                        _nbytes(q, kn, vn, got) + 2 * b * (pos + 1) * C * cache["k"].element_size(),
+                        4 * b * (pos + 1) * C, "f32")
+                    print(f"K1 {what} B={b:2d} pos=500: kernel {case['ms']:.4f} ms, plain "
+                          f"{case['plain_ms']:.4f} ms, row write + SDPA {case['library_ms']:.4f}"
+                          f" ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+                    if b == 16 and c_dtype == torch.bfloat16:
+                        row = {k_: case[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "bound_by")}
+                cases.append(case)
+                print(f"K1 {what} B={b:2d} pos={pos:3d}: max head rel err {err:.4g} (bound "
+                      f"{bound}), max|err| {abs_err:.4g}, cache equal to plain's: {exact}")
+                if err > bound or not exact:
+                    raise AssertionError(f"K1 disagrees with its plain version: {case}")
+                worst = max(worst, abs_err)
+            del cache, plain
+            torch.cuda.empty_cache()
+    record["k1"] = cases
+    return {"name": K1_NAME, "route": "cuda",
+            "source": "tortoise_tpu_torch/csrc/decode_attn_merged.cu",
+            "replaces": "tortoise_tpu/ops/attn_pallas.py:215", "max_abs_err": worst,
+            "timed_at": "B=16 pos=500 T=768 bf16 cache", **row}
 
 
 def _head_rel_err(got, want, heads: int) -> float:
@@ -271,7 +496,7 @@ def _prefilled_main_path(tts, clips, cache_dtype):
     mel = torch.cat([ar.decode_embed(toks[:, s:s + 1], s) for s in range(steps)], dim=1)
     cache = init_kv_cache(cfg.gpt_config, b, t_cache, dtype=cache_dtype, device="cuda")
     ar.gpt(torch.cat([prompt, mel], dim=1), cache=cache, cache_index=0)
-    print(f"K2 main path: B={b} prompt {p_len} rows, {cache['k'].dtype} cache T={t_cache}, "
+    print(f"decode main path: B={b} prompt {p_len} rows, {cache['k'].dtype} cache T={t_cache}, "
           f"pos={pos}")
     return cache, ar.decode_embed(toks[:, steps:], steps), pos, p_len
 
@@ -331,8 +556,11 @@ def _whole_step(stacked, cache, x, pos, heads, what):
     ms = _time_ms(lambda: fused_decode_step(stacked, x, cache, pos, heads), 20)
     plain_ms = _time_ms(lambda: fused_decode_step_plain(stacked, x, cache, pos, heads), 5)
     b, t = cache["k"].shape[1], cache["k"].shape[2]
-    print(f"K2 ({what}) B={b} pos={pos} T={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"row_rel_err": errs, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = _k2_bound(stacked, x, cache, pos, cache["k"].shape[0], x.shape[1])
+    print(f"K2 ({what}) B={b} pos={pos} T={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"row_rel_err": errs, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _sampler_step(tts, stacked, emb, cache, pos, what):
@@ -387,7 +615,8 @@ def check_decode_main_path(tts, clips, record: dict) -> dict:
         "B": cache["k"].shape[1], "pos": pos, "T": cache["k"].shape[2],
         "attn_head_rel_err": attn_err, "layer_hidden_rel_err": hidden_err,
         "planted": planted, "step": whole, "sampler_row_rel_err": sampler_err}
-    return {"ms": whole["ms"], "plain_ms": whole["plain_ms"], "timed_at": "B=96 pos=566"}
+    return {k: whole[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | \
+        {"timed_at": "B=96 pos=566"}
 
 
 def check_decode_main_path_int8(tts, clips, record: dict) -> dict:
@@ -428,14 +657,133 @@ def check_decode_main_path_int8(tts, clips, record: dict) -> dict:
         for var, st in (("int8_cache", stacked), ("int8_weights_int8_cache",
                                                   quantize_stack(stacked))):
             steps[var] = _whole_step(st, cache, x, pos, heads, var)
-            out[var] = {"ms": steps[var]["ms"], "plain_ms": steps[var]["plain_ms"],
-                        "timed_at": "B=96 pos=566"}
+            out[var] = {k: steps[var][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} \
+                | {"timed_at": "B=96 pos=566"}
         sampler_err = _sampler_step(tts, stacked, emb, cache, pos, "int8 cache")
     record["k2_main_path_int8_cache"] = {
         "B": cache["k"].shape[1], "pos": pos, "T": cache["k"].shape[2],
         "attn_head_rel_err": attn_err, "layer_hidden_rel_err": hidden_err,
         "planted": planted, "steps": steps, "sampler_row_rel_err": sampler_err}
     return out
+
+
+def check_k1_main_path(tts, clips, record: dict) -> None:
+    """K1 over an f32 cache at the fast request's shapes (96 candidates, the
+    last decode step), the cache filled by a real prefill through the layer
+    stack. One decode step through the stack must launch K1 once per layer;
+    then, layer by layer on that step's q/k/v, every head held to
+    K1_BF16_BOUND (the bf16 model's q) against the plain version, whose row
+    write must equal K1's; the plain version reading the cache one row
+    short or long (pos -/+ 1) or one prefix row as its neighbour must move
+    past the bound."""
+    import torch
+
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
+
+    gpt = tts.autoregressive.gpt
+    heads, layers = gpt.config.n_head, gpt.config.n_layer
+    with torch.inference_mode():
+        cache, emb, pos, p_len = _prefilled_main_path(tts, clips, torch.float32)
+        r = p_len + (pos - p_len) // 2
+        step = []
+        attend = gpt._attend
+
+        def spy(q, k, v, cache_, layer, index):
+            step.append((q[:, 0], k[:, 0], v[:, 0]))
+            return attend(q, k, v, cache_, layer, index)
+
+        gpt._attend = spy
+        before = decode_attention_merged.launches
+        try:
+            gpt(emb, cache=cache, cache_index=pos)
+        finally:
+            del gpt._attend
+        step_launches = decode_attention_merged.launches - before
+        if step_launches != layers:
+            raise AssertionError(f"a decode step through the layer stack launched K1 "
+                                 f"{step_launches} times, not {layers}")
+        attn_err, planted, writes_equal = 0.0, {"pos-1": 0.0, "pos+1": 0.0, "row": 0.0}, True
+        for l, (q, kn, vn) in enumerate(step):
+            ca = {n: t_[l:l + 1] for n, t_ in cache.items()}
+            copy = lambda: {n: t_.clone() for n, t_ in ca.items()}
+            got = decode_attention_merged(q, kn, vn, ca["k"], ca["v"], 0, pos, heads=heads)
+            plain = copy()
+            want = decode_attention_merged_plain(q, kn, vn, plain["k"], plain["v"], 0, pos,
+                                                 heads=heads)
+            writes_equal &= torch.equal(plain["k"], ca["k"]) and torch.equal(plain["v"], ca["v"])
+            attn_err = max(attn_err, _head_rel_err(got, want, heads))
+            for name, p_ in (("pos-1", pos - 1), ("pos+1", pos + 1)):
+                bad = copy()
+                wrong = decode_attention_merged_plain(q, kn, vn, bad["k"], bad["v"], 0, p_,
+                                                      heads=heads)
+                planted[name] = max(planted[name], _head_rel_err(got, wrong, heads))
+            bad = copy()
+            for t_ in bad.values():
+                t_[0, :, r] = t_[0, :, r + 1]
+            wrong = decode_attention_merged_plain(q, kn, vn, bad["k"], bad["v"], 0, pos,
+                                                  heads=heads)
+            planted["row"] = max(planted["row"], _head_rel_err(got, wrong, heads))
+    print(f"K1 per layer (f32 cache, B={cache['k'].shape[1]}, pos={pos}): attention heads max "
+          f"rel err {attn_err:.4g} (bound {K1_BF16_BOUND}); row writes equal: {writes_equal}; "
+          f"planted faults " + ", ".join(f"{k} {v:.4g}" for k, v in planted.items()))
+    record["k1_main_path"] = {"B": cache["k"].shape[1], "pos": pos, "T": cache["k"].shape[2],
+                              "step_launches": step_launches, "attn_head_rel_err": attn_err,
+                              "row_writes_equal": writes_equal, "planted": planted}
+    if attn_err > K1_BF16_BOUND or not writes_equal:
+        raise AssertionError(f"K1 disagrees with its plain version on the main path: "
+                             f"{record['k1_main_path']}")
+    if min(planted.values()) <= K1_BF16_BOUND:
+        raise AssertionError(f"the K1 check cannot see a planted cache fault: {planted}")
+    del cache
+
+
+def check_univnet(tts, record: dict) -> None:
+    """One UnivNet forward at F=2186 frames (a 500-token clip) with K4 and
+    with the einsum LVC in the same blocks, both timed. The seeded random
+    weights make the gated stack chaotic (the last bits of one LVC flip
+    samples of the wav), so the two paths are held to each other on a copy
+    whose weights are scaled by 0.15, which makes it contractive (as
+    tests/test_torch_modules.py does): within UNIVNET_ABS_BOUND."""
+    import copy
+
+    import torch
+
+    voc = tts.vocoder
+    blocks = [getattr(voc, f"lvc_{i}") for i in range(len(voc.config.strides))]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    frames = LVC_FRAMES - 10
+    mel = torch.randn((1, frames, voc.config.n_mel_channels), generator=g, device="cuda")
+    z = torch.randn((1, LVC_FRAMES, voc.config.noise_dim), generator=g, device="cuda")
+    with torch.inference_mode():
+        kernel_ms = _time_ms(lambda: voc.inference(mel, z), 5)
+        with_kernel = voc.inference(mel, z)
+        for blk in blocks:
+            blk.use_kernel = False
+        try:
+            einsum_ms = _time_ms(lambda: voc.inference(mel, z), 5)
+            with_einsum = voc.inference(mel, z)
+        finally:
+            for blk in blocks:
+                blk.use_kernel = True
+    diff = (with_kernel - with_einsum).abs().max().item()
+    calm = copy.deepcopy(voc)
+    with torch.inference_mode():
+        for prm in calm.parameters():
+            prm.mul_(0.15)
+        calm_kernel = calm.inference(mel, z)
+        for blk in (getattr(calm, f"lvc_{i}") for i in range(len(calm.config.strides))):
+            blk.use_kernel = False
+        calm_diff = (calm_kernel - calm.inference(mel, z)).abs().max().item()
+    del calm
+    record["univnet_forward"] = {"frames": frames, "k4_ms": kernel_ms, "einsum_ms": einsum_ms,
+                                 "max_abs_diff_random_weights": diff,
+                                 "max_abs_diff_contractive": calm_diff,
+                                 "bound": UNIVNET_ABS_BOUND}
+    print(f"UnivNet forward, {frames} mel frames: with K4 {kernel_ms:.3f} ms, with the einsum "
+          f"LVC {einsum_ms:.3f} ms; max|diff| of the wavs {diff:.4g} (random weights), "
+          f"{calm_diff:.4g} (contractive weights, bound {UNIVNET_ABS_BOUND})")
+    if calm_diff > UNIVNET_ABS_BOUND:
+        raise AssertionError(f"UnivNet with K4 disagrees with the einsum LVC: {calm_diff}")
 
 
 def check_diffusion(tts, record: dict) -> None:
@@ -465,24 +813,42 @@ def check_diffusion(tts, record: dict) -> None:
 
 class Launches:
     """Every kernel wrapper's launch counter: ``reset`` sets all to 0 before
-    a path runs, ``read`` returns them after it, ``total`` sums the runs."""
+    a path runs, ``read`` returns them after it, ``total`` sums the runs.
+    It also counts K4's plain version called on CUDA tensors ("lvc plain on
+    cuda"), which no path may do."""
 
     def __init__(self):
-        from tortoise_tpu_torch.ops.attn import flash_rel_attention
+        from tortoise_tpu_torch.ops import lvc
+        from tortoise_tpu_torch.ops.attn import decode_attention_merged, flash_rel_attention
         from tortoise_tpu_torch.ops.decode_step import fused_decode_step
 
-        self.k2, self.k3 = fused_decode_step, flash_rel_attention
+        self.k2 = fused_decode_step
+        self.single = {K1_NAME: decode_attention_merged, K3_NAME: flash_rel_attention,
+                       K4_NAME: lvc.location_variable_convolution_lvc}
         self.total = {_k2_row_name(v): 0 for v in K2_VARIANTS}
-        self.total["flash_rel_attention"] = 0
+        self.total.update(dict.fromkeys(self.single, 0))
+        self.lvc_plain_on_cuda = 0
+        plain = lvc.location_variable_convolution_lvc_plain
+
+        def counted(x, *args, **kwargs):
+            self.lvc_plain_on_cuda += int(x.is_cuda)
+            return plain(x, *args, **kwargs)
+
+        lvc.location_variable_convolution_lvc_plain = counted
 
     def reset(self):
         self.k2.launches = 0
         self.k2.launches_by_variant.update(dict.fromkeys(self.k2.launches_by_variant, 0))
-        self.k3.launches = 0
+        for fn in self.single.values():
+            fn.launches = 0
+        self.lvc_plain_on_cuda = 0
 
     def read(self) -> dict:
         counts = {_k2_row_name(v): n for v, n in self.k2.launches_by_variant.items()}
-        counts["flash_rel_attention"] = self.k3.launches
+        counts.update({name: fn.launches for name, fn in self.single.items()})
+        if self.lvc_plain_on_cuda:
+            raise AssertionError(f"K4's plain version ran on CUDA tensors "
+                                 f"{self.lvc_plain_on_cuda} times on a main path")
         return counts
 
     def add(self, counts: dict):
@@ -510,6 +876,9 @@ def _quality_request(tts, clips, preset, text, seed, launches: Launches) -> dict
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grew = {k: n - before[k] for k, n in launches.read().items() if n > before[k]}
+    if grew.get(K4_NAME) != LVC_CALLS_PER_FORWARD:
+        raise AssertionError(f"{preset!r} request: one UnivNet forward launched K4 "
+                             f"{grew.get(K4_NAME, 0)} times, not {LVC_CALLS_PER_FORWARD}")
     ok = _wav_ok(wav)
     res = {"preset": preset, "text": text, "wall_s": wall, "audio_s": wav.shape[2] / 24000.0,
            "stages_s": tts.last_stage_timings, "launches": grew, "finite_wav": ok,
@@ -709,6 +1078,73 @@ def run_quality_int8(clips, record: dict, launches: Launches) -> None:
     record["quality_int8_cache"] = out
 
 
+def run_quality_f32_cache(clips, record: dict, launches: Launches) -> None:
+    """One ultra_fast request with the f32 KV cache and gpt_fused_step=False:
+    every decode step runs the layer stack, K1 in each of its 30 layers;
+    K2 never runs."""
+    from tortoise_tpu_torch.api import TextToSpeech
+
+    preset, text, seed = REQUESTS[0]
+    t0 = time.perf_counter()
+    tts = TextToSpeech(device="cuda", enable_redaction=False, kv_cache_dtype="f32",
+                       gpt_fused_step=False)
+    init_s = time.perf_counter() - t0
+    layers = tts.ar_cfg.layers
+    launches.reset()
+    res = _quality_request(tts, clips, preset, text, seed, launches)
+    counts = launches.read()
+    launches.add(counts)
+    k2 = sum(counts[_k2_row_name(v)] for v in K2_VARIANTS)
+    if counts[K1_NAME] <= 0 or counts[K1_NAME] % layers or k2 or counts[K3_NAME] <= 0:
+        raise AssertionError(f"f32-cache request: K1 must run in every layer of every step, K2 "
+                             f"never, K3 in the diffusion: {counts}")
+    res.update(kv_cache_dtype="f32", gpt_fused_step=False, init_s=init_s,
+               k1_launches_per_step=layers, decode_steps=counts[K1_NAME] // layers)
+    print("f32-cache request", json.dumps({k: res[k] for k in (
+        "wall_s", "stages_s", "peak_mem_bytes", "launches", "decode_steps")}))
+    record["quality_f32_cache"] = res
+    del tts
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+
+
+def run_cli(record: dict, launches: Launches) -> None:
+    """The full-knob CLI in this process, as a user runs it on the card:
+    build/cli.wav must be a 24 kHz float wav, finite, within [-1, 1]."""
+    import numpy as np
+    import torch
+    from scipy.io.wavfile import read as wav_read
+
+    from tortoise_tpu_torch.apps import main as cli
+
+    out = os.path.join(ROOT, "build", "cli.wav")
+    if os.path.exists(out):
+        os.unlink(out)
+    argv = ["--voice", "train_dotrice", "--preset", "ultra_fast", "--seed", "0", "-q", "-o", out,
+            REQUESTS[0][1]]
+    launches.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches.read()
+    launches.add(counts)
+    sr, wav = wav_read(out)
+    res = {"argv": argv, "rc": rc, "wall_s_with_init": wall, "sample_rate": sr,
+           "samples": int(wav.shape[0]), "dtype": str(wav.dtype), "launches": counts,
+           "max_abs": float(np.abs(wav).max()) if wav.size else None}
+    print("CLI", json.dumps(res))
+    record["cli"] = res
+    if rc != 0 or sr != 24000 or wav.dtype != np.float32 or wav.ndim != 1 or not wav.size \
+            or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        raise AssertionError(f"the CLI wrote a bad wav: {res}")
+    if min(counts[_k2_row_name("bf16")], counts[K3_NAME], counts[K4_NAME]) <= 0:
+        raise AssertionError(f"the CLI's request did not launch K2, K3 and K4: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -725,7 +1161,7 @@ def main() -> int:
     record = {"device": kind, "nvidia_smi": smi}
     t_start = time.perf_counter()
 
-    sources = ("decode_step", "flash_rel_attn")
+    sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     record["build_s"] = time.perf_counter() - t_start
@@ -733,6 +1169,8 @@ def main() -> int:
 
     k2_rows = check_decode_step(record)
     k3_row = check_flash_attention(record)
+    k4_row = check_lvc(record)
+    k1_row = check_decode_attention_merged(record)
 
     t0 = time.perf_counter()
     tts = TextToSpeech(device="cuda", enable_redaction=False)
@@ -743,7 +1181,9 @@ def main() -> int:
     k2_rows["bf16"].update(check_decode_main_path(tts, clips, record))
     for var, timing in check_decode_main_path_int8(tts, clips, record).items():
         k2_rows[var].update(timing)
+    check_k1_main_path(tts, clips, record)
     check_diffusion(tts, record)
+    check_univnet(tts, record)
     launches = Launches()
     run_pipeline(tts, clips, record, launches)
     # each instance's peak memory is its own
@@ -752,14 +1192,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_fast_path(clips, record, launches)
     run_quality_int8(clips, record, launches)
+    run_quality_f32_cache(clips, record, launches)
+    run_cli(record, launches)
 
-    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row]
+    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row]
     for row in rows:
         row["launches"] = launches.total[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the main paths")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "tortoise_tpu")
+    if jax_package:
+        raise AssertionError(f"the port imported the JAX package: {jax_package}")
     record["kernels"] = rows
     record["total_s"] = time.perf_counter() - t_start
 
@@ -769,9 +1214,9 @@ def main() -> int:
         json.dump(record, f, indent=1)
     print(f"total {record['total_s']:.1f} s")
     print(f"nvidia-smi: {_nvidia_smi()}")
-    print(json.dumps({"kernels": [{k: row[k] for k in ("name", "route", "source", "replaces",
-                                                       "launches", "max_abs_err", "ms",
-                                                       "plain_ms")} for row in rows]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,9 +1,13 @@
-"""The PyTorch port imports no jax, flax or HF tokenizers.
+"""The PyTorch port imports no jax, flax, HF tokenizers or JAX package.
 
-The machine with the GPU has none of them. A subprocess is needed: this
-pytest process has imported jax already (tests/conftest.py).
+The machine with the GPU has none of the first three, and the port keeps its
+own copies of what it needs from the JAX package (``tortoise_tpu``), even of
+its modules that import no jax. A subprocess is needed: this pytest process
+has imported jax already (tests/conftest.py).
 """
+import json
 import os
+import pkgutil
 import subprocess
 import sys
 import textwrap
@@ -11,15 +15,18 @@ import textwrap
 import pytest
 import torch
 
+import tortoise_tpu_torch
+
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# installs an import blocker for the modules the GPU machine lacks, then runs
+# installs an import blocker for the modules the GPU machine lacks and for the
+# JAX package (the exact top-level name: tortoise_tpu_torch passes), then runs
 # the code that follows it
 BLOCKER = textwrap.dedent("""
     import sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "tokenizers"}
+    BLOCKED = {"jax", "jaxlib", "flax", "tokenizers", "tortoise_tpu"}
 
     class Blocker:
         def find_spec(self, name, path=None, target=None):
@@ -33,24 +40,62 @@ BLOCKER = textwrap.dedent("""
 
 
 def run_without_jax(code: str) -> subprocess.CompletedProcess:
-    """Run ``code`` in a fresh interpreter in which jax, jaxlib, flax and
-    tokenizers cannot be imported."""
+    """Run ``code`` in a fresh interpreter in which jax, jaxlib, flax,
+    tokenizers and the JAX package cannot be imported."""
     return subprocess.run([sys.executable, "-c", BLOCKER + textwrap.dedent(code)],
                           capture_output=True, text=True, timeout=120, cwd=ROOT)
 
 
-@pytest.mark.parametrize("module", ["tortoise_tpu_torch.api", "tortoise_tpu_torch.api_fast",
-                                    "chip_smoke"])
-def test_port_imports_without_jax(module):
+# every module of the port (its CLIs included), found by walking the
+# package, and chip_smoke.py
+MODULES = sorted(m.name for m in pkgutil.walk_packages(tortoise_tpu_torch.__path__,
+                                                       "tortoise_tpu_torch.")) + ["chip_smoke"]
+
+
+@pytest.fixture(scope="module")
+def imported() -> dict:
+    """Each module imported in turn in one blocked interpreter: {module:
+    "ok" or the error}. A module another one imported first passed the
+    blocker then, so one interpreter shows what one per module would."""
     proc = run_without_jax(f"""
-        import {module}
-        assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(sys.modules)
-        print("ok")
+        import importlib, json, traceback
+        result = {{}}
+        for name in {MODULES!r}:
+            try:
+                importlib.import_module(name)
+                bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+                result[name] = f"imported {{bad}}" if bad else "ok"
+            except Exception:
+                result[name] = traceback.format_exc()
+        print(json.dumps(result))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("ok")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_the_walk_finds_the_port():
+    assert {"tortoise_tpu_torch.api", "tortoise_tpu_torch.api_fast",
+            "tortoise_tpu_torch.apps.main", "tortoise_tpu_torch.ops.lvc",
+            "tortoise_tpu_torch.native", "chip_smoke"} <= set(MODULES)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_imports_without_jax(module, imported):
+    assert imported[module] == "ok", imported[module]
 
 
 def test_blocker_really_blocks():
     proc = run_without_jax("import jax")
     assert proc.returncode != 0 and "blocked import of jax" in proc.stderr
+
+
+@pytest.mark.parametrize("name", ["tortoise_tpu", "tortoise_tpu.presets",
+                                  "tortoise_tpu.utils.cleaners"])
+def test_blocker_blocks_the_jax_package(name):
+    proc = run_without_jax(f"import {name}")
+    assert proc.returncode != 0 and "blocked import of tortoise_tpu" in proc.stderr
+
+
+def test_blocker_lets_the_port_through():
+    proc = run_without_jax("import tortoise_tpu_torch.presets; print('ok')")
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -1,5 +1,5 @@
-"""The CUDA kernels K2 (every weight x cache variant) and K3 against their
-plain PyTorch versions, on the GPU.
+"""The CUDA kernels K1, K2 (every weight x cache variant), K3 and K4 against
+their plain PyTorch versions, on the GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with a GPU and no jax (tests/conftest.py imports jax; skip it there):
@@ -220,3 +220,100 @@ def test_fast_path_on_cuda_runs_its_k2_variant(cuda, gpt_weights, kind):
                                  verbose=False))
     assert (tts.last_codes == codes).all() and sum(len(c) for c in chunks) == wav.shape[2]
     assert wav.dtype == torch.float32 and torch.isfinite(wav).all()
+
+
+def _k4_inputs(g, dev, b, f, hop, ci=32, co=64, k=3, layers=4, channels_first=True):
+    """x (B, F*hop, Ci), by default the transposed view of a channels-first
+    conv output, and kernels/bias as UnivNet's predictor hands them over:
+    slices [:, l] of (B, L, F, ...) tensors, strided over frames."""
+    x = torch.randn((b, ci, f * hop), generator=g, device=dev).transpose(1, 2) \
+        if channels_first else torch.randn((b, f * hop, ci), generator=g, device=dev)
+    kernels = torch.randn((b, f, layers, ci, co, k), generator=g, device=dev).transpose(1, 2)
+    bias = torch.randn((b, f, layers, co), generator=g, device=dev).transpose(1, 2)
+    return x, kernels[:, 1], bias[:, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hop", [8, 64, 256])
+@pytest.mark.parametrize("b,f,channels_first", [(1, 2186, True), (2, 37, True),
+                                                (2, 37, False)])
+def test_lvc_kernel_matches_plain(cuda, hop, b, f, channels_first):
+    from tortoise_tpu_torch.ops.lvc import (location_variable_convolution_lvc,
+                                            location_variable_convolution_lvc_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(hop)
+    x, kernels, bias = _k4_inputs(g, cuda, b, f, hop, channels_first=channels_first)
+    before = location_variable_convolution_lvc.launches
+    got = location_variable_convolution_lvc(x, kernels, bias, hop)
+    torch.cuda.synchronize()
+    assert location_variable_convolution_lvc.launches == before + 1
+    want = location_variable_convolution_lvc_plain(x, kernels, bias, hop)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_lvc_kernel_rejects_bad_input(cuda):
+    from tortoise_tpu_torch.ops.lvc import location_variable_convolution_lvc
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, kernels, bias = _k4_inputs(g, cuda, 1, 4, 8)
+    with pytest.raises(ValueError, match="float32"):
+        location_variable_convolution_lvc(x.double(), kernels, bias, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        location_variable_convolution_lvc(x, kernels.transpose(3, 4).contiguous().transpose(3, 4),
+                                          bias, 8)
+    with pytest.raises(ValueError, match="unit stride"):
+        location_variable_convolution_lvc(torch.cat([x, x], -1)[..., ::2], kernels, bias, 8)
+    with pytest.raises(ValueError, match="hop"):
+        location_variable_convolution_lvc(x, kernels, bias, 16)
+
+
+# (q dtype, cache dtype, bound per head relative to its max|plain|): the
+# bf16 output rounds once (one bf16 ulp, 2^-8), the f32 one only differs
+# in summation order; a bf16 model over an f32 cache is the quality path's
+# per-layer decode with kv_cache_dtype="f32"
+K1_CASES = [(torch.bfloat16, torch.bfloat16, 1e-2), (torch.float32, torch.float32, 1e-5),
+            (torch.bfloat16, torch.float32, 1e-2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,cache_dtype,bound", K1_CASES)
+@pytest.mark.parametrize("b", [1, 16, 96])
+@pytest.mark.parametrize("pos", [0, 37, 500, 767])
+def test_decode_attention_merged_kernel_matches_plain(cuda, q_dtype, cache_dtype, bound, b, pos):
+    """At the smoke's shapes (L=30, C=1024, H=16, T=768): every head within
+    its bound; the row write bit-exact, every other row of the cache
+    untouched."""
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
+
+    L, C, H, T, layer = 30, 1024, 16, 768, 7
+    g = torch.Generator(device=cuda).manual_seed(pos)
+    cache = {n: torch.randn((L, b, T, C), generator=g, device=cuda).to(cache_dtype) for n in "kv"}
+    qkv = torch.randn((b, 3 * C), generator=g, device=cuda).to(q_dtype)
+    q, k_new, v_new = qkv.split(C, dim=-1)
+    plain = {n: t.clone() for n, t in cache.items()}
+    before = decode_attention_merged.launches
+    got = decode_attention_merged(q, k_new, v_new, cache["k"], cache["v"], layer, pos, heads=H)
+    torch.cuda.synchronize()
+    assert decode_attention_merged.launches == before + 1
+    want = decode_attention_merged_plain(q, k_new, v_new, plain["k"], plain["v"], layer, pos,
+                                         heads=H)
+    assert torch.equal(cache["k"], plain["k"]) and torch.equal(cache["v"], plain["v"])
+    w = want.float().reshape(b, H, -1)
+    err = (got.float().reshape(b, H, -1) - w).abs().amax(-1) / w.abs().amax(-1)
+    assert err.max().item() <= bound
+
+
+@pytest.mark.gpu
+def test_decode_attention_merged_kernel_rejects_bad_input(cuda):
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged
+
+    cache = {n: torch.zeros((2, 3, 256, 1024), dtype=torch.bfloat16, device=cuda) for n in "kv"}
+    q = torch.zeros((3, 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_merged(q, q, q, cache["k"], cache["v"], 0, 0, heads=8)
+    with pytest.raises(ValueError, match="outside the cache"):
+        decode_attention_merged(q, q, q, cache["k"], cache["v"], 0, 256, heads=16)
+    int8 = cache["k"].to(torch.int8)
+    with pytest.raises(ValueError, match="k_cache"):
+        decode_attention_merged(q, q, q, int8, int8, 0, 0, heads=16)

@@ -13,6 +13,10 @@ from tortoise_tpu_torch.utils import profiling
     ("void tt::(anonymous namespace)::decode_attention_kernel<signed char>(...)",
      "K2 attention int8"),
     ("flash_rel_attn_kernel", "K3"),
+    ("void tt::(anonymous namespace)::decode_attn_merged_kernel<__nv_bfloat16, float>(...)",
+     "K1"),
+    ("void tt::(anonymous namespace)::merge_splits_kernel<__nv_bfloat16>(...)", "K1"),
+    ("void tt::(anonymous namespace)::lvc_kernel<16>(...)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS/cuDNN"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel", "cuBLAS/cuDNN"),
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),

@@ -1,6 +1,7 @@
 """Weights into the port: convert/from_jax.py covers every parameter of each
 slice model, and a reference-layout state dict reaches the port through the
-numpy converters of tortoise_tpu/convert/torch_import.py."""
+numpy converters (the JAX package's tortoise_tpu/convert/torch_import.py
+here, the port's own copy in load_weights)."""
 import numpy as np
 import pytest
 import torch
@@ -301,8 +302,9 @@ def test_load_weights_reads_a_reference_checkpoint(tmp_path):
 @pytest.mark.parametrize("name", ["autoregressive", "diffusion_decoder", "clvp", "hifidecoder",
                                   "rlg_auto"])
 def test_reference_checkpoint_loads_without_jax(name, tmp_path):
-    """torch_import stacks layers with jax.tree.map; where jax cannot be
-    imported (the GPU machine) the port's stand-in gives the same weights."""
+    """Where neither jax nor the JAX package can be imported (the GPU
+    machine), the port's own converters (layers stacked with numpy) give
+    the weights the JAX package's converters give."""
     torch.manual_seed(0)
     sd, convert = REFERENCE[name]()
     _, port = MODELS[name]()

@@ -5,7 +5,10 @@ Stages of ``tts``: BPE tokens; conditioning latents from the voice clips;
 batched AR candidate decode (kernel K2 per step on CUDA); stop-token repair
 and CLVP re-ranking; teacher-forced latent re-extraction for the winners;
 DiffusionTts sampling (kernel K3 in its 13 per-step attention blocks on
-CUDA); UnivNet vocoding.
+CUDA); UnivNet vocoding (kernel K4 in its 12 location-variable
+convolutions on CUDA). With K2 off (``gpt_fused_step=False``, the only
+decode for ``kv_cache_dtype="f32"``) each decode step runs the layer stack,
+whose per-layer attention is kernel K1 on CUDA.
 
 Options as in the JAX package: ``kv_cache_dtype="int8"`` (int8 rows plus
 f32 scales, about 0.53x the bf16 cache's bytes per candidate) and
@@ -24,10 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu.diffusion.schedule import spaced_schedule
-from tortoise_tpu.presets import QUALITY_PRESETS, resolve_preset
-from tortoise_tpu.utils.profiling import StageTimer
 from tortoise_tpu_torch import weights as weights_lib
+from tortoise_tpu_torch.diffusion.schedule import spaced_schedule
 from tortoise_tpu_torch.diffusion.sampler import (SamplerConfig, ddim_sample_loop,
                                                   p_sample_loop)
 from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, sample_speech
@@ -38,8 +39,10 @@ from tortoise_tpu_torch.models.random_latent import RandomLatentConverter, sampl
 from tortoise_tpu_torch.models.vocoder import UnivNetConfig, UnivNetGenerator
 from tortoise_tpu_torch.ops import mel as mel_ops
 from tortoise_tpu_torch.ops.decode_step import prepare_stacked_params, quantize_gpt_denses
+from tortoise_tpu_torch.presets import QUALITY_PRESETS, resolve_preset
 from tortoise_tpu_torch.utils import audio as audio_utils
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
+from tortoise_tpu_torch.utils.profiling import StageTimer
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 
 CALM_TOKEN = 83  # mel code for silence (reference api.py:409)
@@ -211,7 +214,8 @@ class TextToSpeech:
         self.clvp, self.clvp_source = build(
             "clvp", lambda: CLVP(clvp_config or CLVPConfig()), 2, self.dtype)
         self.vocoder, self.vocoder_source = build(
-            "vocoder", lambda: UnivNetGenerator(UnivNetConfig()), 3, torch.float32)
+            "vocoder", lambda: UnivNetGenerator(UnivNetConfig(use_kernel=is_cuda)), 3,
+            torch.float32)
         self.autoregressive_batch_size = (
             autoregressive_batch_size
             or pick_best_batch_size_for_device(self.device, self.ar_cfg, self.kv_cache_dtype))

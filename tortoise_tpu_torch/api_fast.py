@@ -24,7 +24,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu.presets import FAST_PRESETS, resolve_preset
 from tortoise_tpu_torch import weights as weights_lib
 from tortoise_tpu_torch.api import load_autoregressive, load_random_latent_converter
 from tortoise_tpu_torch.models import ar_sampler
@@ -33,6 +32,7 @@ from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
 from tortoise_tpu_torch.models.hifigan import HifiganConfig, HifiganGenerator
 from tortoise_tpu_torch.models.random_latent import sample_random_latent
 from tortoise_tpu_torch.ops import mel as mel_ops
+from tortoise_tpu_torch.presets import FAST_PRESETS, resolve_preset
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 

@@ -17,8 +17,8 @@ counterpart, changing layout by module type:
 
 ``…`` is the leading layer axis of the scan-stacked layers, kept as is.
 JAX entries the port does not hold (the diffusion model's discrete-code
-path) are ignored. A reference ``.pth`` reaches this through the numpy
-converters of ``tortoise_tpu/convert/torch_import.py``; see ``weights.py``.
+path) are ignored. A reference ``.pth`` reaches this through the port's
+numpy converters (``convert/torch_import.py``); see ``weights.py``.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Port of ``tortoise_tpu/diffusion/sampler.py`` (reference
 tortoise/utils/diffusion.py:312-780): a Python loop over the spaced
-schedule from ``tortoise_tpu.diffusion.schedule``. Conditioning-free
+schedule from ``diffusion/schedule.py``. Conditioning-free
 guidance runs the cond and uncond halves in ONE model call on a doubled
 batch, with the ramped strength cfk = k (1 - t/T). Step noise comes from an
 explicit ``torch.Generator``.
@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tortoise_tpu.diffusion.schedule import DiffusionSchedule
+from tortoise_tpu_torch.diffusion.schedule import DiffusionSchedule
 
 
 @dataclasses.dataclass(frozen=True)

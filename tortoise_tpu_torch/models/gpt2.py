@@ -10,7 +10,10 @@ The cache is {"k", "v"} of (L, B, T_max, C), the JAX package's B-major
 merged-channel layout; the int8 cache adds f32 "k_scale"/"v_scale" of
 (L, B, H, T_max), one symmetric scale per (batch, head, position), T-minor as
 the decode kernel reads them. Unlike the JAX functional cache, ``forward``
-writes the new rows into the given cache tensors IN PLACE.
+writes the new rows into the given cache tensors IN PLACE. A one-row decode
+step over a bf16 or f32 cache attends through K1
+(``ops/attn.py::decode_attention_merged``), which also writes the row; the
+int8 cache keeps the plain chunked attention, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm, QuantDense
 from tortoise_tpu_torch.ops.attention import chunked_decode_attention_merged
+from tortoise_tpu_torch.ops.attn import decode_attention_merged
 
 NEG_INF = -1e9
 
@@ -112,6 +116,10 @@ class GPT2Stack(nn.Module):
         if cache is not None:
             kc, vc = cache["k"], cache["v"]
             ks, vs = cache.get("k_scale"), cache.get("v_scale")
+            decode = t == 1 and kc.shape[2] % 256 == 0
+            if decode and ks is None:   # K1 writes the step's row itself
+                return decode_attention_merged(q[:, 0], k[:, 0], v[:, 0], kc, vc, l,
+                                               cache_index, heads=h)[:, None]
             rows = slice(cache_index, cache_index + t)
             if ks is not None:      # int8 cache: quantized rows, (B, H, t) scales
                 kc[l, :, rows], k_s = quantize_kv_rows(k, h)
@@ -121,7 +129,7 @@ class GPT2Stack(nn.Module):
             else:
                 kc[l, :, rows] = k.to(kc.dtype)
                 vc[l, :, rows] = v.to(vc.dtype)
-            if t == 1 and kc.shape[2] % 256 == 0:
+            if decode:              # the int8 cache: its scales stay outside K1
                 return chunked_decode_attention_merged(q[:, 0], kc, vc, l, cache_index,
                                                        heads=h, k_scale=ks,
                                                        v_scale=vs)[:, None]

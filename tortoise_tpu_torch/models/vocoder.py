@@ -5,7 +5,9 @@ tortoise/models/vocoder.py:225-312): 256x upsampling through 3 LVC blocks
 (strides 8/8/4), each with four dilated convs gated by location-variable
 convolutions whose per-frame kernels a KernelPredictor derives from the mel.
 The LVC is the JAX package's default shifted-reshape form (K shifted
-reshapes + frame-batched matmuls), not its opt-in Pallas kernel.
+reshapes + frame-batched matmuls) or, with ``UnivNetConfig.use_kernel`` (the
+JAX package's ``use_pallas``), kernel K4 (``ops/lvc.py``), which the quality
+API turns on for CUDA.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tortoise_tpu_torch.models.layers import Conv1d, ConvTranspose1d
+from tortoise_tpu_torch.ops.lvc import location_variable_convolution_lvc
 
 LRELU_SLOPE = 0.2
 
@@ -67,10 +70,12 @@ class KernelPredictor(nn.Module):
 
 class LVCBlock(nn.Module):
     def __init__(self, in_channels: int, stride: int, dilations=(1, 3, 9, 27),
-                 conv_kernel_size: int = 3, cond_hop_length: int = 256, cond_channels: int = 100):
+                 conv_kernel_size: int = 3, cond_hop_length: int = 256, cond_channels: int = 100,
+                 use_kernel: bool = False):
         super().__init__()
         s = stride
         self.in_channels, self.hop, self.dilations = in_channels, cond_hop_length, dilations
+        self.use_kernel = use_kernel
         self.kernel_predictor = KernelPredictor(cond_channels, in_channels, 2 * in_channels,
                                                 len(dilations), conv_kernel_size)
         self.convt_pre = ConvTranspose1d(in_channels, in_channels, 2 * s, s,
@@ -82,12 +87,19 @@ class LVCBlock(nn.Module):
 
     def forward(self, x, c):
         kernels, bias = self.kernel_predictor(c)
+        if self.use_kernel:
+            # K4 reads each frame's (Ci, Co, K) kernel as one contiguous block;
+            # the predictor's convs leave them strided over frames
+            kernels, bias = kernels.contiguous(), bias.contiguous()
+            lvc = location_variable_convolution_lvc
+        else:
+            lvc = location_variable_convolution
         x = self.convt_pre(F.leaky_relu(x, LRELU_SLOPE))
         ch = self.in_channels
         for i in range(len(self.dilations)):
             out = F.leaky_relu(getattr(self, f"conv_{i}")(F.leaky_relu(x, LRELU_SLOPE)),
                                LRELU_SLOPE)
-            out = location_variable_convolution(out, kernels[:, i], bias[:, i], self.hop)
+            out = lvc(out, kernels[:, i], bias[:, i], self.hop)
             x = x + torch.sigmoid(out[..., :ch]) * torch.tanh(out[..., ch:])
         return x
 
@@ -100,6 +112,9 @@ class UnivNetConfig:
     strides: tuple = (8, 8, 4)
     hop_length: int = 256
     n_mel_channels: int = 100
+    # the LVC through kernel K4 (the JAX package's use_pallas): its plain
+    # version on CPU tensors, the CUDA kernel on CUDA tensors
+    use_kernel: bool = False
 
 
 def _reflect_pad(x, p: int):
@@ -116,7 +131,8 @@ class UnivNetGenerator(nn.Module):
             hop *= s
             setattr(self, f"lvc_{i}", LVCBlock(cfg.channel_size, s, cfg.dilations,
                                                cond_hop_length=hop,
-                                               cond_channels=cfg.n_mel_channels))
+                                               cond_channels=cfg.n_mel_channels,
+                                               use_kernel=cfg.use_kernel))
         self.conv_post = Conv1d(cfg.channel_size, 1, 7)
 
     def forward(self, c, z):

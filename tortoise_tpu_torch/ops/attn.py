@@ -1,14 +1,20 @@
-"""K3: attention with a T5 relative-position bias and per-row key masking,
-as a CUDA kernel (csrc/flash_rel_attn.cu) and its plain PyTorch version.
+"""The two attention kernels of ``tortoise_tpu/ops/attn_pallas.py``, each as a
+CUDA kernel and its plain PyTorch version.
 
-Port of ``tortoise_tpu/ops/attn_pallas.py::flash_rel_attention``. The bias
-is Toeplitz (a function of j - i only), so it travels as a pre-scaled
-diagonal vector (H, 2T-1) with ``vec[h, j - i + T - 1]``, built once per
-sampling call by ``rel_bias_vector``, instead of the TPU kernel's
-(H, 2nq-1, 256, 256) tile stack.
+K3, ``flash_rel_attention`` (csrc/flash_rel_attn.cu): attention with a T5
+relative-position bias and per-row key masking. The bias is Toeplitz (a
+function of j - i only), so it travels as a pre-scaled diagonal vector
+(H, 2T-1) with ``vec[h, j - i + T - 1]``, built once per sampling call by
+``rel_bias_vector``, instead of the TPU kernel's (H, 2nq-1, 256, 256) tile
+stack.
 
-``flash_rel_attention`` dispatches on the device of ``q``: CPU tensors run
-``flash_rel_attention_plain``, CUDA tensors launch the kernel (or raise).
+K1, ``decode_attention_merged`` (csrc/decode_attn_merged.cu): one layer's
+decode self-attention over the merged (L, B, T, C) KV cache, writing the new
+k/v rows at (layer, :, pos) in place; the per-layer decode of the GPT-2
+stack when K2 is off.
+
+Each dispatches on the device of its first argument: CPU tensors run the
+plain version, CUDA tensors launch the kernel (or raise).
 """
 from __future__ import annotations
 
@@ -18,12 +24,19 @@ import numpy as np
 import torch
 
 from tortoise_tpu_torch.ops import _build
+from tortoise_tpu_torch.ops.attention import chunked_decode_attention_merged
 
 HEAD_DIM = 64
 NEG = -1e9
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURE = {"tt_flash_rel_attn": [_P] * 6 + [_I] * 3 + [_P]}
+_K1_SIGNATURE = {"tt_decode_attn_merged": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_P]}
+# K1 splits a (batch row, head)'s prefix rows over this many blocks in all
+# where B x H blocks alone would leave SMs idle (132 on an H100), down to
+# at least _MIN_SPLIT_ROWS rows a split
+_K1_TARGET_BLOCKS = 264
+_MIN_SPLIT_ROWS = 32
 
 
 def relative_position_bucket(relative_position: np.ndarray, num_buckets: int,
@@ -122,3 +135,78 @@ def flash_rel_attention(q, k, v, bias_vec, valid_len):
 
 
 flash_rel_attention.launches = 0
+
+
+def decode_attention_merged_plain(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, *,
+                                  heads: int):
+    """Writes k_new / v_new (B, C), cast to the cache's dtype, at (layer, :,
+    pos) of the (L, B, T, C) caches in place, then attends q (B, C) to rows
+    0..pos of that layer in float32 (``ops/attention.py``). Returns (B, C)
+    in q's dtype: ``decode_attention_merged_xla`` of the JAX package."""
+    k_cache[layer, :, pos] = k_new.to(k_cache.dtype)
+    v_cache[layer, :, pos] = v_new.to(v_cache.dtype)
+    return chunked_decode_attention_merged(q, k_cache, v_cache, layer, pos, heads=heads)
+
+
+def decode_splits(blocks: int, pos: int) -> int:
+    """K1's split of the pos prefix rows: enough blocks for the card, every
+    split at least _MIN_SPLIT_ROWS rows and none empty."""
+    if pos == 0:
+        return 1
+    splits = max(1, min(-(-_K1_TARGET_BLOCKS // blocks), pos // _MIN_SPLIT_ROWS))
+    chunk = -(-pos // splits)
+    return -(-pos // chunk)
+
+
+def _check_k1_args(q, k_new, v_new, k_cache, v_cache, layer, pos, heads):
+    b, c = q.shape
+    if c != heads * HEAD_DIM:
+        raise ValueError(f"decode_attention_merged kernel needs a head dim of {HEAD_DIM}: "
+                         f"C={c}, heads={heads}")
+    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        if x.shape != q.shape or x.dtype not in (torch.bfloat16, torch.float32) \
+                or x.dtype != q.dtype or x.stride() != q.stride() or x.stride(1) != 1 \
+                or x.device != q.device:
+            raise ValueError(f"{name}: needs a bf16 or f32 {tuple(q.shape)} tensor with unit "
+                             f"column stride and q's dtype, strides and device, got {x.dtype} "
+                             f"{tuple(x.shape)} {x.stride()} on {x.device}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.dim() != 4 or x.shape[1] != b or x.shape[3] != c or x.shape != k_cache.shape \
+                or x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != k_cache.dtype \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"{name}: needs a contiguous bf16 or f32 (L, {b}, T, {c}) cache on "
+                             f"{q.device} (the int8 cache's scales are not K1's), got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if not 0 <= layer < k_cache.shape[0] or not 0 <= pos < k_cache.shape[2]:
+        raise ValueError(f"layer={layer}, pos={pos} outside the cache {tuple(k_cache.shape)}")
+
+
+def decode_attention_merged(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, *,
+                            heads: int):
+    """q, k_new, v_new (B, C), rows may be views into one qkv product;
+    k_cache / v_cache (L, B, T, C) bf16 or f32. Writes the new k/v rows at
+    (layer, :, pos) IN PLACE and returns the attention output (B, C) in q's
+    dtype."""
+    if not q.is_cuda:
+        return decode_attention_merged_plain(q, k_new, v_new, k_cache, v_cache, layer, pos,
+                                             heads=heads)
+    _check_k1_args(q, k_new, v_new, k_cache, v_cache, layer, pos, heads)
+    b, c = q.shape
+    lcount, _, t, _ = k_cache.shape
+    splits = decode_splits(b * heads, pos)
+    out = torch.empty((b, c), dtype=q.dtype, device=q.device)
+    partial = torch.empty((b, heads, splits, HEAD_DIM + 2), dtype=torch.float32,
+                          device=q.device) if splits > 1 else None
+    lib = _build.load("decode_attn_merged", _K1_SIGNATURE)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.tt_decode_attn_merged(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+        int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32), lcount, b, t, c,
+        layer, pos, splits, stream)
+    _build.check(err, "decode_attn_merged kernel")
+    decode_attention_merged.launches += 1
+    return out
+
+
+decode_attention_merged.launches = 0

@@ -18,8 +18,8 @@ import torch
 TACOTRON_MEL_MAX = 2.3143386840820312
 TACOTRON_MEL_MIN = -11.512925148010254
 
-DEFAULT_MEL_NORMS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                                      "tortoise_tpu", "data", "mel_norms.npy")
+DEFAULT_MEL_NORMS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "data",
+                                      "mel_norms.npy")
 
 
 def normalize_tacotron_mel(mel):

@@ -2,9 +2,9 @@
 
 Port of ``tortoise_tpu/utils/audio.py`` plus ``format_conditioning`` and
 ``deterministic_state`` from ``tortoise_tpu/api_fast.py``. Wav files only
-(scipy); resampling goes through ``tortoise_tpu.native`` when its library
+(scipy); resampling goes through the port's ``native`` library when it
 builds and scipy's polyphase resampler otherwise, exactly as in the JAX
-package. Voices come from ``tortoise_tpu/voices`` and the directories given.
+package. Voices come from ``BUILTIN_VOICES_DIR`` and the directories given.
 """
 from __future__ import annotations
 
@@ -16,10 +16,15 @@ from glob import glob
 import numpy as np
 import torch
 from scipy.io.wavfile import read as wav_read
+from scipy.io.wavfile import write as wav_write
 from scipy.signal import resample_poly
 
+from tortoise_tpu_torch import native
 from tortoise_tpu_torch.ops import mel as mel_ops
 
+# The speaker clips (40 MB) stay one data directory of the repository, shared
+# with the JAX package and read by path; they are data, not a module, and a
+# copy would only double the tree.
 BUILTIN_VOICES_DIR = os.path.join(os.path.dirname(os.path.realpath(__file__)), "..", "..",
                                   "tortoise_tpu", "voices")
 
@@ -41,8 +46,6 @@ def load_wav(path: str) -> tuple[np.ndarray, int]:
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return audio
-    from tortoise_tpu import native
-
     if audio.ndim == 1 and native.available():
         return native.resample(audio, orig_sr, target_sr)
     if audio.ndim == 2 and audio.shape[0] == 1 and native.available():
@@ -59,6 +62,19 @@ def load_audio(path: str, sampling_rate: int) -> np.ndarray:
     if audio.ndim > 1:
         audio = audio[0] if audio.shape[0] < 5 else audio[:, 0]
     return np.clip(resample(audio, sr, sampling_rate), -1, 1)[None, :]
+
+
+def save_wav(path: str, audio, sample_rate: int = 24000) -> None:
+    """Write float32 samples (any shape that squeezes to 1-D) as a wav."""
+    wav_write(path, sample_rate, np.asarray(audio, dtype=np.float32).squeeze())
+
+
+def save_latents(path: str, auto, diffusion=None) -> None:
+    """Conditioning latents -> an .npz that ``load_voice`` reads back."""
+    if diffusion is None:
+        np.savez(path, auto=np.asarray(auto))
+    else:
+        np.savez(path, auto=np.asarray(auto), diffusion=np.asarray(diffusion))
 
 
 def pad_or_truncate(t: np.ndarray, length: int) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Device-time breakdown of TextToSpeech requests on one GPU.
+"""Stage timing for the APIs (``StageTimer``) and a device-time breakdown of
+TextToSpeech requests on one GPU.
 
     python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2]
 
@@ -22,11 +23,46 @@ time) show beside the kernels' own time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
 
 import torch
+
+
+class StageTimer:
+    """Collects named stage timings; ``report()`` returns/prints a summary.
+    A copy of ``tortoise_tpu/utils/profiling.py::StageTimer``."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.stages: list[tuple[str, float]] = []
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stages.append((name, time.perf_counter() - t0))
+
+    def report(self, print_it: bool = False) -> dict[str, float]:
+        summary: dict[str, float] = {}
+        for name, dt in self.stages:
+            summary[name] = summary.get(name, 0.0) + dt
+        if print_it:
+            total = sum(summary.values())
+            for name, dt in sorted(summary.items(), key=lambda kv: -kv[1]):
+                print(f"  {name:>28s}: {dt * 1000:8.1f} ms ({dt / total * 100:4.1f}%)")
+        return summary
+
+    def json(self) -> str:
+        return json.dumps(self.report())
+
 
 # kernel name fragment -> family, first match wins
 FAMILIES = (
@@ -35,6 +71,8 @@ FAMILIES = (
     ("decode_attention_kernel<signed char", "K2 attention int8"),
     ("decode_attention_kernel", "K2 attention"),
     ("flash_rel_attn_kernel", "K3"),
+    ("decode_attn_merged_kernel", "K1"), ("merge_splits_kernel", "K1"),
+    ("lvc_kernel", "K4"),
     ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
     ("cudnn", "cuBLAS/cuDNN"), ("conv", "cuBLAS/cuDNN"),
 )

@@ -4,8 +4,8 @@ Port of ``tortoise_tpu/utils/tokenizer.py`` without the HF ``tokenizers``
 package: clean the text, replace spaces with ``[SPACE]``, split out the
 special tokens, pre-tokenize like HF's ``Whitespace`` (``\\w+|[^\\w\\s]+``),
 map characters to symbols (unknown ones to ``[UNK]``, unfused), then apply
-the merges of ``tortoise_tpu/data/bpe_vocab.json`` lowest rank first,
-leftmost first among equal ranks, as HF's BPE model does.
+the merges of ``data/bpe_vocab.json`` (a copy of the JAX package's) lowest
+rank first, leftmost first among equal ranks, as HF's BPE model does.
 """
 from __future__ import annotations
 
@@ -13,10 +13,10 @@ import json
 import os
 import re
 
-from tortoise_tpu.utils.cleaners import basic_cleaners, english_cleaners
+from tortoise_tpu_torch.utils.cleaners import basic_cleaners, english_cleaners
 
-DEFAULT_VOCAB_FILE = os.path.join(os.path.dirname(os.path.realpath(__file__)), "..", "..",
-                                  "tortoise_tpu", "data", "bpe_vocab.json")
+DEFAULT_VOCAB_FILE = os.path.join(os.path.dirname(os.path.realpath(__file__)), "..", "data",
+                                  "bpe_vocab.json")
 
 _PRE_TOKEN = re.compile(r"\w+|[^\w\s]+")
 

@@ -1,17 +1,14 @@
 """Model weights: seeded random initialization, checkpoint loading, casting.
 
 A model's weights come from the reference's ``<models_dir>/<reference
-name>.pth`` (through the numpy converters of
-``tortoise_tpu/convert/torch_import.py`` and then ``convert/from_jax.py``)
-or, when allowed, from a seeded ``torch.Generator`` at full width.
+name>.pth`` (through the numpy converters of ``convert/torch_import.py`` and
+then ``convert/from_jax.py``) or, when allowed, from a seeded
+``torch.Generator`` at full width.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
-import sys
-import types
 import warnings
 from collections.abc import Mapping
 
@@ -19,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tortoise_tpu_torch.convert import torch_import as ti
 from tortoise_tpu_torch.convert.from_jax import from_jax
 from tortoise_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Dense, Embed, Norm,
                                               QuantDense, quantize_rows)
@@ -128,43 +126,8 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def _tree_map(fn, tree, *rest):
-    """``jax.tree.map`` over nested dicts, which is all ``torch_import`` asks of it."""
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-@contextlib.contextmanager
-def _layer_stacking_without_jax():
-    """``torch_import`` stacks per-layer dicts of numpy arrays with
-    ``jax.tree.map(np.stack)``, imported inside its functions; that is its
-    only use of jax. Unless jax is loaded already, a stand-in ``jax`` module
-    holding just that function is importable while the conversion runs, so a
-    checkpoint loads where jax is not installed and the port never imports
-    it.
-
-    The stand-in is process-wide: another thread that imports jax while a
-    conversion runs gets it. That is acceptable only while checkpoints are
-    converted once, in ``TextToSpeech.__init__``, and the repo ships none;
-    the lasting fix is a numpy tree map that ``torch_import`` takes as a
-    parameter (ROADMAP.md, Queue 1)."""
-    if "jax" in sys.modules:
-        yield
-        return
-    stand_in = types.ModuleType("jax")
-    stand_in.tree = types.SimpleNamespace(map=_tree_map)
-    sys.modules["jax"] = stand_in
-    try:
-        yield
-    finally:
-        del sys.modules["jax"]
-
-
 def convert_reference_checkpoint(name: str, path: str, model: nn.Module) -> dict:
     """A reference ``.pth`` -> the port's state_dict."""
-    from tortoise_tpu.convert import torch_import as ti
-
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if name == "vocoder":
         sd = sd["model_g"]
@@ -180,8 +143,7 @@ def convert_reference_checkpoint(name: str, path: str, model: nn.Module) -> dict
         "rlg_auto": ti.rlg_params,
         "rlg_diffuser": ti.rlg_params,
     }
-    with _layer_stacking_without_jax():
-        params = converters[name](sd)
+    params = converters[name](sd)
     if name == "autoregressive" and model.config.gpt_config.quant_weights:
         params = quantize_gpt_weights(params)
     return from_jax(model, params)
