@@ -41,8 +41,18 @@ Phases, each of which raises on failure (nothing falls back):
      bf16 cache's, and one with the f32 cache and gpt_fused_step=False: K1
      in every layer of every decode step;
  10. the full-knob CLI (tortoise_tpu_torch.apps.main) in this process,
-     writing a 24 kHz wav.
-Before each path of phases 7-10 every launch counter is set to 0, and read
+     writing a 24 kHz wav;
+ 11. the tools path: K5 (decode attention over an interleaved k|v cache,
+     BH=256, T=256, n_valid=200), K6 (the decode attention body, variants a
+     and b, B=128, T=768, pos=300, ck=64), K7 (seven data-movement probes)
+     and K8 (four contraction orientations) against their plain versions
+     at the tools' reference shapes, timed; then, counted, the five tools'
+     main() in this process: probe_ops, decode_attn_kv128 (B=16, L=30),
+     bench_attn_body, profile_ar_step (B=16, 8 tokens a section; its
+     per-layer decode runs K1) and bench_decode_attn_merged (its defaults:
+     B=16, T=768, L=30, nvalid=600, 32 steps), each checking its kernels
+     again.
+Before each path of phases 7-11 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum those runs only. Every
 UnivNet forward of those paths launches K4 12 times, and K4's plain version
 never runs on the card there.
@@ -53,7 +63,8 @@ record also goes to build/chip_smoke.json. A row's bound_ms is the least
 time the card could take for the row's timed call: the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate for their type (bf16 989 TFLOP/s, f32
-without tensor cores 67 TFLOP/s; NVIDIA's H100 SXM data sheet).
+without tensor cores 67 TFLOP/s; NVIDIA's H100 SXM data sheet), reckoned
+by tortoise_tpu_torch/utils/measure.py as the tools reckon theirs.
 """
 from __future__ import annotations
 
@@ -61,12 +72,16 @@ import concurrent.futures
 import gc
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the bounds and timings of the port's tools, one reckoning for both
+from tortoise_tpu_torch.utils.measure import bound as _bound  # noqa: E402
+from tortoise_tpu_torch.utils.measure import nbytes as _nbytes  # noqa: E402
+from tortoise_tpu_torch.utils.measure import nvidia_smi as _nvidia_smi  # noqa: E402
+from tortoise_tpu_torch.utils.measure import time_ms as _time_ms  # noqa: E402
 # K2: the hidden state and rows after 30 bf16 layers, against the plain
 # version with the TPU kernel's rounding order. Both round at the same
 # places but sum in different orders, so one-ulp bf16 flips compound over
@@ -128,51 +143,30 @@ K2_SOURCE = "tortoise_tpu_torch/csrc/decode_step.cu"
 K2_REPLACES = "tortoise_tpu/ops/decode_step_pallas.py:267"
 K1_NAME, K3_NAME, K4_NAME = ("decode_attention_merged", "flash_rel_attention",
                              "location_variable_convolution_lvc")
+K5_NAME, K7_NAME, K8_NAME = "decode_attention_kv128", "probe_ops", "probe_orient"
+# phase 11: each tool's arguments (the K5-K8 tools at their reference shapes,
+# K5 at B=16 so BH=256; the profiler with few tokens a section)
+TOOL_RUNS = (
+    ("probe_ops", []),
+    ("decode_attn_kv128", ["--batch", "16", "--tmax", "256", "--layers", "30", "--steps", "8"]),
+    ("bench_attn_body", ["--batch", "128", "--t", "768", "--fill", "300", "--ck", "64",
+                         "--reps", "5"]),
+    ("profile_ar_step", ["--batch", "16", "--tokens", "8"]),
+    ("bench_decode_attn_merged", []),
+)
 # UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
 LVC_HOPS = (8, 64, 256)
 LVC_CALLS_PER_FORWARD = 12
 # frames of a 500-token clip: 2176 mel frames plus UnivNet's 10 padding frames
 LVC_FRAMES = 2186
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
-
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    """The least time (ms) for moving ``nbytes`` and doing ``flops`` of type
-    ``dtype`` on the card, and which of the two bounds it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _k2_row_name(variant: str) -> str:
     return "fused_decode_step" if variant == "bf16" else f"fused_decode_step[{variant}]"
+
+
+def _k6_row_name(variant: str) -> str:
+    return f"attn_body[{variant}]"
 
 
 def check_decode_step(record: dict) -> dict:
@@ -821,11 +815,17 @@ class Launches:
         from tortoise_tpu_torch.ops import lvc
         from tortoise_tpu_torch.ops.attn import decode_attention_merged, flash_rel_attention
         from tortoise_tpu_torch.ops.decode_step import fused_decode_step
+        from tortoise_tpu_torch.tools.bench_attn_body import attn_body
+        from tortoise_tpu_torch.tools.decode_attn_kv128 import decode_attention_kv128
+        from tortoise_tpu_torch.tools.probe_ops import contraction, probe
 
-        self.k2 = fused_decode_step
+        # wrappers that count each variant apart: {wrapper: row name of a variant}
+        self.by_variant = {fused_decode_step: _k2_row_name, attn_body: _k6_row_name}
         self.single = {K1_NAME: decode_attention_merged, K3_NAME: flash_rel_attention,
-                       K4_NAME: lvc.location_variable_convolution_lvc}
-        self.total = {_k2_row_name(v): 0 for v in K2_VARIANTS}
+                       K4_NAME: lvc.location_variable_convolution_lvc,
+                       K5_NAME: decode_attention_kv128, K7_NAME: probe, K8_NAME: contraction}
+        self.total = {name(v): 0 for fn, name in self.by_variant.items()
+                      for v in fn.launches_by_variant}
         self.total.update(dict.fromkeys(self.single, 0))
         self.lvc_plain_on_cuda = 0
         plain = lvc.location_variable_convolution_lvc_plain
@@ -837,14 +837,16 @@ class Launches:
         lvc.location_variable_convolution_lvc_plain = counted
 
     def reset(self):
-        self.k2.launches = 0
-        self.k2.launches_by_variant.update(dict.fromkeys(self.k2.launches_by_variant, 0))
+        for fn in self.by_variant:
+            fn.launches = 0
+            fn.launches_by_variant.update(dict.fromkeys(fn.launches_by_variant, 0))
         for fn in self.single.values():
             fn.launches = 0
         self.lvc_plain_on_cuda = 0
 
     def read(self) -> dict:
-        counts = {_k2_row_name(v): n for v, n in self.k2.launches_by_variant.items()}
+        counts = {name(v): n for fn, name in self.by_variant.items()
+                  for v, n in fn.launches_by_variant.items()}
         counts.update({name: fn.launches for name, fn in self.single.items()})
         if self.lvc_plain_on_cuda:
             raise AssertionError(f"K4's plain version ran on CUDA tensors "
@@ -854,6 +856,104 @@ class Launches:
     def add(self, counts: dict):
         for k, n in counts.items():
             self.total[k] += n
+
+
+def check_tool_kernels(record: dict) -> list[dict]:
+    """K5-K8 against their plain versions at the tools' reference shapes,
+    each timed beside its plain version and its library yardstick: K5 at
+    BH=256, T=256, n_valid=200; K6 (both variants) at B=128, T=768,
+    pos=300, ck=64; K7's seven probes; K8's four orientations. K7's and
+    K8's rows sum their calls' times and bound; the per-probe numbers go to
+    the record."""
+    import torch
+
+    from tortoise_tpu_torch.tools import bench_attn_body, decode_attn_kv128, probe_ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    kv = torch.randn((256, 256, 128), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((256, 64), generator=g, device=dev).to(torch.bfloat16)
+    k5 = decode_attn_kv128.check(kv, q, 200)
+    record["k5"] = k5
+    print(f"K5 BH=256 T=256 n=200: max|err| {k5['max_abs_err']:.4g} = {k5['rel_err']:.3g} x "
+          f"max|plain| (bound {k5['bound']}); kernel {k5['ms']:.4f} ms, plain "
+          f"{k5['plain_ms']:.4f} ms, SDPA {k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+          f"({k5['bound_by']})")
+    if k5["rel_err"] > k5["bound"]:
+        raise AssertionError(f"K5 disagrees with its plain version: {k5}")
+    rows.append({"name": K5_NAME, "source": "tortoise_tpu_torch/csrc/decode_attn_kv128.cu",
+                 "replaces": "tools/pallas_decode_attn.py:64",
+                 "timed_at": "BH=256 T=256 n_valid=200", **k5})
+    del kv
+
+    b, t, c, pos, ck = 128, 768, 1024, 300, 64
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((b, c), (b, t, c), (b, t, c)))
+    record["k6"] = {}
+    for variant in bench_attn_body.VARIANTS:
+        r = record["k6"][variant] = bench_attn_body.check(q, k, v, pos, ck, variant, 20)
+        print(f"K6[{variant}] B={b} T={t} pos={pos} ck={ck}: max head rel err "
+              f"{r['head_rel_err']:.4g} (bound {r['bound']}), max|err| vs f32 reference "
+              f"{r['ref_max_abs_err']:.4g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if r["head_rel_err"] > r["bound"]:
+            raise AssertionError(f"K6[{variant}] disagrees with its plain version: {r}")
+        rows.append({"name": _k6_row_name(variant), "source": "tortoise_tpu_torch/csrc/attn_body.cu",
+                     "replaces": "tools/bench_attn_body_pallas.py:124",
+                     "timed_at": f"B={b} T={t} pos={pos} ck={ck}", **r})
+    del q, k, v
+
+    for name, calls, dtype, replaces, timed_at in (
+            (K7_NAME, probe_ops.run_probes(dev), "f32", "tools/probe_mosaic_ops.py:18",
+             "the seven probes' calls, B=64 ck=32 H=16 T=768 C=1024"),
+            (K8_NAME, probe_ops.timed_probes(dev), "bf16", "tools/probe_mosaic_ops.py:87",
+             "the four orientations' calls, B=64 ck=128 C=1024 H=16")):
+        record[name] = calls
+        if not all(r["ok"] for r in calls):
+            raise AssertionError(f"{name}: a probe disagrees with its plain version: {calls}")
+        bound_ms, bound_by = _bound(sum(r["nbytes"] for r in calls),
+                                    sum(r["flops"] for r in calls), dtype)
+        row = {"name": name, "source": "tortoise_tpu_torch/csrc/probe_ops.cu",
+               "replaces": replaces, "timed_at": timed_at,
+               "max_abs_err": max(r["max_abs_err"] for r in calls),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row.update({k_: sum(r[k_] for r in calls) for k_ in ("ms", "plain_ms", "library_ms")})
+        rows.append(row)
+    for row in rows:
+        row["route"] = "cuda"
+    return rows
+
+
+def run_tools(record: dict, launches: Launches) -> None:
+    """Phase 11, the tools path: each tool's main() in this process, as a
+    user runs it on the card, counted apart. Each checks its own kernels
+    against their plain versions and raises on a mismatch (probe_ops
+    returns ok=False); profile_ar_step's sections must all be timed."""
+    import importlib
+    import math
+
+    record["tools"] = {}
+    launches.reset()
+    for name, argv in TOOL_RUNS:
+        tool = importlib.import_module(f"tortoise_tpu_torch.tools.{name}")
+        t0 = time.perf_counter()
+        print(f"--- python3 -m tortoise_tpu_torch.tools.{name} {' '.join(argv)}")
+        res = tool.main(argv)
+        res["wall_s"] = time.perf_counter() - t0
+        record["tools"][name] = res
+        if name == "probe_ops" and not res["ok"]:
+            raise AssertionError("probe_ops: a probe failed")
+        if name == "profile_ar_step":
+            secs = res["sections"]
+            timed = [secs["a"], secs["b"], secs["c"], *secs["b2"].values(),
+                     *(r for row in secs["d"].values() for r in row.values())]
+            if not all(math.isfinite(r["device_ms"]) and r["device_ms"] > 0 for r in timed):
+                raise AssertionError(f"profile_ar_step: a section was not timed: {secs}")
+    counts = launches.read()
+    launches.add(counts)
+    record["tools_launches"] = counts
+    print("tools path launches", json.dumps(counts))
 
 
 def _wav_ok(wav) -> bool:
@@ -1150,7 +1250,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
-    sys.path.insert(0, ROOT)
     from tortoise_tpu_torch.api import TextToSpeech
     from tortoise_tpu_torch.ops import _build
     from tortoise_tpu_torch.utils.audio import load_voice
@@ -1161,7 +1260,8 @@ def main() -> int:
     record = {"device": kind, "nvidia_smi": smi}
     t_start = time.perf_counter()
 
-    sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged")
+    sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged", "decode_attn_kv128",
+               "attn_body", "probe_ops")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
     record["build_s"] = time.perf_counter() - t_start
@@ -1194,8 +1294,10 @@ def main() -> int:
     run_quality_int8(clips, record, launches)
     run_quality_f32_cache(clips, record, launches)
     run_cli(record, launches)
+    tool_rows = check_tool_kernels(record)
+    run_tools(record, launches)
 
-    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row]
+    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows
     for row in rows:
         row["launches"] = launches.total[row["name"]]
         if row["launches"] <= 0:

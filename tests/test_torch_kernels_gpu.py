@@ -317,3 +317,98 @@ def test_decode_attention_merged_kernel_rejects_bad_input(cuda):
     int8 = cache["k"].to(torch.int8)
     with pytest.raises(ValueError, match="k_cache"):
         decode_attention_merged(q, q, q, int8, int8, 0, 0, heads=16)
+
+
+# --- the tools' kernels: K5-K8 -----------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,n_valid", [(16, 64, 0), (16, 64, 1), (24, 64, 40), (24, 64, 64),
+                                          (256, 256, 200), (5, 300, 999)])
+def test_decode_attention_kv128_kernel_matches_plain(cuda, bh, t, n_valid):
+    """K5 at the CPU tests' sizes and the tool's (BH=256, T=256, n=200):
+    f32 output within 1e-5 of max|plain|; n_valid=0 is the uniform mean."""
+    from tortoise_tpu_torch.tools.decode_attn_kv128 import (decode_attention_kv128,
+                                                            decode_attention_kv128_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(bh + t + n_valid)
+    kv = torch.randn((bh, t, 128), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn((bh, 64), generator=g, device=cuda).to(torch.bfloat16)
+    before = decode_attention_kv128.launches
+    got = decode_attention_kv128(kv, q, n_valid)
+    torch.cuda.synchronize()
+    assert decode_attention_kv128.launches == before + 1
+    want = decode_attention_kv128_plain(kv, q, n_valid)
+    assert got.shape == (bh, 64) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["a", "b"])
+@pytest.mark.parametrize("b,t,pos,ck", [(2, 128, 0, 32), (2, 128, 37, 32), (2, 128, 127, 32),
+                                        (128, 768, 300, 64), (3, 96, 95, 96)])
+def test_attn_body_kernel_matches_plain(cuda, variant, b, t, pos, ck):
+    """K6 per (batch row, head) within 1e-2 of its max|plain| (a bf16
+    output), at the CPU tests' sizes and the tool's."""
+    from tortoise_tpu_torch.tools.bench_attn_body import attn_body, attn_body_plain, head_rel_err
+
+    g = torch.Generator(device=cuda).manual_seed(pos + ck)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((b, 1024), (b, t, 1024), (b, t, 1024)))
+    before = attn_body.launches_by_variant[variant]
+    got = attn_body(q, k, v, pos, ck=ck, variant=variant)
+    torch.cuda.synchronize()
+    assert attn_body.launches_by_variant[variant] == before + 1
+    want = attn_body_plain(q, k, v, pos, ck=ck, variant=variant)
+    assert got.dtype == torch.bfloat16 and head_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_attn_body_kernel_rejects_bad_input(cuda):
+    from tortoise_tpu_torch.tools.bench_attn_body import attn_body
+
+    q = torch.zeros((2, 1024), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((2, 100, 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="must divide"):
+        attn_body(q, k, k, 10, ck=64)
+    with pytest.raises(ValueError, match="variant"):
+        attn_body(q, k, k, 10, ck=50, variant="c")
+    with pytest.raises(ValueError, match="k:"):
+        attn_body(q, k.float(), k, 10, ck=50)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(1, 8))
+def test_probe_kernels_match_plain(cuda, i):
+    """K7: each probe on the JAX tool's arange/100 inputs and shapes, bit
+    for bit (the contraction, probe 6: within 1e-6 of max|plain|)."""
+    from tortoise_tpu_torch.tools.probe_ops import PROBES, probe, probe_inputs, probe_plain
+
+    args = probe_inputs(i, cuda)
+    before = probe.launches
+    got = probe(i, *args)
+    torch.cuda.synchronize()
+    assert probe.launches == before + 1
+    want = probe_plain(i, *args)
+    assert got.shape == PROBES[i - 1][2]
+    if i == 6:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [dict(b=4, ck=32, c=256, h=4), {}], ids=["small", "probe"])
+def test_contraction_kernels_match_plain(cuda, sizes):
+    """K8: the four orientations on seeded random bf16 operands, within
+    1e-5 of max|plain| (f32 sums of exact bf16 products)."""
+    from tortoise_tpu_torch.tools.probe_ops import (contraction, contraction_plain,
+                                                    orientation_operands)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for name, (_, a, b, shape) in orientation_operands(g, cuda, **sizes).items():
+        before = contraction.launches
+        got = contraction(a, b).reshape(shape)
+        torch.cuda.synchronize()
+        assert contraction.launches == before + 1
+        want = contraction_plain(a, b).reshape(shape)
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), name

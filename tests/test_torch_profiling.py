@@ -18,6 +18,7 @@ from tortoise_tpu_torch.utils import profiling
     ("void tt::(anonymous namespace)::merge_splits_kernel<__nv_bfloat16>(...)", "K1"),
     ("void tt::(anonymous namespace)::lvc_kernel<16>(...)", "K4"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS/cuDNN"),
+    ("nvjet_hsh_64x32_64x16_2x1_v_bz_splitK_TNN", "cuBLAS/cuDNN"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel", "cuBLAS/cuDNN"),
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),
 ])

@@ -75,6 +75,7 @@ FAMILIES = (
     ("lvc_kernel", "K4"),
     ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
     ("cudnn", "cuBLAS/cuDNN"), ("conv", "cuBLAS/cuDNN"),
+    ("nvjet", "cuBLAS/cuDNN"),   # cuBLAS's own Hopper GEMMs (CUDA 12.8)
 )
 REQUESTS = (
     ("ultra_fast", "The quick brown fox jumps over the lazy dog.", 11),
@@ -114,7 +115,7 @@ def device_breakdown(events) -> dict:
             "ms_by_family": by_family, "n_device_events": len(events)}
 
 
-def _device_events(prof) -> list[dict]:
+def device_events(prof) -> list[dict]:
     return [{"name": e.name, "start_us": e.time_range.start, "end_us": e.time_range.end}
             for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -133,7 +134,7 @@ def profile_requests(tts, clips) -> dict:
                                 use_deterministic_seed=seed, verbose=False)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
-        res = device_breakdown(_device_events(prof))
+        res = device_breakdown(device_events(prof))
         res.update(wall_ms_profiled=wall_ms,
                    busy_share_of_wall=res["device_busy_ms"] / wall_ms,
                    stages_s=tts.last_stage_timings)
@@ -174,7 +175,7 @@ def profile_k2_variants(steps: int = 10) -> dict:
                         run()
                     end.record()
                     torch.cuda.synchronize()
-                res = device_breakdown(_device_events(prof))
+                res = device_breakdown(device_events(prof))
                 out[f"{variant(stacked, cache)} B={b}"] = {
                     "step_ms": start.elapsed_time(end) / steps,
                     "device_busy_ms_per_step": res["device_busy_ms"] / steps,
