@@ -13,9 +13,10 @@ Phases, each of which raises on failure (nothing falls back):
      weights x bf16 or int8 cache), against its plain PyTorch version at
      full width: L=30, C=1024, H=16, B in {1, 16}, pos in {0, 37, 500},
      T=768;
-  4. K3 (relative-position attention) against its plain version at B=2,
-     H=16, D=64, T in {256, 2229}, per-row valid lengths below T, timed
-     beside scaled_dot_product_attention with the bias as a float mask;
+  4. K3 (relative-position attention) against its plain version at B in
+     {2, 1} (the fast preset's CFG batch, ultra_fast's), H=16, D=64, T in
+     {256, 2229}, per-row valid lengths below T, timed beside
+     scaled_dot_product_attention with the bias as a float mask;
   5. K4 (UnivNet's location-variable convolution) against its plain
      version and the shifted-reshape einsum form at F=2186 frames (a
      500-token clip), hop in {8, 64, 256}, B=1, f32;
@@ -79,6 +80,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # the bounds and timings of the port's tools, one reckoning for both
 from tortoise_tpu_torch.utils.measure import bound as _bound  # noqa: E402
+from tortoise_tpu_torch.utils.measure import device_ms as _device_ms  # noqa: E402
 from tortoise_tpu_torch.utils.measure import nbytes as _nbytes  # noqa: E402
 from tortoise_tpu_torch.utils.measure import nvidia_smi as _nvidia_smi  # noqa: E402
 from tortoise_tpu_torch.utils.measure import time_ms as _time_ms  # noqa: E402
@@ -94,8 +96,8 @@ K2_REL_BOUND = 0.05
 # relative to its own max|plain|
 K2_HEAD_REL_BOUND = 0.02
 K2_ROW_REL_BOUND = 0.02
-# K3: bf16 output of a softmax-weighted mean of O(1) values; the plain
-# version rounds the weights to bf16, the kernel keeps them f32
+# K3: bf16 output of a softmax-weighted mean of O(1) values; both round the
+# weights to bf16, the kernel before normalising them, the plain version after
 K3_ABS_BOUND = 0.02
 # fused vs unfused decode step / flash vs einsum diffusion forward at full
 # width, bf16 model: relative to max|unfused|. With the int8 cache the
@@ -249,6 +251,10 @@ def _k2_bound(stacked, x, cache, pos, layers, c):
 
 
 def check_flash_attention(record: dict) -> dict:
+    """K3 against its plain version at B in {2, 1} and T in {256, 2229},
+    each timed beside its plain version and SDPA with the bias and key mask
+    as one float mask. The row's numbers are B=2, T=2229 (the fast preset's
+    CFG batch); B=1, T=2229 (ultra_fast's) goes beside them as b1_*."""
     import torch
 
     import torch.nn.functional as F
@@ -256,14 +262,14 @@ def check_flash_attention(record: dict) -> dict:
     from tortoise_tpu_torch.ops.attn import (expand_rel_bias, flash_rel_attention,
                                              flash_rel_attention_plain)
 
-    B, H, D = 2, 16, 64
+    H, D = 16, 64
     g = torch.Generator(device="cuda").manual_seed(1)
-    cases, worst, timing = [], 0.0, None
-    for t in (256, 2229):
+    cases, worst, row = [], 0.0, {}
+    for B, t in ((2, 256), (2, 2229), (1, 256), (1, 2229)):
         q, k, v = (torch.randn((B, H, t, D), generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         bias = torch.randn((H, 2 * t - 1), generator=g, device="cuda").to(torch.bfloat16).float()
-        valid = torch.tensor([t - 5, (3 * t) // 4], dtype=torch.int32, device="cuda")
+        valid = torch.tensor([t - 5, (3 * t) // 4][:B], dtype=torch.int32, device="cuda")
         got = flash_rel_attention(q, k, v, bias, valid)
         torch.cuda.synchronize()
         want = flash_rel_attention_plain(q, k, v, bias, valid)
@@ -279,29 +285,35 @@ def check_flash_attention(record: dict) -> dict:
         sdpa_err = max((sdpa()[b, :, :n] - want[b, :, :n]).float().abs().max().item()
                        for b, n in enumerate(valid.tolist()))
         library_ms = _time_ms(sdpa, 20)
+        device_ms = _device_ms(lambda: flash_rel_attention(q, k, v, bias, valid), 20)
+        library_device_ms = _device_ms(sdpa, 20)
         del mask
         n_valid = sum(valid.tolist())
         bound_ms, bound_by = _bound(
             2 * H * D * 2 * (B * t + n_valid) + _nbytes(bias, valid), 4 * H * D * t * n_valid,
             "bf16")
-        cases.append({"T": t, "valid_len": valid.tolist(), "err": err, "bound": K3_ABS_BOUND,
-                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                      "library_max_abs_err": sdpa_err, "bound_ms": bound_ms,
-                      "bound_by": bound_by})
+        cases.append({"B": B, "T": t, "valid_len": valid.tolist(), "err": err,
+                      "bound": K3_ABS_BOUND, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "library_max_abs_err": sdpa_err,
+                      "device_ms": device_ms, "library_device_ms": library_device_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"K3 B={B} H={H} T={t} valid={valid.tolist()}: max|err| {err:.4g} "
-              f"(bound {K3_ABS_BOUND}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA {library_ms:.3f} ms (max|err| {sdpa_err:.4g}), bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"(bound {K3_ABS_BOUND}); kernel {ms:.3f} ms (device {device_ms:.3f}), plain "
+              f"{plain_ms:.3f} ms, SDPA {library_ms:.3f} ms (device {library_device_ms:.3f}, "
+              f"max|err| {sdpa_err:.4g}), bound {bound_ms:.4f} ms ({bound_by})")
         if err > K3_ABS_BOUND:
-            raise AssertionError(f"K3 disagrees with its plain version at T={t}: {err}")
+            raise AssertionError(f"K3 disagrees with its plain version at B={B} T={t}: {err}")
         worst = max(worst, err)
-        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by}
+        if t == 2229:
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "device_ms": device_ms, "library_device_ms": library_device_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+            row.update(timing if B == 2 else {f"b1_{k_}": x for k_, x in timing.items()})
     record["k3"] = cases
     return {"name": K3_NAME, "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/flash_rel_attn.cu",
             "replaces": "tortoise_tpu/ops/attn_pallas.py:89",
-            "max_abs_err": worst, "timed_at": f"B={B} T=2229", **timing}
+            "max_abs_err": worst, "timed_at": "B=2 T=2229 (b1_*: B=1 T=2229)", **row}
 
 
 def check_lvc(record: dict) -> dict:
@@ -918,7 +930,10 @@ def check_tool_kernels(record: dict) -> list[dict]:
                "replaces": replaces, "timed_at": timed_at,
                "max_abs_err": max(r["max_abs_err"] for r in calls),
                "bound_ms": bound_ms, "bound_by": bound_by}
-        row.update({k_: sum(r[k_] for r in calls) for k_ in ("ms", "plain_ms", "library_ms")})
+        # K7 times no bf16 yardstick and no device time apart
+        sums = ("ms", "plain_ms", "library_ms", "library_bf16_ms", "device_ms",
+                "library_device_ms")
+        row.update({k_: sum(r[k_] for r in calls) for k_ in sums if k_ in calls[0]})
         rows.append(row)
     for row in rows:
         row["route"] = "cuda"

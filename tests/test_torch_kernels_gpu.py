@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 (every weight x cache variant), K3 and K4 against
+"""The CUDA kernels K1, K2 (every weight x cache variant), K3-K8 against
 their plain PyTorch versions, on the GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -148,6 +148,42 @@ def test_flash_rel_attention_kernel_matches_plain(cuda, b, h, t):
     want = flash_rel_attention_plain(q, k, v, vec, lens)
     for i, n in enumerate(lens.tolist()):
         assert (got[i, :, :n].float() - want[i, :, :n].float()).abs().max().item() <= 0.02
+
+
+# (B, H, T, valid lengths): T=2229 (the quality path's longest diffusion
+# length) with the last key tile 1, 63, 64 or 65 keys long or full, at B=1
+# (ultra_fast's batch); T not a multiple of 8; a valid length that ends
+# mid-tile in one batch row and on a tile edge in the other
+K3_TILING_CASES = [(1, 16, 2229, [1]), (1, 16, 2229, [63]), (1, 16, 2229, [64]),
+                   (1, 16, 2229, [65]), (1, 16, 2229, [2229]), (1, 16, 2229, [2224]),
+                   (2, 4, 97, [97, 50]), (2, 4, 333, [100, 128]), (2, 4, 333, [192, 333])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,lens", K3_TILING_CASES)
+def test_flash_rel_attention_kernel_tiling_edges(cuda, b, h, t, lens):
+    """K3's 64-row q tiles and 64-key k/v tiles at their edges: every valid
+    row within 0.02 of the plain version (a bf16 output of O(1) values)."""
+    g = torch.Generator(device=cuda).manual_seed(t + sum(lens))
+    q, k, v = (torch.randn((b, h, t, 64), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    vec = torch.randn((h, 2 * t - 1), generator=g, device=cuda)
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = flash_rel_attention(q, k, v, vec, valid)
+    torch.cuda.synchronize()
+    want = flash_rel_attention_plain(q, k, v, vec, valid)
+    for i, n in enumerate(lens):
+        assert (got[i, :, :n].float() - want[i, :, :n].float()).abs().max().item() <= 0.02
+
+
+@pytest.mark.gpu
+def test_flash_rel_attention_kernel_zero_valid_len_gives_zeros(cuda):
+    """valid_len = 0 runs no key tile: the output is zeros (rows past
+    valid_len carry no meaning; this pins the kernel's behaviour)."""
+    q = torch.ones((2, 2, 70, 64), dtype=torch.bfloat16, device=cuda)
+    valid = torch.tensor([0, 70], dtype=torch.int32, device=cuda)
+    got = flash_rel_attention(q, q, q, torch.zeros((2, 139), device=cuda), valid)
+    assert torch.equal(got[0], torch.zeros_like(got[0])) and torch.equal(got[1], q[1])
 
 
 @pytest.mark.gpu
@@ -412,3 +448,77 @@ def test_contraction_kernels_match_plain(cuda, sizes):
         assert contraction.launches == before + 1
         want = contraction_plain(a, b).reshape(shape)
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), name
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """x as a view into storage whose rows are padded to a multiple of 8
+    values: unit inner stride and 16-byte aligned rows, so K8 takes it
+    through its 16-byte copies, with a partial chunk at each row's end."""
+    n = x.shape[-1]
+    out = x.new_zeros(*x.shape[:-1], -(-n // 8) * 8)
+    out[..., :n] = x
+    return out[..., :n]
+
+
+def _odd_orientations(g, dev, lay, b=3, ck=13, c=50, h=77):
+    """The four orientations as ``orientation_operands`` builds them, at
+    odd sizes, each raw operand passed through ``lay`` first: {name: (A, B)}."""
+    r = lambda *s: lay(torch.randn(s, generator=g, device=dev).to(torch.bfloat16))
+    k, q, qh, kk, p, m, pt, v = (r(b, ck, c), r(b, c, h), r(b, h, c), r(b, ck, c), r(b, ck, h),
+                                 r(h, c), r(b, h, ck), r(b, ck, c))
+    return {"o1": (k, q), "o2": (qh, kk.transpose(1, 2)),
+            "p_exp": (p.reshape(1, b * ck, h), m[None]), "pv": (pt, v)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "padded"])
+@pytest.mark.parametrize("name", ["o1", "o2", "p_exp", "pv"])
+def test_contraction_kernel_odd_sizes(cuda, layout, name):
+    """K8 at BT=3 and odd I, J, R (13, 77, 50 in each orientation's places):
+    contiguous operands take the element loads, padded ones the 16-byte
+    copies with partial chunks; every edge tile predicated. Within 1e-5 of
+    max|plain|."""
+    from tortoise_tpu_torch.tools.probe_ops import contraction, contraction_plain
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    lay = _padded if layout == "padded" else (lambda x: x)
+    a, b = _odd_orientations(g, cuda, lay)[name]
+    got = contraction(a, b)
+    torch.cuda.synchronize()
+    want = contraction_plain(a, b)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", ["a", "b"])
+@pytest.mark.parametrize("r", [40, 50])
+def test_contraction_kernel_shared_operand(cuda, shared, r):
+    """A batch stride of 0 (one operand expanded over the batch, as p_exp's
+    m[None] is at BT=1) at I=37, J=72: within 1e-5 of max|plain|."""
+    from tortoise_tpu_torch.tools.probe_ops import contraction, contraction_plain
+
+    g = torch.Generator(device=cuda).manual_seed(r)
+    bt, i, j = 5, 37, 72
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    a = rnd(i, r)[None].expand(bt, i, r) if shared == "a" else rnd(bt, i, r)
+    b = rnd(r, j)[None].expand(bt, r, j) if shared == "b" else rnd(bt, r, j)
+    assert (a.stride(0) if shared == "a" else b.stride(0)) == 0
+    got = contraction(a, b)
+    torch.cuda.synchronize()
+    want = contraction_plain(a, b)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_device_ms_leaves_out_launch_time(cuda):
+    """measure.device_ms times the device alone (runs queued behind a
+    sleeping kernel): for a call of a few microseconds it reads below
+    time_ms, which includes the host's time to reach the launch."""
+    from tortoise_tpu_torch.tools.probe_ops import contraction
+    from tortoise_tpu_torch.utils import measure
+
+    a = torch.ones((2, 16, 32), dtype=torch.bfloat16, device=cuda)
+    call = lambda: contraction(a, a.transpose(1, 2))
+    dev, event = measure.device_ms(call, 10), measure.time_ms(call, 10)
+    assert 0 < dev < event

@@ -1,5 +1,5 @@
 // K3: non-causal attention with a T5 relative-position bias and per-row key
-// masking, hand-written for Hopper (sm_90a).
+// masking, hand-written for Hopper (sm_90a) on the bf16 tensor cores.
 //
 // Replaces the Pallas TPU kernel tortoise_tpu/ops/attn_pallas.py
 // (flash_rel_attention -> _kernel). It computes what that kernel computes,
@@ -8,171 +8,226 @@
 // of Toeplitz bias tiles it reads a pre-scaled diagonal vector (H, 2T-1),
 // bias[h, j - i + T - 1], built once per sampling call.
 //
-// One block per (64-row q tile, head, batch row); 64-key k/v tiles pass
-// through shared memory as f32; the softmax is online (running max and sum
-// in f32), so scores never reach device memory. Key tiles at or past
-// valid_len are skipped. Output rows at or past valid_len are computed like
-// the others but carry no meaning (the caller masks them).
+// FlashAttention-2's shape. One block of 4 warps per (64-row q tile, head,
+// batch row); each warp owns 16 q rows (128-row tiles of 8 warps were slower
+// at both of the quality path's batches). The q tile and 64-key
+// k/v tiles come into shared memory as bf16 through 16-byte cp.async copies,
+// k/v double-buffered (the next tile loads while this one is computed), each
+// row's eight 16-byte chunks XOR-swizzled by the row so ldmatrix has no
+// bank conflicts without padding. S = q k^T and o += p v are mma.sync
+// m16n8k16 (bf16 in, f32 sums). The tile's slice of the bias vector comes
+// into shared memory with its k/v tile (4-byte cp.async copies in the same
+// pipeline), and each score adds the entry its (row, col) names; only the
+// last key tile masks columns one by one, and tiles at or past valid_len
+// are skipped. The softmax is online in registers (row max
+// and sum per fragment row, exp2f); p is rounded to bf16 in registers and
+// fed straight back as the A operand of the pv product, as the TPU kernel
+// rounds its weights to v's dtype (here before the normalisation, which is
+// done in f32 at the end). The output tile goes out through shared memory
+// in 16-byte stores. Output rows at or past valid_len are computed like the
+// others but carry no meaning (the caller masks them); valid_len = 0 gives
+// zeros.
 //
-// What bounds it on an H100: at B=2, H=16, T~2230 one call is ~40 GFLOP for
-// ~18 MB of q/k/v/out traffic, so it is compute-bound. This first version
-// runs on the CUDA cores in f32 (67 TFLOP/s peak); mma.sync / wgmma tiles
-// are later work.
-#include "common.cuh"
+// What bounds it on an H100: operations. At B=2, H=16, T~2230 one call is
+// ~36 GFLOP for ~18 MB of q/k/v/out traffic (0.036 ms at the 989 TFLOP/s
+// bf16 peak). mma.sync reaches a fraction of that peak; wgmma with
+// warp-specialised TMA loads (FlashAttention-3's shape) is the next step.
+#include "mma.cuh"
 
 namespace tt {
 namespace {
 
 constexpr int kD = 64;  // head dim; the wrapper checks it
-constexpr int kBQ = 64;
 constexpr int kBK = 64;
-constexpr int kThreads = 256;  // 16 x 16 threads, each owns a 4 x 4 patch
-constexpr int kPad = kD + 1;
-constexpr int kPStride = kBK + 1;
-constexpr float kLogitScale = 0.125f;  // 1/sqrt(kD)
+constexpr int kTile = kBK * kD;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kScale = 0.125f;  // 1/sqrt(kD)
 constexpr float kMasked = -1e30f;
-constexpr int kSmemFloats = kBQ * kPad + kBK * kPad + kBK * kD + kBQ * kPStride + 2 * kBK;
 
-// rows r0..r0+63 of a (T, kD) bf16 matrix -> f32 shared tile with row stride
-// `stride`; rows at or past T are zero.
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int r0, int T, float* dst,
-                                          int stride) {
-  for (int i = threadIdx.x; i < kBQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c8 = i % (kD / 8);
-    float v[8];
-    if (r0 + r < T) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * kD) + c8), v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[r * stride + c8 * 8 + j] = v[j];
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;
+constexpr int kBias = kBQ + kBK - 1;  // j - i = -(kBQ-1) .. kBK-1
+constexpr size_t kSmem = (size_t)(kBQ * kD + 4 * kTile) * sizeof(bf16) +
+                         2 * kBias * sizeof(float);
+
+// Element (row, col) of a (rows, kD) bf16 shared tile: 16-byte chunk col / 8
+// of a row is stored at chunk (col / 8) ^ (row % 8), so the eight rows an
+// ldmatrix reads at one chunk fall in eight different bank groups.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kD + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// The bias entries of key tile j0 against q tile i0, b_s[j - i + kBQ - 1] =
+// bias_h[j - i + T - 1], asynchronously; entries outside the vector are zero.
+__device__ __forceinline__ void load_bias(const float* __restrict__ bias_h, int i0, int j0, int T,
+                                          float* b_s) {
+  for (int i = threadIdx.x; i < kBQ + kBK - 1; i += kThreads) {
+    const int idx = j0 - i0 + i - (kBQ - 1) + T - 1;
+    const bool in = idx >= 0 && idx <= 2 * T - 2;
+    cp_async4(b_s + i, bias_h + (in ? idx : 0), in ? 4 : 0);
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// rows r0 .. r0 + rows - 1 of a (T, kD) bf16 matrix -> swizzled shared tile,
+// asynchronously; rows at or past T are zero.
+__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int r0, int rows, int T,
+                                          bf16* dst) {
+  for (int i = threadIdx.x; i < rows * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8), c = i % (kD / 8);
+    const bool in = r0 + r < T;
+    cp_async16(dst + swz(r, c * 8), src + (size_t)(in ? r0 + r : 0) * kD + c * 8, in ? 16 : 0);
+  }
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 flash_rel_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ bias,
                       const int* __restrict__ valid_len, bf16* __restrict__ out, int H, int T) {
-  extern __shared__ float sm[];
-  float* q_s = sm;                     // [kBQ][kPad]
-  float* k_s = q_s + kBQ * kPad;       // [kBK][kPad]
-  float* v_s = k_s + kBK * kPad;       // [kBK][kD]
-  float* p_s = v_s + kBK * kD;         // [kBQ][kPStride]
-  float* b_s = p_s + kBQ * kPStride;   // [2 kBK - 1]: bias for j - i = -63..63
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBQ][kD], at the end the output tile
+  bf16* k_s = q_s + kBQ * kD;                 // [2][kBK][kD]
+  bf16* v_s = k_s + 2 * kTile;                // [2][kBK][kD]
+  float* b_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kBias]: j - i + kBQ - 1
   const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const size_t head = ((size_t)b * H + h) * T * kD;
   const int len = min(valid_len[b], T);
+  const int n_tiles = len > 0 ? (len + kBK - 1) / kBK : 0;
   const float* bias_h = bias + (size_t)h * (2 * T - 1);
 
-  load_tile(q + head, i0, T, q_s, kPad);
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  load_tile(q + head, i0, kBQ, T, q_s);
+  if (n_tiles > 0) {
+    load_tile(k + head, 0, kBK, T, k_s);
+    load_tile(v + head, 0, kBK, T, v_s);
+    load_bias(bias_h, i0, 0, T, b_s);
   }
+  cp_async_commit();
 
-  const int n_tiles = (len + kBK - 1) / kBK;
+  float o[kD / 8][4];       // output accumulators, 8 columns of d each
+  // rows g and g + 8: running max, and this lane's part of the running sum
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
   for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * kBK;
-    load_tile(k + head, j0, T, k_s, kPad);
-    load_tile(v + head, j0, T, v_s, kD);
-    if (threadIdx.x < 2 * kBK - 1) {
-      const int idx = j0 - i0 + (int)threadIdx.x - (kBK - 1) + T - 1;  // (j - i) + T - 1
-      b_s[threadIdx.x] = (idx >= 0 && idx <= 2 * T - 2) ? bias_h[idx] : 0.f;
+    const int j0 = jt * kBK, buf = jt & 1;
+    if (jt + 1 < n_tiles) {
+      load_tile(k + head, j0 + kBK, kBK, T, k_s + (buf ^ 1) * kTile);
+      load_tile(v + head, j0 + kBK, kBK, T, v_s + (buf ^ 1) * kTile);
+      load_bias(bias_h, i0, j0 + kBK, T, b_s + (buf ^ 1) * kBias);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile jt (and, at jt = 0, the q tile) has landed
     __syncthreads();
+    const bf16* kt = k_s + buf * kTile;
+    const bf16* vt = v_s + buf * kTile;
+    const float* bt = b_s + buf * kBias;
 
-    float s[4][4];
+    // s = q k^T: 8 key columns per fragment
+    float s[kBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      float qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * kPad + d];
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      // this warp's 16 q rows, d ks*16 .. +15, as an A fragment: read again
+      // each tile rather than held, to keep registers for more blocks an SM
+      uint32_t qa[4];
+      ldmatrix_x4(qa, q_s + swz(warp * 16 + lane % 16, ks * 16 + (lane / 16) * 8));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * kPad + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      float tmax = kMasked;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        float x = s[i][j] * kLogitScale + b_s[col - row + kBK - 1];
-        if (j0 + col >= len) x = kMasked;
-        s[i][j] = x;
-        tmax = fmaxf(tmax, x);
+      for (int np = 0; np < kBK / 16; ++np) {
+        uint32_t kb[4];  // keys np*16 .. +7 (d lo, d hi), keys +8 .. +15 (d lo, d hi)
+        ldmatrix_x4(kb, kt + swz(np * 16 + (lane / 16) * 8 + lane % 8,
+                                 ks * 16 + ((lane / 8) % 2) * 8));
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
-      tmax = half_warp_max(tmax);
-      const float m_new = fmaxf(m[i], tmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        p_s[row * kPStride + tx + 16 * j] = p;
-        rsum += p;
-      }
-      rsum = half_warp_sum(rsum);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
 
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[4];
+    // scale, bias, mask; online softmax per fragment row (a quad shares a row)
+    const bool edge = j0 + kBK > len;
+    float tmax[2] = {kMasked, kMasked};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * kPStride + kk];
+    for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = v_s[kk * kD + tx + 16 * j];
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + g + (e / 2) * 8, col = nt * 8 + 2 * t4 + e % 2;
+        float x = fmaf(s[nt][e], kScale, bt[col - row + kBQ - 1]);
+        if (edge && j0 + col >= len) x = kMasked;
+        s[nt][e] = x;
+        tmax[e / 2] = fmaxf(tmax[e / 2], x);
+      }
+    float alpha[2], m_log2[2];  // exp(x - m) = exp2(x log2(e) - m log2(e))
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    for (int rh = 0; rh < 2; ++rh) {
+      tmax[rh] = fmaxf(tmax[rh], __shfl_xor_sync(0xffffffffu, tmax[rh], 1));
+      tmax[rh] = fmaxf(tmax[rh], __shfl_xor_sync(0xffffffffu, tmax[rh], 2));
+      const float m_new = fmaxf(m[rh], tmax[rh]);
+      alpha[rh] = exp2f((m[rh] - m_new) * kLog2e);
+      m[rh] = m_new;
+      m_log2[rh] = m_new * kLog2e;
+      l[rh] *= alpha[rh];
     }
-    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], kLog2e, -m_log2[e / 2]));
+        s[nt][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+
+    // o += p v, p rounded to bf16 in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t vb[4];  // d dp*16 .. +7 (keys lo, keys hi), d +8 .. +15 (keys lo, keys hi)
+        ldmatrix_x4_trans(vb, vt + swz(kk * 16 + ((lane / 8) % 2) * 8 + lane % 8,
+                                       dp * 16 + (lane / 16) * 8));
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
+  // epilogue: normalise in f32, stage this warp's rows in q_s, 16-byte stores
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = i0 + ty * 4 + i;
-    if (row < T) {
-      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  for (int rh = 0; rh < 2; ++rh) {
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 1);
+    l[rh] += __shfl_xor_sync(0xffffffffu, l[rh], 2);
+    inv[rh] = l[rh] > 0.f ? 1.f / l[rh] : 0.f;
+  }
+  cp_async_wait<0>();  // with no key tile, the q tile's copies may still be in flight
+  __syncthreads();
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        out[head + (size_t)row * kD + tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
-    }
+  for (int dt = 0; dt < kD / 8; ++dt)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+      *reinterpret_cast<uint32_t*>(q_s + swz(warp * 16 + g + rh * 8, dt * 8 + 2 * t4)) =
+          pack_bf16(o[dt][2 * rh] * inv[rh], o[dt][2 * rh + 1] * inv[rh]);
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < 16 * (kD / 8); c += 32) {
+    const int r = warp * 16 + c / (kD / 8), col = (c % (kD / 8)) * 8;
+    if (i0 + r < T)
+      *reinterpret_cast<uint4*>(out + head + (size_t)(i0 + r) * kD + col) =
+          *reinterpret_cast<const uint4*>(q_s + swz(r, col));
   }
 }
 
@@ -185,13 +240,12 @@ extern "C" int tt_flash_rel_attn(const void* q, const void* k, const void* v, co
                                  const void* valid_len, void* out, int B, int H, int T,
                                  void* stream) {
   using namespace tt;
-  if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = kSmemFloats * sizeof(float);
+  if (B < 1 || H < 1 || T < 1 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(flash_rel_attn_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_rel_attn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_rel_attn_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(bias), static_cast<const int*>(valid_len),
       static_cast<bf16*>(out), H, T);

@@ -13,12 +13,16 @@ kernel (``csrc/probe_ops.cu``) held against its plain PyTorch version:
 * K8, ``contraction``: the four orientations (B=64, ck=128, C=1024, H=16),
   bf16 in, f32 out, on seeded random bf16 inputs (all-ones inputs would hide
   an index error), within 1e-5 of max|plain|, each timed beside one
-  ``torch.bmm`` of the same bf16 operands as the library yardstick.
+  ``torch.bmm(a, b, out_dtype=torch.float32)`` of the same bf16 operands
+  (the same function: bf16 in, f32 out) as the library yardstick, and the
+  bf16-output ``torch.bmm`` (half the bytes written, rounded outputs) beside
+  it.
 
     python3 -m tortoise_tpu_torch.tools.probe_ops
 
-Times are CUDA-event medians on the card; ``--device cpu`` runs the plain
-versions only (for tests). Exits 1 if any probe fails.
+Times are CUDA-event medians on the card (host launch time included), K8's
+also device time alone (``measure.device_ms``); ``--device cpu`` runs the
+plain versions only (for tests). Exits 1 if any probe fails.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ REPS = 20                                        # timed calls per median
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURE = {"tt_probe": [_I, _P, _P, _P] + [_I] * 6 + [_P],
-              "tt_contraction": [_P, _P, _P] + [_I] * 4 + [_L] * 6 + [_I, _P]}
+              "tt_contraction": [_P, _P, _P] + [_I] * 4 + [_L] * 6 + [_P]}
 
 # (name as the JAX tool prints it, input shapes, output shape)
 PROBES = (
@@ -140,7 +144,7 @@ def contraction(a, b) -> torch.Tensor:
     out = torch.empty((bt, i, j), dtype=torch.float32, device=a.device)
     lib = _build.load("probe_ops", _SIGNATURE)
     err = lib.tt_contraction(a.data_ptr(), b.data_ptr(), out.data_ptr(), bt, i, j, r,
-                             *a.stride(), *b.stride(), int(r >= j),
+                             *a.stride(), *b.stride(),
                              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "probe_ops contraction kernel")
     contraction.launches += 1
@@ -206,7 +210,9 @@ def run_probes(dev) -> list[dict]:
 
 def timed_probes(dev) -> list[dict]:
     """K8: each orientation against its plain version and, on CUDA, timed
-    beside its plain version and torch.bmm of the bf16 operands."""
+    beside its plain version, the f32-output torch.bmm of the bf16 operands
+    (library_ms) and the bf16-output one (library_bf16_ms); the kernel's and
+    the f32 bmm's device time apart (device_ms, library_device_ms)."""
     cuda = dev.type == "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     out = []
@@ -223,13 +229,24 @@ def timed_probes(dev) -> list[dict]:
         bound_ms, bound_by = measure.bound(nb, flops, "bf16")
         res = {"name": name, "ok": ok, "max_abs_err": err, "rel_err": rel, "nbytes": nb,
                "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by, "ms": None,
-               "plain_ms": None, "library_ms": None}
+               "plain_ms": None, "library_ms": None, "library_bf16_ms": None,
+               "device_ms": None, "library_device_ms": None}
         if cuda:
-            res.update(ms=measure.time_ms(lambda: contraction(a, b), REPS),
+            # bmm's out_dtype has no CPU kernel: timed on the card only
+            kernel = lambda: contraction(a, b)
+            library = lambda: torch.bmm(a, b, out_dtype=torch.float32)
+            res.update(ms=measure.time_ms(kernel, REPS),
                        plain_ms=measure.time_ms(lambda: contraction_plain(a, b), REPS),
-                       library_ms=measure.time_ms(lambda: torch.bmm(a, b), REPS))
-        print(f"{'TIME' if ok else 'FAIL':6s}{name}: kernel {measure.fmt(res['ms'])}, plain "
-              f"{measure.fmt(res['plain_ms'])}, torch.bmm {measure.fmt(res['library_ms'])}, "
+                       library_ms=measure.time_ms(library, REPS),
+                       library_bf16_ms=measure.time_ms(lambda: torch.bmm(a, b), REPS),
+                       device_ms=measure.device_ms(kernel, REPS),
+                       library_device_ms=measure.device_ms(library, REPS))
+        print(f"{'TIME' if ok else 'FAIL':6s}{name}: kernel {measure.fmt(res['ms'])} "
+              f"(device {measure.fmt(res['device_ms'])}), plain "
+              f"{measure.fmt(res['plain_ms'])}, torch.bmm f32 out "
+              f"{measure.fmt(res['library_ms'])} (device "
+              f"{measure.fmt(res['library_device_ms'])}; bf16 out "
+              f"{measure.fmt(res['library_bf16_ms'])}), "
               f"bound {bound_ms:.4f} ms ({bound_by}); max|err| {err:.3g} "
               f"({rel:.3g} x max|plain|, bound {ORIENT_REL_BOUND})")
         out.append(res)

@@ -17,6 +17,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# device_ms's head start for the host: ~0.25 ms of sleep (at ~2 GHz) for
+# each run it enqueues, against the few tens of microseconds a launch takes
+SLEEP_CYCLES_PER_RUN = 500_000
 
 
 def nvidia_smi() -> str:
@@ -51,6 +54,24 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` a run: after one warm-up, ``reps`` runs queued
+    behind a kernel that sleeps while the host enqueues them, so CUDA events
+    time the device working through them back to back. Unlike ``time_ms``
+    it leaves out the host's time to reach each launch, which dominates a
+    call of a few microseconds. ``fn`` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_RUN * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_steps(run, steps: int, dev: torch.device) -> dict:
