@@ -47,12 +47,14 @@ Phases, each of which raises on failure (nothing falls back):
      BH=256, T=256, n_valid=200), K6 (the decode attention body, variants a
      and b, B=128, T=768, pos=300, ck=64), K7 (seven data-movement probes)
      and K8 (four contraction orientations) against their plain versions
-     at the tools' reference shapes, timed; then, counted, the five tools'
-     main() in this process: probe_ops, decode_attn_kv128 (B=16, L=30),
-     bench_attn_body, profile_ar_step (B=16, 8 tokens a section; its
-     per-layer decode runs K1) and bench_decode_attn_merged (its defaults:
-     B=16, T=768, L=30, nvalid=600, 32 steps), each checking its kernels
-     again.
+     at the tools' reference shapes, timed with and without the host's
+     launch time; then, counted, the five tools' main() in this process:
+     probe_ops (with the host's launch costs), decode_attn_kv128 (B=16,
+     L=30), bench_attn_body, bench_decode_attn_merged (its defaults: B=16,
+     T=768, L=30, nvalid=600, 32 steps) and, last, profile_ar_step (B=16, 8
+     tokens a section; its per-layer decode runs K1), whose torch.profiler
+     passes come after every timing of the process, each tool checking its
+     kernels again.
 Before each path of phases 7-11 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum those runs only. Every
 UnivNet forward of those paths launches K4 12 times, and K4's plain version
@@ -153,8 +155,9 @@ TOOL_RUNS = (
     ("decode_attn_kv128", ["--batch", "16", "--tmax", "256", "--layers", "30", "--steps", "8"]),
     ("bench_attn_body", ["--batch", "128", "--t", "768", "--fill", "300", "--ck", "64",
                          "--reps", "5"]),
-    ("profile_ar_step", ["--batch", "16", "--tokens", "8"]),
     ("bench_decode_attn_merged", []),
+    # last: its busy passes run torch.profiler, which slows every launch after it
+    ("profile_ar_step", ["--batch", "16", "--tokens", "8"]),
 )
 # UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
 LVC_HOPS = (8, 64, 256)
@@ -333,7 +336,8 @@ def check_lvc(record: dict) -> dict:
     b, f, ci, co, k, layers = 1, LVC_FRAMES, 32, 64, 3, 4
     g = torch.Generator(device="cuda").manual_seed(4)
     cases, worst = [], 0.0
-    per_forward = dict.fromkeys(("ms", "plain_ms", "library_ms"), 0.0)
+    per_forward = dict.fromkeys(("ms", "plain_ms", "library_ms", "device_ms",
+                                 "library_device_ms"), 0.0)
     work = [0, 0]   # bytes, operations of one forward's calls
     for hop in LVC_HOPS:
         # x as UnivNet hands it over: the (B, T, Ci) view of a channels-first conv output
@@ -347,19 +351,23 @@ def check_lvc(record: dict) -> dict:
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         einsum_err = (location_variable_convolution(x, kern, bias, hop) - want).abs().max().item()
-        ms = _time_ms(lambda: location_variable_convolution_lvc(x, kern, bias, hop), 20)
+        kernel = lambda: location_variable_convolution_lvc(x, kern, bias, hop)
+        library = lambda: location_variable_convolution(x, kern, bias, hop)
+        ms, library_ms = _time_ms(kernel, 20), _time_ms(library, 20)
         plain_ms = _time_ms(lambda: location_variable_convolution_lvc_plain(x, kern, bias, hop), 5)
-        library_ms = _time_ms(lambda: location_variable_convolution(x, kern, bias, hop), 20)
+        device_ms, library_device_ms = _device_ms(kernel, 20), _device_ms(library, 20)
         nbytes, flops = _nbytes(x, kern, bias, got), 2 * b * f * hop * co * ci * k
         bound_ms, bound_by = _bound(nbytes, flops, "f32")
         case = {"hop": hop, "F": f, "max_abs_err": err, "rel_err": err / scale,
                 "bound": K4_REL_BOUND, "einsum_rel_err": einsum_err / scale, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "device_ms": device_ms,
+                "library_device_ms": library_device_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
         cases.append(case)
         print(f"K4 hop={hop:3d} F={f}: max|err| {err:.4g} = {err / scale:.3g} x max|plain| "
-              f"(bound {K4_REL_BOUND}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"(bound {K4_REL_BOUND}); kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, einsum {library_ms:.4f} ms (device {library_device_ms:.4f}), "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
         if err > K4_REL_BOUND * scale:
             raise AssertionError(f"K4 disagrees with its plain version: {case}")
         worst = max(worst, err)
@@ -432,14 +440,20 @@ def check_decode_attention_merged(record: dict) -> dict:
                     case["plain_ms"] = _time_ms(lambda: decode_attention_merged_plain(
                         q, kn, vn, plain["k"], plain["v"], layer, pos, heads=H), 5)
                     case["library_ms"] = _time_ms(sdpa, 20)
+                    case["device_ms"] = _device_ms(lambda: decode_attention_merged(
+                        q, kn, vn, cache["k"], cache["v"], layer, pos, heads=H), 20)
+                    case["library_device_ms"] = _device_ms(sdpa, 20)
                     case["bound_ms"], case["bound_by"] = _bound(
                         _nbytes(q, kn, vn, got) + 2 * b * (pos + 1) * C * cache["k"].element_size(),
                         4 * b * (pos + 1) * C, "f32")
-                    print(f"K1 {what} B={b:2d} pos=500: kernel {case['ms']:.4f} ms, plain "
-                          f"{case['plain_ms']:.4f} ms, row write + SDPA {case['library_ms']:.4f}"
-                          f" ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+                    print(f"K1 {what} B={b:2d} pos=500: kernel {case['ms']:.4f} ms (device "
+                          f"{case['device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, row write "
+                          f"+ SDPA {case['library_ms']:.4f} ms (device "
+                          f"{case['library_device_ms']:.4f}), bound {case['bound_ms']:.4f} ms "
+                          f"({case['bound_by']})")
                     if b == 16 and c_dtype == torch.bfloat16:
                         row = {k_: case[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                                        "device_ms", "library_device_ms",
                                                         "bound_ms", "bound_by")}
                 cases.append(case)
                 print(f"K1 {what} B={b:2d} pos={pos:3d}: max head rel err {err:.4g} (bound "
@@ -889,8 +903,9 @@ def check_tool_kernels(record: dict) -> list[dict]:
     k5 = decode_attn_kv128.check(kv, q, 200)
     record["k5"] = k5
     print(f"K5 BH=256 T=256 n=200: max|err| {k5['max_abs_err']:.4g} = {k5['rel_err']:.3g} x "
-          f"max|plain| (bound {k5['bound']}); kernel {k5['ms']:.4f} ms, plain "
-          f"{k5['plain_ms']:.4f} ms, SDPA {k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+          f"max|plain| (bound {k5['bound']}); kernel {k5['ms']:.4f} ms (device "
+          f"{k5['device_ms']:.4f}), plain {k5['plain_ms']:.4f} ms, SDPA {k5['library_ms']:.4f} ms "
+          f"(device {k5['library_device_ms']:.4f}), bound {k5['bound_ms']:.4f} ms "
           f"({k5['bound_by']})")
     if k5["rel_err"] > k5["bound"]:
         raise AssertionError(f"K5 disagrees with its plain version: {k5}")
@@ -907,8 +922,10 @@ def check_tool_kernels(record: dict) -> list[dict]:
         r = record["k6"][variant] = bench_attn_body.check(q, k, v, pos, ck, variant, 20)
         print(f"K6[{variant}] B={b} T={t} pos={pos} ck={ck}: max head rel err "
               f"{r['head_rel_err']:.4g} (bound {r['bound']}), max|err| vs f32 reference "
-              f"{r['ref_max_abs_err']:.4g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['ref_max_abs_err']:.4g}; kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+              f"(device {r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
         if r["head_rel_err"] > r["bound"]:
             raise AssertionError(f"K6[{variant}] disagrees with its plain version: {r}")
         rows.append({"name": _k6_row_name(variant), "source": "tortoise_tpu_torch/csrc/attn_body.cu",
@@ -930,7 +947,7 @@ def check_tool_kernels(record: dict) -> list[dict]:
                "replaces": replaces, "timed_at": timed_at,
                "max_abs_err": max(r["max_abs_err"] for r in calls),
                "bound_ms": bound_ms, "bound_by": bound_by}
-        # K7 times no bf16 yardstick and no device time apart
+        # K7 times no bf16 yardstick
         sums = ("ms", "plain_ms", "library_ms", "library_bf16_ms", "device_ms",
                 "library_device_ms")
         row.update({k_: sum(r[k_] for r in calls) for k_ in sums if k_ in calls[0]})
@@ -1331,9 +1348,12 @@ def main() -> int:
         json.dump(record, f, indent=1)
     print(f"total {record['total_s']:.1f} s")
     print(f"nvidia-smi: {_nvidia_smi()}")
-    print(json.dumps({"kernels": [{k: row[k] for k in (
+    # device_ms and library_device_ms are null for K2, whose 1-13 ms calls
+    # keep the device ahead of the host's enqueue
+    print(json.dumps({"kernels": [{k: row.get(k) for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")} for row in rows]}))
+        "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")}
+        for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -357,18 +357,26 @@ def test_decode_attention_merged_kernel_rejects_bad_input(cuda):
 
 # --- the tools' kernels: K5-K8 -----------------------------------------------------
 
+# (BH, T, n_valid): the CPU tests' sizes and the tool's (BH=256, T=256,
+# n=200); T=1; n_valid past T; BH=1; T=2229, 35 stages of 64 rows through
+# the ring of four, with n_valid ending mid-stage and at T
+K5_CASES = [(16, 64, 0), (16, 64, 1), (24, 64, 40), (24, 64, 64), (256, 256, 200),
+            (5, 300, 999), (3, 1, 1), (3, 1, 0), (4, 100, 250), (1, 256, 200), (1, 2229, 0),
+            (2, 2229, 1000), (2, 2229, 2229)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bh,t,n_valid", [(16, 64, 0), (16, 64, 1), (24, 64, 40), (24, 64, 64),
-                                          (256, 256, 200), (5, 300, 999)])
-def test_decode_attention_kv128_kernel_matches_plain(cuda, bh, t, n_valid):
-    """K5 at the CPU tests' sizes and the tool's (BH=256, T=256, n=200):
-    f32 output within 1e-5 of max|plain|; n_valid=0 is the uniform mean."""
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,t,n_valid", K5_CASES)
+def test_decode_attention_kv128_kernel_matches_plain(cuda, bh, t, n_valid, q_dtype):
+    """K5, q in bf16 or f32 (the kernel casts it), one launch a call: f32
+    output within 1e-5 of max|plain|; n_valid=0 is the uniform mean."""
     from tortoise_tpu_torch.tools.decode_attn_kv128 import (decode_attention_kv128,
                                                             decode_attention_kv128_plain)
 
     g = torch.Generator(device=cuda).manual_seed(bh + t + n_valid)
     kv = torch.randn((bh, t, 128), generator=g, device=cuda).to(torch.bfloat16)
-    q = torch.randn((bh, 64), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn((bh, 64), generator=g, device=cuda).to(q_dtype)
     before = decode_attention_kv128.launches
     got = decode_attention_kv128(kv, q, n_valid)
     torch.cuda.synchronize()
@@ -376,6 +384,52 @@ def test_decode_attention_kv128_kernel_matches_plain(cuda, bh, t, n_valid):
     want = decode_attention_kv128_plain(kv, q, n_valid)
     assert got.shape == (bh, 64) and got.dtype == torch.float32
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _after_a_sleep_on(stream, make):
+    """``make()``'s tensors, written on ``stream`` behind ~25 ms of sleep: a
+    kernel launched on any other stream would read them unwritten."""
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(50_000_000)
+        return make()
+
+
+@pytest.mark.gpu
+def test_decode_attention_kv128_kernel_on_a_side_stream(cuda):
+    """K5's wrapper launches on the current stream, not the one of its first
+    call: called on the default stream, then on a side stream whose inputs
+    land behind a sleep, it still matches the plain version."""
+    from tortoise_tpu_torch.tools.decode_attn_kv128 import (decode_attention_kv128,
+                                                            decode_attention_kv128_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    make = lambda: (torch.randn((64, 256, 128), generator=g, device=cuda).to(torch.bfloat16),
+                    torch.randn((64, 64), generator=g, device=cuda))
+    decode_attention_kv128(*make(), 200)
+    side = torch.cuda.Stream()
+    kv, q = _after_a_sleep_on(side, make)
+    with torch.cuda.stream(side):
+        got = decode_attention_kv128(kv, q, 200)
+    side.synchronize()
+    want = decode_attention_kv128_plain(kv, q, 200)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_decode_attention_kv128_kernel_rejects_bad_input(cuda):
+    from tortoise_tpu_torch.tools.decode_attn_kv128 import decode_attention_kv128
+
+    kv = torch.zeros((4, 16, 128), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="kv:"):
+        decode_attention_kv128(kv.float(), q, 8)
+    with pytest.raises(ValueError, match="q:"):
+        decode_attention_kv128(kv, q.half(), 8)
+    with pytest.raises(ValueError, match="q:"):
+        decode_attention_kv128(kv, q[:3], 8)
+    with pytest.raises(RuntimeError, match="CUDA error"):   # q not 16-byte aligned
+        decode_attention_kv128(kv, torch.zeros(4 * 64 + 1, dtype=torch.bfloat16,
+                                               device=cuda)[1:].view(4, 64), 8)
 
 
 @pytest.mark.gpu
@@ -430,6 +484,67 @@ def test_probe_kernels_match_plain(cuda, i):
         assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_on_a_side_stream(cuda):
+    """K7's wrapper takes the current stream: the seven probes, twice each on
+    a side stream whose inputs land behind a sleep, still bit for bit (the
+    contraction within 1e-6 of max|plain|)."""
+    from tortoise_tpu_torch.tools.probe_ops import PROBES, probe, probe_inputs, probe_plain
+
+    side = torch.cuda.Stream()
+    for i in range(1, len(PROBES) + 1):
+        args = _after_a_sleep_on(side, lambda: probe_inputs(i, cuda))
+        with torch.cuda.stream(side):
+            got = [probe(i, *args) for _ in range(2)]
+        side.synchronize()
+        want = probe_plain(i, *args)
+        for out in got:
+            if i == 6:
+                assert (out - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+            else:
+                assert torch.equal(out, want), i
+
+
+@pytest.mark.gpu
+def test_probe_kernels_reject_bad_input(cuda):
+    from tortoise_tpu_torch.tools.probe_ops import probe, probe_inputs
+
+    x, y = probe_inputs(7, cuda)
+    with pytest.raises(ValueError, match="probe 7"):
+        probe(7, x)
+    with pytest.raises(ValueError, match="probe 7"):
+        probe(7, x, y.double())
+    with pytest.raises(ValueError, match="probe 7"):
+        probe(7, x.transpose(1, 2).contiguous().transpose(1, 2), y)
+    with pytest.raises(ValueError, match="probe 1"):
+        probe(1, x)
+    with pytest.raises(RuntimeError, match="CUDA error"):   # x not 16-byte aligned
+        probe(7, torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape), y)
+
+
+@pytest.mark.gpu
+def test_kernel_helper_launches_the_null_kernel(cuda):
+    """_build.Kernel looks its function up at the first call only and
+    launches on the current stream, default or side; the null kernel's
+    device time (measure.device_ms) is below its event time, which holds
+    the host's path to the launch. A nonzero return raises."""
+    from tortoise_tpu_torch.tools.probe_ops import _NULL, _PROBE
+    from tortoise_tpu_torch.utils import measure
+
+    index = torch.cuda.current_device()
+    _NULL(index)
+    f = _NULL._f
+    with torch.cuda.stream(torch.cuda.Stream()):
+        _NULL(index)
+    torch.cuda.synchronize()
+    assert f is not None and _NULL._f is f
+    call = lambda: _NULL(index)
+    assert 0 < measure.device_ms(call, 20) < measure.time_ms(call, 20)
+    x = torch.zeros(64 * 16 * 768, device=cuda)
+    with pytest.raises(RuntimeError, match="tt_probe failed with CUDA error"):
+        _PROBE(index, 0, x.data_ptr(), None, x.data_ptr(), 64, 32, 16, 768, 1024, 64)
 
 
 @pytest.mark.gpu

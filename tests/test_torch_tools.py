@@ -24,7 +24,7 @@ from tortoise_tpu_torch.tools.decode_attn_kv128 import (decode_attention_kv128,
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 TOOLS = ["probe_ops", "decode_attn_kv128", "bench_attn_body", "profile_ar_step",
-         "bench_decode_attn_merged"]
+         "bench_decode_attn_merged", "profiler_cost"]
 
 
 def _jax_tool(name: str):
@@ -264,20 +264,28 @@ TINY_ARGS = {
     "profile_ar_step": ["--batch", "2", "--tokens", "2"],
     "bench_decode_attn_merged": ["--batch", "2", "--tmax", "64", "--layers", "3", "--steps",
                                  "2", "--nvalid", "40"],
+    "profiler_cost": ["--batch", "2", "--tokens", "2"],
 }
+
+
+def _tiny_unified_voice(monkeypatch):
+    """profile_ar_step (and profiler_cost, through it) at a 2-layer, 128-wide
+    UnifiedVoice."""
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
+    from tortoise_tpu_torch.tools import profile_ar_step
+
+    tiny = UnifiedVoiceConfig(layers=2, model_dim=128, heads=2, max_text_tokens=60,
+                              max_mel_tokens=80)
+    monkeypatch.setattr(profile_ar_step, "UnifiedVoiceConfig", lambda: tiny)
 
 
 @pytest.mark.parametrize("name", TOOLS)
 def test_tool_main_on_the_cpu(name, monkeypatch, capsys):
-    """--device cpu at a tiny size (profile_ar_step with a 2-layer, 128-wide
-    UnifiedVoice): the result dict, every device time "not measured"."""
+    """--device cpu at a tiny size (profile_ar_step and profiler_cost with a
+    2-layer, 128-wide UnifiedVoice): the result dict, every device time "not
+    measured"."""
     tool = importlib.import_module(f"tortoise_tpu_torch.tools.{name}")
-    if name == "profile_ar_step":
-        from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
-
-        tiny = UnifiedVoiceConfig(layers=2, model_dim=128, heads=2, max_text_tokens=60,
-                                  max_mel_tokens=80)
-        monkeypatch.setattr(tool, "UnifiedVoiceConfig", lambda: tiny)
+    _tiny_unified_voice(monkeypatch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res = tool.main(["--device", "cpu", *TINY_ARGS[name]])
@@ -296,9 +304,45 @@ def test_tool_main_on_the_cpu(name, monkeypatch, capsys):
                                                         "k1", "full"}
         assert all(r["host_ms"] > 0 and r["device_ms"] is None
                    for r in res["sections"]["d"]["pos=1000"].values())
+    elif name == "profiler_cost":
+        assert res["busy"] is None and len(res["before"]) == len(res["after"]) == 2
+        assert all(r["host_ms"] > 0 for r in res["before"] + res["after"])
     else:
         assert set(res["variants"]) == {"chunked-bf16", "chunked-int8", "merged-bf16",
                                         "merged-int8", "k1-merged"}
+
+
+def test_profile_ar_step_profiles_after_every_timing(monkeypatch, capsys):
+    """A torch.profiler session slows every launch after it in the process,
+    so profile_ar_step takes every host and event time first and the busy
+    passes of [a], [b], [b2] (two caches) and [c] last, each on the state
+    its section was timed on. The profiled pass (skipped on the CPU) is
+    stood in for by a recorder that runs the section's steps."""
+    from tortoise_tpu_torch.tools import profile_ar_step
+    from tortoise_tpu_torch.utils import measure
+
+    _tiny_unified_voice(monkeypatch)
+    calls = []
+    time_steps = measure.time_steps
+
+    def timing(run, steps, dev):
+        calls.append("time")
+        return time_steps(run, steps, dev)
+
+    def profiled(run, steps, dev):
+        calls.append("busy")
+        run(steps)
+        return {"busy_ms": 1.0, "ms_by_family": {}}
+
+    monkeypatch.setattr(measure, "time_steps", timing)
+    monkeypatch.setattr(profile_ar_step, "_busy", profiled)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = profile_ar_step.main(["--device", "cpu", *TINY_ARGS["profile_ar_step"]])
+    n_time = 5 + 3 * 5   # [a], [b], [b2] x 2, [c]; [d] at 3 positions x 5 forms
+    assert calls == ["time"] * n_time + ["busy"] * 5
+    sec = res["sections"]
+    assert all(r["busy_ms"] == 1.0 for r in (sec["a"], sec["b"], sec["c"], *sec["b2"].values()))
 
 
 @pytest.mark.parametrize("name", TOOLS)

@@ -2,8 +2,7 @@
 // harness tools/probe_mosaic_ops.py, hand-written for Hopper (sm_90a).
 //
 // K7 replaces `run` (:18) and its seven kernel bodies (:39-76): each probe
-// below computes what its body computes, on f32 inputs, with its indices
-// written out, so a transposed or shifted index shows as a wrong value:
+// below computes what its body computes, on f32 inputs:
 //   1 collapse reshape (B, ck, H) -> (B*ck, H)
 //   2 split reshape (B, ck*H) -> (B, ck, H)
 //   3 static lane slice (B, H, T)[..., 32:64]
@@ -11,9 +10,27 @@
 //   5 transpose (B, H, ck) -> (B, ck, H)
 //   6 contraction (B, H, ck) x (C, H) over H -> (B, ck, C)
 //   7 broadcast multiply (B, H, ck) * (B, 1, ck)
-// One thread an output element (a grid-stride loop); the five data movers
-// and the broadcast multiply are bit-exact by construction, the contraction
-// sums its 16 products in order, each product rounded apart (no fma).
+// What bounds them on an H100: bytes, 0.05-8.6 MB a call (0.015-2.6 us at
+// 3.35 TB/s), so a call's time is mostly the launch. On the device each
+// moves 16 bytes a thread (float4 loads and stores, neighbouring threads on
+// neighbouring addresses) with 32-bit index arithmetic, in a grid that
+// covers its output once:
+//   1, 2 are the identity on row-major memory: a float4 copy;
+//   3, 4 take eight threads a 32-lane row slice, a float4 each (4 with a
+//     start that is not a multiple of 4 reads four floats a thread);
+//   5 goes a b a block through a shared tile whose rows are padded by one
+//     float, so both the row-wise writes and the column-wise reads are
+//     coalesced in device memory;
+//   6 stages a block's 128-column slice of m (transposed, so a thread reads
+//     four c's of one h as a float4) and its two b's slices of p in shared
+//     memory; each thread writes a float4 of outputs along c for four k's,
+//     each output's 16 products rounded apart and summed over h in order
+//     (__fmul_rn / __fadd_rn, no fma), so it equals the plain version bit
+//     for bit;
+//   7 multiplies a float4 of x by a float4 of s.
+// The five data movers and the broadcast multiply are bit-exact by
+// construction. The sizes the vector paths need (ck, H, C, T multiples of
+// 4, 16-byte aligned pointers) are checked at the entry point.
 //
 // K8 replaces `timed_probes.timeit` (:87) and its four bodies (:119-150):
 // bf16 operands, f32 sums, out[bt, i, j] = sum_r A[bt, i, r] * B[bt, r, j]
@@ -39,8 +56,8 @@
 // products are exact in f32, so only the order of the f32 sums differs from
 // the plain version.
 //
-// What bounds them on an H100: bytes. K7's calls move 0.05-8.6 MB each; at
-// the probe shapes (B=64, ck=128, C=1024, H=16) o1 and o2 read 19 MB
+// What bounds K8 on an H100: bytes. At the probe shapes (B=64, ck=128,
+// C=1024, H=16) o1 and o2 read 19 MB
 // (about 6 us at 3.35 TB/s), p_exp writes 34 MB, pv moves 21 MB; their
 // arithmetic is at most 268 MFLOP. o1 and o2 give 256 blocks, two an SM,
 // each walking a 1024-deep r: the per-stage cost of issuing the copies and
@@ -52,84 +69,120 @@
 namespace tt {
 namespace {
 
-constexpr int kThreads = 256;  // K7
+constexpr int kThreads = 256;                 // K7
+constexpr int kSliceLanes = 32;               // probes 3, 4: lanes of the slice
+constexpr int kContractC = 128;               // probe 6: c of a block
+constexpr int kContractB = 2;                 // probe 6: b of a block
+constexpr int kContractH = 16;                // probe 6: H, the sum's length
+constexpr int kContractRow = kContractC + 4;  // probe 6: shared row of m's slice
 
-__device__ __forceinline__ long first_index() { return (long)blockIdx.x * blockDim.x + threadIdx.x; }
-__device__ __forceinline__ long index_stride() { return (long)gridDim.x * blockDim.x; }
+__device__ __forceinline__ int thread_index() { return blockIdx.x * blockDim.x + threadIdx.x; }
 
-// 1: out (B*ck, H) from x (B, ck, H)
-__global__ void collapse_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
-                                int CK, int H) {
-  const long n = (long)B * CK * H;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long r = o / H, h = o % H;
-    const long b = r / CK, k = r % CK;
-    out[o] = x[(b * CK + k) * H + h];
+// 1, 2: out = x, n4 float4s
+__global__ void copy_kernel(const float4* __restrict__ x, float4* __restrict__ out, int n4) {
+  const int i = thread_index();
+  if (i < n4) out[i] = x[i];
+}
+
+// 3, 4: out (R, 32) = x (R, T)[:, start:start+32]; output float4 i is lanes
+// 4 (i % 8) .. +3 of row i / 8
+template <bool kVec>
+__global__ void slice_kernel(const float* __restrict__ x, float4* __restrict__ out, int rows,
+                             int T, int start) {
+  const int i = thread_index();
+  if (i >= rows * (kSliceLanes / 4)) return;
+  const float* src = x + (i / (kSliceLanes / 4)) * T + start + (i % (kSliceLanes / 4)) * 4;
+  out[i] = kVec ? *reinterpret_cast<const float4*>(src)
+                : make_float4(src[0], src[1], src[2], src[3]);
+}
+
+// 5: out (B, ck, H) = x (B, H, ck) transposed, block b; tile [H][CK + 1]
+__global__ void transpose_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
+                                 int CK) {
+  extern __shared__ float tile[];
+  const int n4 = H * CK / 4, row = CK + 1;
+  const float4* src = reinterpret_cast<const float4*>(x) + blockIdx.x * n4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    const float4 v = src[i];
+    float* t = tile + (4 * i / CK) * row + 4 * i % CK;  // four k's of one h
+    t[0] = v.x;
+    t[1] = v.y;
+    t[2] = v.z;
+    t[3] = v.w;
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(out) + blockIdx.x * n4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    const float* t = tile + (4 * i % H) * row + 4 * i / H;  // four h's of one k
+    dst[i] = make_float4(t[0], t[row], t[2 * row], t[3 * row]);
   }
 }
 
-// 2: out (B, ck, H) from x (B, ck*H)
-__global__ void split_kernel(const float* __restrict__ x, float* __restrict__ out, int B, int CK,
-                             int H) {
-  const long n = (long)B * CK * H;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long b = o / ((long)CK * H), k = (o / H) % CK, h = o % H;
-    out[o] = x[b * ((long)CK * H) + k * H + h];
+// 6: out (B, ck, C)[b, k, c] = sum_h p (B, H, ck)[b, h, k] * m (C, H)[c, h];
+// block (c0 = 128 x, b0 = 2 y). Shared: m_s [H][kContractRow] holds
+// m[c0 + c, h] at [h][c]; p_s [kContractB][H][CK] p's b-slice. A thread
+// takes a float4 along c for four k's, so each m load serves 16 outputs.
+// H is the probes' 16, a constant, so the loop over h unrolls.
+__global__ void __launch_bounds__(kThreads)
+contract_kernel(const float* __restrict__ p, const float* __restrict__ m, float* __restrict__ out,
+                int B, int CK, int C) {
+  constexpr int H = kContractH;
+  extern __shared__ float4 smem4[];
+  float* m_s = reinterpret_cast<float*>(smem4);
+  float* p_s = m_s + H * kContractRow;
+  const int c0 = blockIdx.x * kContractC, b0 = blockIdx.y * kContractB;
+  const int nc = min(kContractC, C - c0), nb = min(kContractB, B - b0);
+  const float4* m4 = reinterpret_cast<const float4*>(m + c0 * H);
+  for (int i = threadIdx.x; i < nc * H / 4; i += blockDim.x) {
+    const float4 v = m4[i];
+    float* t = m_s + (4 * i % H) * kContractRow + 4 * i / H;  // four h's of one c
+    t[0] = v.x;
+    t[kContractRow] = v.y;
+    t[2 * kContractRow] = v.z;
+    t[3 * kContractRow] = v.w;
+  }
+  const float4* p4 = reinterpret_cast<const float4*>(p + b0 * H * CK);
+  for (int i = threadIdx.x; i < nb * H * CK / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(p_s)[i] = p4[i];
+  __syncthreads();
+  // a warp: 32 float4s along c of the same (b, k's): p broadcast, m
+  // conflict-free, each k's stores 512 contiguous bytes
+  const int n4 = nc / 4, nk = CK / 4;
+  for (int i = threadIdx.x; i < nb * nk * n4; i += blockDim.x) {
+    const int c4 = i % n4, k0 = i / n4 % nk * 4, bb = i / (n4 * nk);
+    const float* pk = p_s + bb * H * CK + k0;
+    const float* mc = m_s + 4 * c4;
+    float4 acc[4] = {};
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float4 mv = *reinterpret_cast<const float4*>(mc + h * kContractRow);
+      const float4 pv = *reinterpret_cast<const float4*>(pk + h * CK);
+      const float pk4[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j].x = __fadd_rn(acc[j].x, __fmul_rn(pk4[j], mv.x));
+        acc[j].y = __fadd_rn(acc[j].y, __fmul_rn(pk4[j], mv.y));
+        acc[j].z = __fadd_rn(acc[j].z, __fmul_rn(pk4[j], mv.z));
+        acc[j].w = __fadd_rn(acc[j].w, __fmul_rn(pk4[j], mv.w));
+      }
+    }
+    float* o = out + ((b0 + bb) * CK + k0) * C + c0 + 4 * c4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) *reinterpret_cast<float4*>(o + j * C) = acc[j];
   }
 }
 
-// 3: out (B, H, 32) = x (B, H, T)[..., 32:64]
-__global__ void static_slice_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
-                                    int H, int T) {
-  const long n = (long)B * H * 32;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long bh = o / 32, j = o % 32;
-    out[o] = x[bh * T + 32 + j];
-  }
+// 7: out (B, H, ck) = x (B, H, ck) * s (B, 1, ck), n4 float4s of x
+__global__ void broadcast_kernel(const float4* __restrict__ x, const float4* __restrict__ s,
+                                 float4* __restrict__ out, int n4, int H, int CK4) {
+  const int i = thread_index();
+  if (i >= n4) return;
+  const float4 a = x[i], v = s[i / (H * CK4) * CK4 + i % CK4];
+  out[i] = make_float4(__fmul_rn(a.x, v.x), __fmul_rn(a.y, v.y), __fmul_rn(a.z, v.z),
+                       __fmul_rn(a.w, v.w));
 }
 
-// 4: out (B, H, 32) = x (B, H, T)[..., start:start+32]
-__global__ void dynamic_slice_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
-                                     int H, int T, int start) {
-  const long n = (long)B * H * 32;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long bh = o / 32, j = o % 32;
-    out[o] = x[bh * T + start + j];
-  }
-}
-
-// 5: out (B, ck, H) = x (B, H, ck) transposed
-__global__ void transpose_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
-                                 int CK, int H) {
-  const long n = (long)B * CK * H;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long b = o / ((long)CK * H), k = (o / H) % CK, h = o % H;
-    out[o] = x[(b * H + h) * CK + k];
-  }
-}
-
-// 6: out (B, ck, C)[b, k, c] = sum_h p (B, H, ck)[b, h, k] * m (C, H)[c, h]
-__global__ void contract_kernel(const float* __restrict__ p, const float* __restrict__ m,
-                                float* __restrict__ out, int B, int CK, int H, int C) {
-  const long n = (long)B * CK * C;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long b = o / ((long)CK * C), k = (o / C) % CK, c = o % C;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h)
-      acc = __fadd_rn(acc, __fmul_rn(p[(b * H + h) * CK + k], m[c * H + h]));
-    out[o] = acc;
-  }
-}
-
-// 7: out (B, H, ck) = x (B, H, ck) * s (B, 1, ck)
-__global__ void broadcast_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                                 float* __restrict__ out, int B, int H, int CK) {
-  const long n = (long)B * H * CK;
-  for (long o = first_index(); o < n; o += index_stride()) {
-    const long b = o / ((long)H * CK), k = o % CK;
-    out[o] = __fmul_rn(x[o], s[b * CK + k]);
-  }
-}
+__global__ void null_kernel() {}
 
 struct Strides {
   long a_bt, a_i, a_r, b_bt, b_r, b_j;
@@ -359,41 +412,70 @@ int launch_contraction(const bf16* a, const bf16* b, float* out, int BT, int I, 
   return (int)cudaGetLastError();
 }
 
-int blocks_for(long n) {
-  const long b = (n + kThreads - 1) / kThreads;
-  return (int)(b < 4096 ? b : 4096);
-}
+int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 }  // namespace tt
 
 // K7. probe 1-7 as listed above; x, y (the second input of probes 6 and 7,
-// else unused) and out contiguous f32 on the device. Shapes: B, CK, H, T, C;
-// start is probe 4's first column. Returns the first CUDA error, 0 on success.
+// else null) and out contiguous f32 on the device, 16-byte aligned. Shapes:
+// B, CK, H, T, C, with CK, H, T and C multiples of 4 (probe 6: H = 16);
+// start is probe 4's first column. Returns the first CUDA error, 0 on
+// success.
 extern "C" int tt_probe(int probe, const float* x, const float* y, float* out, int B, int CK,
                         int H, int T, int C, int start, void* stream) {
   using namespace tt;
-  if (B < 1 || CK < 1 || H < 1 || T < 64 || C < 1 || start < 0 || start + 32 > T)
+  const long int_max = 0x7fffffffL;
+  if (B < 1 || CK < 4 || H < 4 || T < 64 || C < 4 || CK % 4 || H % 4 || T % 4 || C % 4 ||
+      start < 0 || start + kSliceLanes > T || (long)B * H * T > int_max ||
+      (long)B * CK * C > int_max || !aligned16(x) || !aligned16(y) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long bkh = (long)B * CK * H;
+  const int bkh4 = B * CK * H / 4, rows = B * H;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* out4 = reinterpret_cast<float4*>(out);
   switch (probe) {
-    case 1: collapse_kernel<<<blocks_for(bkh), kThreads, 0, st>>>(x, out, B, CK, H); break;
-    case 2: split_kernel<<<blocks_for(bkh), kThreads, 0, st>>>(x, out, B, CK, H); break;
+    case 1:
+    case 2: copy_kernel<<<blocks(bkh4), kThreads, 0, st>>>(x4, out4, bkh4); break;
     case 3:
-      static_slice_kernel<<<blocks_for((long)B * H * 32), kThreads, 0, st>>>(x, out, B, H, T);
+      slice_kernel<true><<<blocks(rows * kSliceLanes / 4), kThreads, 0, st>>>(x, out4, rows, T,
+                                                                              32);
       break;
     case 4:
-      dynamic_slice_kernel<<<blocks_for((long)B * H * 32), kThreads, 0, st>>>(x, out, B, H, T,
-                                                                             start);
+      if (start % 4 == 0)
+        slice_kernel<true><<<blocks(rows * kSliceLanes / 4), kThreads, 0, st>>>(x, out4, rows, T,
+                                                                                start);
+      else
+        slice_kernel<false><<<blocks(rows * kSliceLanes / 4), kThreads, 0, st>>>(x, out4, rows, T,
+                                                                                 start);
       break;
-    case 5: transpose_kernel<<<blocks_for(bkh), kThreads, 0, st>>>(x, out, B, CK, H); break;
-    case 6:
-      contract_kernel<<<blocks_for((long)B * CK * C), kThreads, 0, st>>>(x, y, out, B, CK, H, C);
+    case 5: {
+      const size_t smem = (size_t)H * (CK + 1) * sizeof(float);
+      if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+      transpose_kernel<<<B, 128, smem, st>>>(x, out, H, CK);
       break;
-    case 7: broadcast_kernel<<<blocks_for(bkh), kThreads, 0, st>>>(x, y, out, B, H, CK); break;
+    }
+    case 6: {
+      const size_t smem = (size_t)H * (kContractRow + kContractB * CK) * sizeof(float);
+      if (H != kContractH || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+      const dim3 grid((C + kContractC - 1) / kContractC, (B + kContractB - 1) / kContractB);
+      contract_kernel<<<grid, kThreads, smem, st>>>(x, y, out, B, CK, C);
+      break;
+    }
+    case 7:
+      broadcast_kernel<<<blocks(bkh4), kThreads, 0, st>>>(
+          x4, reinterpret_cast<const float4*>(y), out4, bkh4, H, CK / 4);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel: what a launch through the wrappers' ctypes path costs.
+extern "C" int tt_null(void* stream) {
+  tt::null_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,10 @@ takes seconds). Libraries go to ``build/kernels/`` beside the package, named
 by a hash of every source under ``csrc/`` and the compiler flags, so an edit
 rebuilds and an unchanged tree reuses the last build. Nothing here runs at
 import time; a missing ``nvcc`` or a failed compile raises.
+
+``Kernel`` is the launch path with the least host work a call: the library
+is built and the function looked up at its first call only, and the stream
+is read raw rather than through a ``torch.cuda.Stream`` object.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "kernels"
@@ -75,15 +81,40 @@ def load(name: str, functions: dict[str, list]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in functions.items():
-                f = getattr(lib, fn)
+            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in functions.items():
+            f = getattr(lib, fn)
+            if f.argtypes is None:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            _libs[name] = lib
         return lib
 
 
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
+
+
+class Kernel:
+    """One C entry point ``fn`` of ``csrc/<lib>.cu`` whose last parameter is
+    the CUDA stream and which returns a CUDA error code. ``kernel(device,
+    *args)`` launches it on ``device``'s (an int index) current stream and
+    raises on a nonzero return. ``argtypes`` leaves out the stream. The
+    caller checks its arguments: the kernel trusts them."""
+
+    def __init__(self, lib: str, fn: str, argtypes: list):
+        self.lib, self.fn, self.argtypes = lib, fn, argtypes
+        self._f = None
+
+    def _load(self):
+        # a function pointer of its own, so that other kernels of the same
+        # library keep their argtypes
+        f = ctypes.CFUNCTYPE(ctypes.c_int, *self.argtypes, ctypes.c_void_p)(
+            (self.fn, load(self.lib, {})))
+        self._f = f
+        return f
+
+    def __call__(self, device: int, *args) -> None:
+        err = (self._f or self._load())(*args, torch._C._cuda_getCurrentRawStream(device))
+        if err:
+            raise RuntimeError(f"{self.lib}.{self.fn} failed with CUDA error {err}")

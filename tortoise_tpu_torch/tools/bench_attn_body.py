@@ -154,7 +154,8 @@ def head_rel_err(got, want, heads: int = HEADS) -> float:
 
 def check(q, k, v, pos: int, ck: int, variant: str, reps: int) -> dict:
     """One variant against its plain version (per head, HEAD_REL_BOUND) and
-    the f32 reference; on CUDA timed beside the plain version and SDPA."""
+    the f32 reference; on CUDA timed beside the plain version and SDPA, the
+    kernel's and SDPA's device time apart (device_ms, library_device_ms)."""
     got = attn_body(q, k, v, pos, ck=ck, variant=variant)
     if q.is_cuda:
         torch.cuda.synchronize(q.device)
@@ -166,14 +167,18 @@ def check(q, k, v, pos: int, ck: int, variant: str, reps: int) -> dict:
     res = {"variant": variant, "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "head_rel_err": head_rel_err(got, want), "bound": HEAD_REL_BOUND,
            "ref_max_abs_err": (got.float() - reference(q, k, v, pos)).abs().max().item(),
-           "ms": None, "plain_ms": None, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "ms": None, "plain_ms": None, "library_ms": None, "device_ms": None,
+           "library_device_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     if q.is_cuda:
+        kernel = lambda: attn_body(q, k, v, pos, ck=ck, variant=variant)
+        library = lambda: sdpa(q, k, v, pos)
         res.update(
-            ms=measure.time_ms(lambda: attn_body(q, k, v, pos, ck=ck, variant=variant), reps),
+            ms=measure.time_ms(kernel, reps),
             plain_ms=measure.time_ms(
                 lambda: attn_body_plain(q, k, v, pos, ck=ck, variant=variant), max(reps // 8, 3)),
-            library_ms=measure.time_ms(lambda: sdpa(q, k, v, pos), reps))
+            library_ms=measure.time_ms(library, reps),
+            device_ms=measure.device_ms(kernel, reps),
+            library_device_ms=measure.device_ms(library, reps))
     return res
 
 

@@ -19,13 +19,16 @@ k and v halves.
     python3 -m tortoise_tpu_torch.tools.decode_attn_kv128 [--batch 16] [--tmax 256] \\
         [--layers 30] [--steps 64]
 
-Times are CUDA events on the card; ``--device cpu`` runs the plain versions
-only (for tests).
+Times are CUDA events on the card, the one call's also device time alone
+(``measure.device_ms``), repeated on one cache (which stays in L2) and
+taken one call a layer over the L layers' caches (read from device
+memory); ``--device cpu`` runs the plain versions only (for tests).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 
 import numpy as np
 import torch
@@ -39,8 +42,8 @@ NEG = -1e9
 # f32 output: the same sums in another order, relative to max|plain|
 REL_BOUND = 1e-5
 REPS = 20  # timed calls per median
-_SIGNATURE = {"tt_decode_attn_kv128": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-              + [ctypes.c_void_p] * 2}
+_KERNEL = _build.Kernel("decode_attn_kv128", "tt_decode_attn_kv128",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def decode_attention_kv128_plain(kv, q, n_valid: int) -> torch.Tensor:
@@ -59,9 +62,10 @@ def decode_attention_kv128_plain(kv, q, n_valid: int) -> torch.Tensor:
 
 
 def decode_attention_kv128(kv, q, n_valid: int) -> torch.Tensor:
-    """K5. kv (BH, T, 128) bf16 contiguous; q (BH, 64), cast to f32;
-    n_valid a Python int (<= 0 masks every row). Returns (BH, 64) f32: the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    """K5. kv (BH, T, 128) bf16 contiguous; q (BH, 64) contiguous, bf16 or
+    f32 (read as f32 by the kernel); n_valid a Python int (<= 0 masks every
+    row). Returns (BH, 64) f32: the kernel (one launch) on CUDA tensors, the
+    plain version on CPU tensors."""
     if not kv.is_cuda:
         return decode_attention_kv128_plain(kv, q, n_valid)
     if kv.dim() != 3 or kv.shape[2] != 128 or kv.dtype != torch.bfloat16 \
@@ -69,14 +73,14 @@ def decode_attention_kv128(kv, q, n_valid: int) -> torch.Tensor:
         raise ValueError(f"kv: needs a contiguous bf16 (BH, T, 128) tensor, got {kv.dtype} "
                          f"{tuple(kv.shape)}")
     bh, t, _ = kv.shape
-    if q.shape != (bh, 64) or q.device != kv.device:
-        raise ValueError(f"q: needs ({bh}, 64) on {kv.device}, got {tuple(q.shape)} on {q.device}")
-    qp = F.pad(q.float(), (0, 64)).contiguous()
-    out = torch.empty((bh, 64), dtype=torch.float32, device=kv.device)
-    lib = _build.load("decode_attn_kv128", _SIGNATURE)
-    err = lib.tt_decode_attn_kv128(kv.data_ptr(), qp.data_ptr(), bh, t, int(n_valid),
-                                   out.data_ptr(), torch.cuda.current_stream(kv.device).cuda_stream)
-    _build.check(err, "decode_attn_kv128 kernel")
+    if q.shape != (bh, 64) or q.dtype not in (torch.bfloat16, torch.float32) \
+            or not q.is_contiguous() or q.get_device() != kv.get_device():
+        raise ValueError(f"q: needs a contiguous bf16 or f32 ({bh}, 64) tensor on {kv.device}, "
+                         f"got {q.dtype} {tuple(q.shape)} on {q.device}")
+    out = q.new_empty((bh, 64), dtype=torch.float32)
+    # rows past T are masked as rows past n_valid are: min keeps it a C int
+    _KERNEL(kv.get_device(), kv.data_ptr(), q.data_ptr(), q.dtype == torch.bfloat16, bh, t,
+            min(int(n_valid), t), out.data_ptr())
     decode_attention_kv128.launches += 1
     return out
 
@@ -103,7 +107,8 @@ def per_head_einsum(q, ck, cv, n_valid: int) -> torch.Tensor:
 
 def check(kv, q, n_valid: int) -> dict:
     """K5 against its plain version on one call, and on CUDA the call timed
-    beside the plain version and SDPA, with its bound."""
+    beside the plain version and SDPA, with its bound; the kernel's and
+    SDPA's device time apart (device_ms, library_device_ms)."""
     got = decode_attention_kv128(kv, q, n_valid)
     if kv.is_cuda:
         torch.cuda.synchronize(kv.device)
@@ -115,12 +120,17 @@ def check(kv, q, n_valid: int) -> dict:
     nb = bh * rows * 128 * kv.element_size() + measure.nbytes(q, got)
     bound_ms, bound_by = measure.bound(nb, 4 * bh * rows * 128, "f32")
     res = {"max_abs_err": err, "rel_err": err / scale, "bound": REL_BOUND, "ms": None,
-           "plain_ms": None, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "plain_ms": None, "library_ms": None, "device_ms": None, "library_device_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by}
     if kv.is_cuda:
-        res.update(ms=measure.time_ms(lambda: decode_attention_kv128(kv, q, n_valid), REPS),
+        kernel, library = (lambda: decode_attention_kv128(kv, q, n_valid),
+                           lambda: sdpa_kv128(kv, q, n_valid))
+        res.update(ms=measure.time_ms(kernel, REPS),
                    plain_ms=measure.time_ms(lambda: decode_attention_kv128_plain(kv, q, n_valid),
                                             REPS),
-                   library_ms=measure.time_ms(lambda: sdpa_kv128(kv, q, n_valid), REPS))
+                   library_ms=measure.time_ms(library, REPS),
+                   device_ms=measure.device_ms(kernel, REPS),
+                   library_device_ms=measure.device_ms(library, REPS))
     return res
 
 
@@ -152,9 +162,10 @@ def main(argv=None) -> dict:
           f"{REL_BOUND})")
     if c["rel_err"] > REL_BOUND:
         raise AssertionError(f"K5 disagrees with its plain version: {c}")
-    print(f"one call (BH={bh}, T={t}, n={n_valid}): kernel {measure.fmt(c['ms'])}, plain "
-          f"{measure.fmt(c['plain_ms'])}, SDPA {measure.fmt(c['library_ms'])}, bound "
-          f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+    print(f"one call (BH={bh}, T={t}, n={n_valid}): kernel {measure.fmt(c['ms'])} (device "
+          f"{measure.fmt(c['device_ms'])}), plain {measure.fmt(c['plain_ms'])}, SDPA "
+          f"{measure.fmt(c['library_ms'])} (device {measure.fmt(c['library_device_ms'])}), "
+          f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
 
     # L layers x N steps, each layer's q fed back from the last output
     kv_l = torch.randn((layers, bh, t, 128), generator=g, device=dev).to(torch.bfloat16)
@@ -175,6 +186,19 @@ def main(argv=None) -> dict:
             for l in range(layers):
                 acc = acc + per_head_einsum(qa + acc, ck[l], cv[l], n_valid).to(q.dtype)
         return acc
+
+    if dev.type == "cuda":
+        # one call a layer, the layers in turn: each call reads its cache from
+        # device memory, as a decode step does (the L layers' caches exceed
+        # the 50 MB L2), where the repeated call above finds it in L2
+        turn = itertools.cycle(range(layers))
+        r = res["layer_calls"] = {
+            "device_ms": measure.device_ms(
+                lambda: decode_attention_kv128(kv_l[next(turn)], q, n_valid), 2 * layers),
+            "library_device_ms": measure.device_ms(
+                lambda: sdpa_kv128(kv_l[next(turn)], q, n_valid), 2 * layers)}
+        print(f"one call a layer over {layers} layers' caches: kernel device "
+              f"{r['device_ms']:.4f} ms, SDPA device {r['library_device_ms']:.4f} ms")
 
     res["kernel_steps"] = measure.time_steps(kernel_steps, steps, dev)
     res["baseline_steps"] = measure.time_steps(baseline_steps, steps, dev)

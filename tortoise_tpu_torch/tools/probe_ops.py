@@ -20,14 +20,18 @@ kernel (``csrc/probe_ops.cu``) held against its plain PyTorch version:
 
     python3 -m tortoise_tpu_torch.tools.probe_ops
 
-Times are CUDA-event medians on the card (host launch time included), K8's
-also device time alone (``measure.device_ms``); ``--device cpu`` runs the
-plain versions only (for tests). Exits 1 if any probe fails.
+Times are CUDA-event medians on the card (host launch time included) and
+device times alone (``measure.device_ms``). On the card the tool also
+reads the host's path to a launch (``launch_costs``): a null kernel
+through each launch path, and each piece of a wrapper's per-call work.
+``--device cpu`` runs the plain versions only (for tests). Exits 1 if any
+probe fails.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import time
 
 import torch
 
@@ -42,8 +46,10 @@ ORIENT_REL_BOUND = 1e-5                          # K8: f32 sums of exact bf16 pr
 REPS = 20                                        # timed calls per median
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-_SIGNATURE = {"tt_probe": [_I, _P, _P, _P] + [_I] * 6 + [_P],
-              "tt_contraction": [_P, _P, _P] + [_I] * 4 + [_L] * 6 + [_P]}
+_SIGNATURE = {"tt_contraction": [_P, _P, _P] + [_I] * 4 + [_L] * 6 + [_P]}
+_PROBE = _build.Kernel("probe_ops", "tt_probe", [_I, _P, _P, _P] + [_I] * 6)
+_NULL = _build.Kernel("probe_ops", "tt_null", [])
+LAUNCH_CALLS = 2000                              # calls per host-cost reading
 
 # (name as the JAX tool prints it, input shapes, output shape)
 PROBES = (
@@ -61,6 +67,11 @@ def probe_inputs(i: int, device) -> list[torch.Tensor]:
     """Probe ``i`` (1-7)'s inputs: arange / 100 in f32, as the JAX tool makes them."""
     return [torch.arange(int(torch.Size(s).numel()), dtype=torch.float32, device=device)
             .reshape(s) / 100.0 for s in PROBES[i - 1][1]]
+
+
+# probe i's input and output shapes as torch.Size, for the wrapper's checks
+_IN_SIZES = tuple(tuple(torch.Size(s) for s in ins) for _, ins, _ in PROBES)
+_OUT_SIZES = tuple(torch.Size(out) for _, _, out in PROBES)
 
 
 def _contract_plain(p, m):
@@ -97,25 +108,29 @@ def probe_library(i: int, x, y=None) -> torch.Tensor:
     return torch.einsum("bhk,ch->bkc", x, y) if i == 6 else probe_plain(i, x, y)
 
 
+def _check_probe_inputs(i: int, x, y) -> None:
+    sizes = _IN_SIZES[i - 1]
+    if x.shape != sizes[0] or x.dtype != torch.float32 or not x.is_contiguous() or (
+            (y is None) != (len(sizes) == 1)) or y is not None and (
+            y.shape != sizes[1] or y.dtype != torch.float32 or not y.is_contiguous()
+            or y.get_device() != x.get_device()):
+        raise ValueError(f"probe {i}: needs contiguous float32 inputs of shapes "
+                         f"{PROBES[i - 1][1]} on one device, got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in (x, y) if t is not None]}")
+
+
 def probe(i: int, x, y=None) -> torch.Tensor:
-    """K7: probe ``i`` (1-7) on f32 inputs of its shapes (``PROBES``): the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    """K7: probe ``i`` (1-7) on contiguous f32 inputs of its shapes
+    (``PROBES``) on one device: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if not x.is_cuda:
         return probe_plain(i, x, y)
     if not 1 <= i <= 7:
         raise ValueError(f"probe {i}: 1-7")
-    shapes = [tuple(t.shape) for t in (x, y) if t is not None]
-    if shapes != [tuple(s) for s in PROBES[i - 1][1]]:
-        raise ValueError(f"probe {i}: needs inputs of shapes {PROBES[i - 1][1]}, got {shapes}")
-    for t in (x, y):
-        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
-                              or t.device != x.device):
-            raise ValueError(f"probe {i}: needs contiguous float32 inputs on {x.device}")
-    out = torch.empty(PROBES[i - 1][2], dtype=torch.float32, device=x.device)
-    lib = _build.load("probe_ops", _SIGNATURE)
-    err = lib.tt_probe(i, x.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(),
-                       B, CK, H, T, C, DYN_START, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, f"probe_ops kernel (probe {i})")
+    _check_probe_inputs(i, x, y)
+    out = x.new_empty(_OUT_SIZES[i - 1])
+    _PROBE(x.get_device(), i, x.data_ptr(), None if y is None else y.data_ptr(), out.data_ptr(),
+           B, CK, H, T, C, DYN_START)
     probe.launches += 1
     return out
 
@@ -180,7 +195,9 @@ def _err(got, want) -> tuple[float, float]:
 
 def run_probes(dev) -> list[dict]:
     """K7: each probe against its plain version; on CUDA each timed with its
-    plain version and library call. Prints OK / FAIL per probe."""
+    plain version and library call, the kernel's and the library call's
+    device time apart (device_ms, library_device_ms). Prints OK / FAIL per
+    probe."""
     cuda = dev.type == "cuda"
     out = []
     for i, (name, _, shape) in enumerate(PROBES, start=1):
@@ -194,18 +211,86 @@ def run_probes(dev) -> list[dict]:
         ok = got.shape == shape and (rel <= CONTRACT_REL_BOUND if i == 6 else exact)
         res = {"probe": i, "name": name, "ok": ok, "max_abs_err": err, "rel_err": rel,
                "bit_exact": exact}
-        print(f"{'OK' if ok else 'FAIL':6s}{name}"
-              + ("" if ok else f": max|err| {err:.3g} ({rel:.3g} x max|plain|)"))
         nb = measure.nbytes(*args) + 4 * int(torch.Size(shape).numel())
         flops = {6: 2 * B * CK * C * H, 7: B * H * CK}.get(i, 0)
         res["bound_ms"], res["bound_by"] = measure.bound(nb, flops, "f32")
-        res.update(nbytes=nb, flops=flops, ms=None, plain_ms=None, library_ms=None)
+        res.update(nbytes=nb, flops=flops, ms=None, plain_ms=None, library_ms=None,
+                   device_ms=None, library_device_ms=None)
         if cuda and ok:
-            res.update(ms=measure.time_ms(lambda: probe(i, *args), REPS),
+            kernel, library = lambda: probe(i, *args), lambda: probe_library(i, *args)
+            res.update(ms=measure.time_ms(kernel, REPS),
                        plain_ms=measure.time_ms(lambda: probe_plain(i, *args), REPS),
-                       library_ms=measure.time_ms(lambda: probe_library(i, *args), REPS))
+                       library_ms=measure.time_ms(library, REPS),
+                       device_ms=measure.device_ms(kernel, REPS),
+                       library_device_ms=measure.device_ms(library, REPS))
+        print(f"{'OK' if ok else 'FAIL':6s}{name}"
+              + ("" if ok else f": max|err| {err:.3g} ({rel:.3g} x max|plain|)")
+              + (f": kernel {measure.fmt(res['ms'])} (device {measure.fmt(res['device_ms'])}), "
+                 f"torch {measure.fmt(res['library_ms'])} (device "
+                 f"{measure.fmt(res['library_device_ms'])}), bound {res['bound_ms']:.4f} ms"
+                 if cuda and ok else ""))
         out.append(res)
     return out
+
+
+def launch_costs(dev) -> dict:
+    """The host's path to a launch on the card. ``host_us``: host
+    microseconds a call of each piece of a ctypes launch, each run
+    LAUNCH_CALLS times back to back on the host clock, then one synchronize
+    (a null kernel takes the device less time than its launch takes the
+    host, so the queue never holds the host back). ``null``: the null
+    kernel's event and device ms a call (``measure.time_ms``,
+    ``measure.device_ms``) through both launch paths."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    x = probe_inputs(1, dev)[0]
+
+    def looked_up_null():
+        """The null kernel as the other wrappers launch theirs: the library
+        through ``_build.load``, the stream through a torch.cuda.Stream."""
+        lib = _build.load("probe_ops", {"tt_null": [_P]})
+        _build.check(lib.tt_null(torch.cuda.current_stream(x.device).cuda_stream), "tt_null")
+
+    def tuple_checks(y=None):
+        """Probe 1's checks as tuples and a loop over the inputs."""
+        shapes = [tuple(t.shape) for t in (x, y) if t is not None]
+        if shapes != [tuple(s) for s in PROBES[0][1]]:
+            raise ValueError(shapes)
+        for t in (x, y):
+            if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                                  or t.device != x.device):
+                raise ValueError(t.dtype)
+
+    pieces = {
+        "null kernel, _build.load + torch.cuda.current_stream": looked_up_null,
+        "null kernel, _build.Kernel": lambda: _NULL(index),
+        "_build.load (lock, lookup)": lambda: _build.load("probe_ops", {}),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "torch.empty(shape, dtype, device)":
+            lambda: torch.empty(PROBES[0][2], dtype=torch.float32, device=x.device),
+        "x.new_empty(torch.Size)": lambda: x.new_empty(_OUT_SIZES[0]),
+        "checks as tuples and a loop": tuple_checks,
+        "checks against torch.Size": lambda: _check_probe_inputs(1, x, None),
+        "probe 1, the K7 wrapper": lambda: probe(1, x),
+        "probe 1's torch call (reshape, clone)": lambda: probe_library(1, x),
+    }
+    res = {"host_us": {}, "null": {}}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_CALLS):
+            fn()
+        res["host_us"][name] = (time.perf_counter() - t0) * 1e6 / LAUNCH_CALLS
+        torch.cuda.synchronize(dev)
+        print(f"host {res['host_us'][name]:7.2f} us a call: {name}")
+    for name in ("null kernel, _build.load + torch.cuda.current_stream",
+                 "null kernel, _build.Kernel"):
+        r = res["null"][name] = {"ms": measure.time_ms(pieces[name], REPS),
+                                 "device_ms": measure.device_ms(pieces[name], REPS)}
+        print(f"{name}: event {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms a call")
+    return res
 
 
 def timed_probes(dev) -> list[dict]:
@@ -265,6 +350,8 @@ def main(argv=None) -> dict:
     res = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
            "probes": run_probes(dev), "orientations": timed_probes(dev)}
     res["ok"] = all(p["ok"] for p in res["probes"] + res["orientations"])
+    if dev.type == "cuda":
+        res["launch_costs"] = launch_costs(dev)
     return res
 
 
