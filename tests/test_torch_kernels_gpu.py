@@ -8,6 +8,8 @@ machine with a GPU and no jax (tests/conftest.py imports jax; skip it there):
 
 Without a CUDA device the gpu cases skip; the others run anywhere.
 """
+import shutil
+import subprocess
 import warnings
 
 import pytest
@@ -199,6 +201,46 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_failed_compile_raises_and_leaves_no_library(monkeypatch, tmp_path):
+    """A kernel whose source does not compile raises at its first launch,
+    with the compiler's output, and leaves nothing in the build directory
+    for a later call to load."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", lambda cmd, **_: subprocess.CompletedProcess(
+        cmd, 2, "", "probe_ops.cu(1): error: bad kernel"))
+    with pytest.raises(RuntimeError, match=r"nvcc failed on probe_ops.cu \(exit 2\)"
+                                           r"[\s\S]*error: bad kernel"):
+        _build.Kernel("probe_ops", "tt_null", [])(0)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_library_name_follows_the_sources_and_flags(monkeypatch, tmp_path):
+    """A library is named by a hash of every source under csrc and the
+    compiler flags: an unchanged tree names the same one, an edit to any
+    source (a shared header too) or to the flags a new one."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    first = _build.library_path("probe_ops")
+    assert _build.library_path("probe_ops") == first
+    (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text() + "\n// edited\n")
+    edited = _build.library_path("probe_ops")
+    assert edited != first and edited.parent == first.parent
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    assert _build.library_path("probe_ops") not in (first, edited)
+
+
+def test_unchanged_sources_reuse_the_last_build(monkeypatch, tmp_path):
+    """A library built from the current sources is taken as it is: no
+    compiler runs."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    built = _build.library_path("lvc")
+    built.write_bytes(b"")
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("the compiler ran"))
+    assert _build.build("lvc") == built
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
@@ -522,6 +564,22 @@ def test_probe_kernels_reject_bad_input(cuda):
         probe(1, x)
     with pytest.raises(RuntimeError, match="CUDA error"):   # x not 16-byte aligned
         probe(7, torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [1, 33, 64, 66, 735])
+def test_probe_dynamic_slice_at_any_start(cuda, start):
+    """Probe 4's kernel at columns the tool does not use: a start that is a
+    multiple of 4 takes the float4 reads, any other the scalar ones. Bit for
+    bit against x[..., start:start+32]."""
+    from tortoise_tpu_torch.tools.probe_ops import _PROBE, B, C, CK, H, T, probe_inputs
+
+    x = probe_inputs(4, cuda)[0]
+    out = torch.empty((B, H, 32), device=cuda)
+    _PROBE(torch.cuda.current_device(), 4, x.data_ptr(), None, out.data_ptr(), B, CK, H, T, C,
+           start)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x[..., start:start + 32])
 
 
 @pytest.mark.gpu

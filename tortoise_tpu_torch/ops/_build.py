@@ -7,9 +7,10 @@ by a hash of every source under ``csrc/`` and the compiler flags, so an edit
 rebuilds and an unchanged tree reuses the last build. Nothing here runs at
 import time; a missing ``nvcc`` or a failed compile raises.
 
-``Kernel`` is the launch path with the least host work a call: the library
-is built and the function looked up at its first call only, and the stream
-is read raw rather than through a ``torch.cuda.Stream`` object.
+Every wrapper launches through ``Kernel``, the path with the least host
+work a call: the library is built and the function looked up at its first
+call only, and the stream is read raw rather than through a
+``torch.cuda.Stream`` object.
 """
 from __future__ import annotations
 
@@ -76,23 +77,13 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, functions: dict[str, list]) -> ctypes.CDLL:
-    """Build if needed, load, and declare ``functions``' argtypes (restype int)."""
+def _library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it, once a process."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in functions.items():
-            f = getattr(lib, fn)
-            if f.argtypes is None:
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
         return lib
-
-
-def check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {err}")
 
 
 class Kernel:
@@ -107,10 +98,8 @@ class Kernel:
         self._f = None
 
     def _load(self):
-        # a function pointer of its own, so that other kernels of the same
-        # library keep their argtypes
         f = ctypes.CFUNCTYPE(ctypes.c_int, *self.argtypes, ctypes.c_void_p)(
-            (self.fn, load(self.lib, {})))
+            (self.fn, _library(self.lib)))
         self._f = f
         return f
 

@@ -30,8 +30,9 @@ HEAD_DIM = 64
 NEG = -1e9
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = {"tt_flash_rel_attn": [_P] * 6 + [_I] * 3 + [_P]}
-_K1_SIGNATURE = {"tt_decode_attn_merged": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_P]}
+_K3 = _build.Kernel("flash_rel_attn", "tt_flash_rel_attn", [_P] * 6 + [_I] * 3)
+_K1 = _build.Kernel("decode_attn_merged", "tt_decode_attn_merged",
+                    [_P] * 3 + [_I] + [_P] * 4 + [_I] * 9)
 # K1 splits a (batch row, head)'s prefix rows over this many blocks in all
 # where B x H blocks alone would leave SMs idle (132 on an H100), down to
 # at least _MIN_SPLIT_ROWS rows a split
@@ -124,12 +125,9 @@ def flash_rel_attention(q, k, v, bias_vec, valid_len):
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     _check_cuda_args(q, k, v, bias_vec, valid_len)
     b, h, t, _ = q.shape
-    lib = _build.load("flash_rel_attn", _SIGNATURE)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.tt_flash_rel_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_vec.data_ptr(),
-                                valid_len.data_ptr(), out.data_ptr(), b, h, t, stream)
-    _build.check(err, "flash_rel_attn kernel")
+    _K3(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_vec.data_ptr(),
+        valid_len.data_ptr(), out.data_ptr(), b, h, t)
     flash_rel_attention.launches += 1
     return out.to(out_dtype)
 
@@ -197,14 +195,10 @@ def decode_attention_merged(q, k_new, v_new, k_cache, v_cache, layer: int, pos: 
     out = torch.empty((b, c), dtype=q.dtype, device=q.device)
     partial = torch.empty((b, heads, splits, HEAD_DIM + 2), dtype=torch.float32,
                           device=q.device) if splits > 1 else None
-    lib = _build.load("decode_attn_merged", _K1_SIGNATURE)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.tt_decode_attn_merged(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-        int(q.dtype == torch.float32), int(k_cache.dtype == torch.float32), lcount, b, t, c,
-        layer, pos, splits, stream)
-    _build.check(err, "decode_attn_merged kernel")
+    _K1(q.get_device(), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
+        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), int(q.dtype == torch.float32),
+        int(k_cache.dtype == torch.float32), lcount, b, t, c, layer, pos, splits)
     decode_attention_merged.launches += 1
     return out
 

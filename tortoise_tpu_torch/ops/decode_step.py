@@ -32,7 +32,7 @@ from tortoise_tpu_torch.ops import _build
 HEAD_DIM = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = {"tt_decode_step": [_P] * 24 + [_I] * 5 + [_P]}
+_KERNEL = _build.Kernel("decode_step", "tt_decode_step", [_P] * 24 + [_I] * 5)
 _WEIGHTS = ("ln1", "wqkv", "bqkv", "wproj", "bproj", "ln2", "wfc", "bfc", "wfc2", "bfc2")
 _QSCALES = ("sqkv", "sproj", "sfc", "sfc2")
 # (weights, cache) -> variant name; each variant counts its own launches
@@ -253,7 +253,6 @@ def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, hea
     x = x.to(torch.bfloat16)
     _check_cuda_args(stacked, x, cache, pos, heads)
     lcount, b, t, c = cache["k"].shape
-    lib = _build.load("decode_step", _SIGNATURE)
     hidden = x.clone()
     qkv = torch.empty((b, 3 * c), dtype=torch.bfloat16, device=x.device)
     attn = torch.empty((b, c), dtype=torch.bfloat16, device=x.device)
@@ -261,14 +260,12 @@ def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, hea
     k_rows = torch.empty((lcount, b, c), dtype=torch.bfloat16, device=x.device)
     v_rows = torch.empty_like(k_rows)
     ptr = lambda d, n: d[n].data_ptr() if n in d else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.tt_decode_step(
-        hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
+    _KERNEL(
+        x.get_device(), hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
         *(stacked[n].data_ptr() for n in _WEIGHTS), *(ptr(stacked, n) for n in _QSCALES),
         cache["k"].data_ptr(), cache["v"].data_ptr(), ptr(cache, "k_scale"),
         ptr(cache, "v_scale"), k_rows.data_ptr(), v_rows.data_ptr(),
-        lcount, b, t, c, int(pos), stream)
-    _build.check(err, "decode_step kernel")
+        lcount, b, t, c, int(pos))
     fused_decode_step.launches += 1
     fused_decode_step.launches_by_variant[variant(stacked, cache)] += 1
     return (hidden, k_rows, v_rows, attn) if with_attention else (hidden, k_rows, v_rows)

@@ -23,7 +23,7 @@ from tortoise_tpu_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURE = {"tt_lvc": [_P] * 4 + [_I] * 6 + [_L] * 7 + [_P]}
+_KERNEL = _build.Kernel("lvc", "tt_lvc", [_P] * 4 + [_I] * 6 + [_L] * 7)
 
 
 def location_variable_convolution_lvc_plain(x, kernels, bias, hop: int):
@@ -79,13 +79,10 @@ def location_variable_convolution_lvc(x, kernels, bias, hop: int):
     _check_cuda_args(x, kernels, bias, hop)
     b, t, ci = x.shape
     _, f, _, co, k = kernels.shape
-    lib = _build.load("lvc", _SIGNATURE)
     out = torch.empty((b, t, co), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.tt_lvc(x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), b, f, hop,
-                     ci, co, k, *x.stride(), kernels.stride(0), kernels.stride(1),
-                     bias.stride(0), bias.stride(1), stream)
-    _build.check(err, "lvc kernel")
+    _KERNEL(x.get_device(), x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+            f, hop, ci, co, k, *x.stride(), kernels.stride(0), kernels.stride(1),
+            bias.stride(0), bias.stride(1))
     location_variable_convolution_lvc.launches += 1
     return out
 

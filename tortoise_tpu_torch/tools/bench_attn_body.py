@@ -41,7 +41,7 @@ VARIANTS = ("a", "b")
 # bf16 output: one ulp (2^-8) of each (batch row, head)'s max|plain|, and a
 # little more for f32 sums taken in another order
 HEAD_REL_BOUND = 1e-2
-_SIGNATURE = {"tt_attn_body": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+_KERNEL = _build.Kernel("attn_body", "tt_attn_body", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
 
 
 def _check_chunks(t: int, ck: int, pos: int):
@@ -110,11 +110,8 @@ def attn_body(q, k, v, pos: int, *, heads: int = HEADS, ck: int = 64,
     t = k.shape[1]
     _check_chunks(t, ck, pos)
     out = torch.empty_like(q)
-    lib = _build.load("attn_body", _SIGNATURE)
-    err = lib.tt_attn_body(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, c, pos,
-                           ck, VARIANTS.index(variant),
-                           torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "attn_body kernel")
+    _KERNEL(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, c,
+            pos, ck, VARIANTS.index(variant))
     attn_body.launches += 1
     attn_body.launches_by_variant[variant] += 1
     return out

@@ -22,8 +22,7 @@ kernel (``csrc/probe_ops.cu``) held against its plain PyTorch version:
 
 Times are CUDA-event medians on the card (host launch time included) and
 device times alone (``measure.device_ms``). On the card the tool also
-reads the host's path to a launch (``launch_costs``): a null kernel
-through each launch path, and each piece of a wrapper's per-call work.
+reads the host's path to a launch (``launch_costs``) on a null kernel.
 ``--device cpu`` runs the plain versions only (for tests). Exits 1 if any
 probe fails.
 """
@@ -46,8 +45,8 @@ ORIENT_REL_BOUND = 1e-5                          # K8: f32 sums of exact bf16 pr
 REPS = 20                                        # timed calls per median
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-_SIGNATURE = {"tt_contraction": [_P, _P, _P] + [_I] * 4 + [_L] * 6 + [_P]}
 _PROBE = _build.Kernel("probe_ops", "tt_probe", [_I, _P, _P, _P] + [_I] * 6)
+_CONTRACTION = _build.Kernel("probe_ops", "tt_contraction", [_P, _P, _P] + [_I] * 4 + [_L] * 6)
 _NULL = _build.Kernel("probe_ops", "tt_null", [])
 LAUNCH_CALLS = 2000                              # calls per host-cost reading
 
@@ -157,11 +156,8 @@ def contraction(a, b) -> torch.Tensor:
     bt, i, r = a.shape
     j = b.shape[2]
     out = torch.empty((bt, i, j), dtype=torch.float32, device=a.device)
-    lib = _build.load("probe_ops", _SIGNATURE)
-    err = lib.tt_contraction(a.data_ptr(), b.data_ptr(), out.data_ptr(), bt, i, j, r,
-                             *a.stride(), *b.stride(),
-                             torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "probe_ops contraction kernel")
+    _CONTRACTION(a.get_device(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bt, i, j, r,
+                 *a.stride(), *b.stride())
     contraction.launches += 1
     return out
 
@@ -234,62 +230,25 @@ def run_probes(dev) -> list[dict]:
 
 
 def launch_costs(dev) -> dict:
-    """The host's path to a launch on the card. ``host_us``: host
-    microseconds a call of each piece of a ctypes launch, each run
-    LAUNCH_CALLS times back to back on the host clock, then one synchronize
-    (a null kernel takes the device less time than its launch takes the
-    host, so the queue never holds the host back). ``null``: the null
-    kernel's event and device ms a call (``measure.time_ms``,
-    ``measure.device_ms``) through both launch paths."""
+    """The host's path to a launch on the card, read on the null kernel
+    (``csrc/probe_ops.cu`` ``tt_null``) through ``_build.Kernel``, the path
+    every wrapper takes: ``host_us``, host microseconds a call over
+    LAUNCH_CALLS calls back to back, then one synchronize (the null kernel
+    takes the device less time than its launch takes the host, so the queue
+    never holds the host back); ``ms`` and ``device_ms``, its event and
+    device ms a call (``measure.time_ms``, ``measure.device_ms``)."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    x = probe_inputs(1, dev)[0]
-
-    def looked_up_null():
-        """The null kernel as the other wrappers launch theirs: the library
-        through ``_build.load``, the stream through a torch.cuda.Stream."""
-        lib = _build.load("probe_ops", {"tt_null": [_P]})
-        _build.check(lib.tt_null(torch.cuda.current_stream(x.device).cuda_stream), "tt_null")
-
-    def tuple_checks(y=None):
-        """Probe 1's checks as tuples and a loop over the inputs."""
-        shapes = [tuple(t.shape) for t in (x, y) if t is not None]
-        if shapes != [tuple(s) for s in PROBES[0][1]]:
-            raise ValueError(shapes)
-        for t in (x, y):
-            if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
-                                  or t.device != x.device):
-                raise ValueError(t.dtype)
-
-    pieces = {
-        "null kernel, _build.load + torch.cuda.current_stream": looked_up_null,
-        "null kernel, _build.Kernel": lambda: _NULL(index),
-        "_build.load (lock, lookup)": lambda: _build.load("probe_ops", {}),
-        "torch.cuda.current_stream(dev).cuda_stream":
-            lambda: torch.cuda.current_stream(x.device).cuda_stream,
-        "torch._C._cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(index),
-        "torch.empty(shape, dtype, device)":
-            lambda: torch.empty(PROBES[0][2], dtype=torch.float32, device=x.device),
-        "x.new_empty(torch.Size)": lambda: x.new_empty(_OUT_SIZES[0]),
-        "checks as tuples and a loop": tuple_checks,
-        "checks against torch.Size": lambda: _check_probe_inputs(1, x, None),
-        "probe 1, the K7 wrapper": lambda: probe(1, x),
-        "probe 1's torch call (reshape, clone)": lambda: probe_library(1, x),
-    }
-    res = {"host_us": {}, "null": {}}
-    for name, fn in pieces.items():
-        fn()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        for _ in range(LAUNCH_CALLS):
-            fn()
-        res["host_us"][name] = (time.perf_counter() - t0) * 1e6 / LAUNCH_CALLS
-        torch.cuda.synchronize(dev)
-        print(f"host {res['host_us'][name]:7.2f} us a call: {name}")
-    for name in ("null kernel, _build.load + torch.cuda.current_stream",
-                 "null kernel, _build.Kernel"):
-        r = res["null"][name] = {"ms": measure.time_ms(pieces[name], REPS),
-                                 "device_ms": measure.device_ms(pieces[name], REPS)}
-        print(f"{name}: event {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms a call")
+    null = lambda: _NULL(index)
+    null()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_CALLS):
+        null()
+    res = {"host_us": (time.perf_counter() - t0) * 1e6 / LAUNCH_CALLS}
+    torch.cuda.synchronize(dev)
+    res.update(ms=measure.time_ms(null, REPS), device_ms=measure.device_ms(null, REPS))
+    print(f"null kernel through _build.Kernel: host {res['host_us']:.2f} us, event "
+          f"{res['ms']:.4f} ms, device {res['device_ms']:.4f} ms a call")
     return res
 
 
