@@ -86,6 +86,7 @@ from tortoise_tpu_torch.utils.measure import device_ms as _device_ms  # noqa: E4
 from tortoise_tpu_torch.utils.measure import nbytes as _nbytes  # noqa: E402
 from tortoise_tpu_torch.utils.measure import nvidia_smi as _nvidia_smi  # noqa: E402
 from tortoise_tpu_torch.utils.measure import time_ms as _time_ms  # noqa: E402
+from tortoise_tpu_torch.utils.measure import STEP_SLEEP_CYCLES_PER_RUN  # noqa: E402
 # K2: the hidden state and rows after 30 bf16 layers, against the plain
 # version with the TPU kernel's rounding order. Both round at the same
 # places but sum in different orders, so one-ulp bf16 flips compound over
@@ -166,6 +167,12 @@ LVC_CALLS_PER_FORWARD = 12
 LVC_FRAMES = 2186
 
 
+def _step_device_ms(run) -> float:
+    """Device ms of a whole K2 step, queued behind a sleep that outlasts the
+    host's ~150 launches a step."""
+    return _device_ms(run, 20, STEP_SLEEP_CYCLES_PER_RUN)
+
+
 def _k2_row_name(variant: str) -> str:
     return "fused_decode_step" if variant == "bf16" else f"fused_decode_step[{variant}]"
 
@@ -226,21 +233,25 @@ def check_decode_step(record: dict) -> dict:
                         raise AssertionError(f"K2 disagrees with its plain version: {case}")
                     rows[var]["max_abs_err"] = max(rows[var]["max_abs_err"], max(errs))
                     if pos == 500:
-                        ms = _time_ms(lambda: fused_decode_step(stacked, x, cache, pos, H), 20)
+                        run = lambda: fused_decode_step(stacked, x, cache, pos, H)
+                        ms, device_ms = _time_ms(run, 20), _step_device_ms(run)
                         plain_ms = _time_ms(
                             lambda: fused_decode_step_plain(stacked, x, cache, pos, H), 5)
-                        case.update(ms=ms, plain_ms=plain_ms)
-                        print(f"K2 {var:24s} B={b:2d} pos=500: kernel {ms:.3f} ms, "
-                              f"plain {plain_ms:.3f} ms")
+                        bound_ms, bound_by = _k2_bound(stacked, x, cache, pos, L, C)
+                        case.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms)
+                        print(f"K2 {var:24s} B={b:2d} pos=500: kernel {ms:.3f} ms (device "
+                              f"{device_ms:.3f}), plain {plain_ms:.3f} ms, bound "
+                              f"{bound_ms:.4f} ms")
+                        # the batches of the fast path and ultra_fast beside the
+                        # row's own time (the main path's B=96 where it runs)
+                        rows[var].update({f"b{b}_ms": ms, f"b{b}_device_ms": device_ms,
+                                          f"b{b}_bound_ms": bound_ms})
                         if b == 1:
-                            # no device times: K2's 1-13 ms calls keep the
-                            # device ahead of the host's enqueue, so its
-                            # event times stand
-                            rows[var].update(ms=ms, plain_ms=plain_ms, timed_at="B=1 pos=500",
-                                             library_ms=None, device_ms=None,
-                                             library_device_ms=None)
-                            rows[var]["bound_ms"], rows[var]["bound_by"] = _k2_bound(
-                                stacked, x, cache, pos, L, C)
+                            rows[var].update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                             timed_at="B=1 pos=500", library_ms=None,
+                                             library_device_ms=None, bound_ms=bound_ms,
+                                             bound_by=bound_by)
     record["k2"] = cases
     return rows
 
@@ -577,14 +588,15 @@ def _whole_step(stacked, cache, x, pos, heads, what):
           + "/".join(f"{e:.4g}" for e in errs) + f" (bound {K2_REL_BOUND})")
     if max(errs) > K2_REL_BOUND:
         raise AssertionError(f"K2 disagrees with its plain version ({what}): {errs}")
-    ms = _time_ms(lambda: fused_decode_step(stacked, x, cache, pos, heads), 20)
+    run = lambda: fused_decode_step(stacked, x, cache, pos, heads)
+    ms, device_ms = _time_ms(run, 20), _step_device_ms(run)
     plain_ms = _time_ms(lambda: fused_decode_step_plain(stacked, x, cache, pos, heads), 5)
     b, t = cache["k"].shape[1], cache["k"].shape[2]
     bound_ms, bound_by = _k2_bound(stacked, x, cache, pos, cache["k"].shape[0], x.shape[1])
-    print(f"K2 ({what}) B={b} pos={pos} T={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"row_rel_err": errs, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"K2 ({what}) B={b} pos={pos} T={t}: kernel {ms:.3f} ms (device {device_ms:.3f}), "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"row_rel_err": errs, "max_abs_err": abs_err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _sampler_step(tts, stacked, emb, cache, pos, what):
@@ -639,7 +651,7 @@ def check_decode_main_path(tts, clips, record: dict) -> dict:
         "B": cache["k"].shape[1], "pos": pos, "T": cache["k"].shape[2],
         "attn_head_rel_err": attn_err, "layer_hidden_rel_err": hidden_err,
         "planted": planted, "step": whole, "sampler_row_rel_err": sampler_err}
-    return {k: whole[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} | \
+    return {k: whole[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")} | \
         {"timed_at": "B=96 pos=566"}
 
 
@@ -681,8 +693,8 @@ def check_decode_main_path_int8(tts, clips, record: dict) -> dict:
         for var, st in (("int8_cache", stacked), ("int8_weights_int8_cache",
                                                   quantize_stack(stacked))):
             steps[var] = _whole_step(st, cache, x, pos, heads, var)
-            out[var] = {k: steps[var][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")} \
-                | {"timed_at": "B=96 pos=566"}
+            out[var] = {k: steps[var][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                   "bound_by")} | {"timed_at": "B=96 pos=566"}
         sampler_err = _sampler_step(tts, stacked, emb, cache, pos, "int8 cache")
     record["k2_main_path_int8_cache"] = {
         "B": cache["k"].shape[1], "pos": pos, "T": cache["k"].shape[2],

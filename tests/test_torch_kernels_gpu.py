@@ -136,6 +136,62 @@ def test_decode_step_kernel_rejects_bad_input(cuda):
         fused_decode_step(bad, x, cache, 0, 16)
 
 
+K2_EDGE_T = 320  # pos T - 1 = 319 beside 255
+
+
+def _k2_inputs(g, dev, kind, L, b, C, H, T):
+    stacked = _stack(g, dev, L, C)
+    cache = {k: torch.randn((L, b, T, C), generator=g, device=dev).to(torch.bfloat16)
+             for k in ("k", "v")}
+    if "weights" in kind:
+        stacked = quantize_stack(stacked)
+    if "cache" in kind:
+        cache = quantize_cache(cache, H)
+    x = torch.randn((b, C), generator=g, device=dev).to(torch.bfloat16)
+    return stacked, cache, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8_weights", "int8_cache",
+                                  "int8_weights_int8_cache"])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 17, 96, 128])
+def test_decode_step_kernel_edges(cuda, kind, b):
+    """The batch tail of the products' n side and the block's batch tile
+    (B up to 128), and prefixes of 0, 1, 63, 64, 65, 255 and T-1 rows:
+    shorter than one 64-row stage, at its edge, ending inside a split and
+    at a split boundary of the plan."""
+    from tortoise_tpu_torch.ops.decode_step import plan_step
+
+    L, C, H, T = 2, 1024, 16, K2_EDGE_T
+    g = torch.Generator(device=cuda).manual_seed(b)
+    stacked, cache, x = _k2_inputs(g, cuda, kind, L, b, C, H, T)
+    assert variant(stacked, cache) == kind
+    for pos in (0, 1, 63, 64, 65, 255, T - 1):
+        plan = plan_step(b, C, pos, H)
+        got = fused_decode_step(stacked, x, cache, pos, H)
+        want = fused_decode_step_plain(stacked, x, cache, pos, H)
+        for a, w in zip(got, want):
+            w = w.float()
+            err = (a.float() - w).abs().max().item()
+            assert err <= 0.03 * w.abs().max().item(), (pos, plan, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8_weights", "int8_cache",
+                                  "int8_weights_int8_cache"])
+@pytest.mark.parametrize("b,pos", [(1, 255), (16, 200), (96, 100)])
+def test_decode_step_kernel_is_deterministic(cuda, kind, b, pos):
+    """Split K and split prefixes sum in a fixed order: two calls on the same
+    inputs give bit-equal outputs."""
+    L, C, H, T = 2, 1024, 16, K2_EDGE_T
+    g = torch.Generator(device=cuda).manual_seed(7)
+    stacked, cache, x = _k2_inputs(g, cuda, kind, L, b, C, H, T)
+    first = fused_decode_step(stacked, x, cache, pos, H, with_attention=True)
+    second = fused_decode_step(stacked, x, cache, pos, H, with_attention=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t", [(1, 2, 100), (2, 16, 333), (2, 16, 64)])
 def test_flash_rel_attention_kernel_matches_plain(cuda, b, h, t):

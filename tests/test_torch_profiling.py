@@ -7,6 +7,13 @@ from tortoise_tpu_torch.utils import profiling
 
 
 @pytest.mark.parametrize("name,fam", [
+    ("void tt::(anonymous namespace)::tc_gemm_kernel<__nv_bfloat16, 1, 0, 2>(...)", "K2 gemm"),
+    ("void tt::(anonymous namespace)::tc_gemm_kernel<signed char, 0, 2, 8>(...)", "K2 gemm int8"),
+    ("void tt::(anonymous namespace)::row_stats_kernel(...)", "K2 gemm"),
+    ("void tt::(anonymous namespace)::split_attention_kernel<__nv_bfloat16>(...)",
+     "K2 attention"),
+    ("void tt::(anonymous namespace)::split_attention_kernel<signed char>(...)",
+     "K2 attention int8"),
     ("void tt::(anonymous namespace)::rows_gemm_kernel<1, 0>(...)", "K2 gemm"),
     ("tt::(anonymous namespace)::decode_attention_kernel(...)", "K2 attention"),
     ("void tt::(anonymous namespace)::rows_gemm_kernel<signed char, 1, 0>(...)", "K2 gemm int8"),

@@ -18,6 +18,8 @@ quantization error.
 
 ``fused_decode_step`` dispatches on the device of ``x``: a CPU tensor runs
 ``fused_decode_step_plain``, a CUDA tensor launches the kernel (or raises).
+``plan_step`` sizes the kernel's launches from the step's shapes: how far
+each product splits K and how many prefix rows an attention block takes.
 """
 from __future__ import annotations
 
@@ -32,7 +34,16 @@ from tortoise_tpu_torch.ops import _build
 HEAD_DIM = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_KERNEL = _build.Kernel("decode_step", "tt_decode_step", [_P] * 24 + [_I] * 5)
+_KERNEL = _build.Kernel("decode_step", "tt_decode_step", [_P] * 25 + [_I] * 10)
+# the card's SMs and the blocks a launch aims for, at most: two an SM, one
+# wave of the largest blocks (so no launch ends in a partial second wave)
+SMS = 132
+TARGET_BLOCKS = 2 * SMS
+GEMM_TILE = 64       # output features a product block takes (csrc kTM)
+GEMM_DEPTH = 64      # K depth of one of its stages (csrc kBK)
+ATTN_MIN_ROWS = 32   # prefix rows an attention split takes at least
+MAX_SPLITS = 8       # the splits of a tile or a head are one cluster: 8 at most
+                     # (the portable cluster size)
 _WEIGHTS = ("ln1", "wqkv", "bqkv", "wproj", "bproj", "ln2", "wfc", "bfc", "wfc2", "bfc2")
 _QSCALES = ("sqkv", "sproj", "sfc", "sfc2")
 # (weights, cache) -> variant name; each variant counts its own launches
@@ -116,6 +127,34 @@ def quantize_cache(cache: dict, heads: int) -> dict:
 def variant(stacked: dict, cache: dict) -> str:
     """The kernel variant a (stack, cache) pair runs: a key of ``launches_by_variant``."""
     return VARIANTS[(stacked["wqkv"].dtype, cache["k"].dtype)]
+
+
+def plan_step(b: int, c: int, pos: int, heads: int) -> dict:
+    """The kernel's launch plan for a step at batch b, width c, position pos.
+
+    Each product (N, K) = qkv (3c, c), proj (c, c), fc (4c, c), fc2 (c, 4c)
+    has N/64 output tiles; its K (K/64 steps) is split so that tiles x splits
+    comes near TARGET_BLOCKS without passing it, in MAX_SPLITS at most:
+    "ks_<name>" is the K steps of one split, and "splits_<name>" the count
+    that follows. The attention has b x heads blocks a split; "attn_rows" is
+    the prefix rows of one split (at least ATTN_MIN_ROWS, 0 at pos=0) and
+    "attn_splits" their count."""
+    out = {}
+    for name, (n, k) in {"qkv": (3 * c, c), "proj": (c, c), "fc": (4 * c, c),
+                         "fc2": (c, 4 * c)}.items():
+        steps = k // GEMM_DEPTH
+        want = min(steps, MAX_SPLITS, max(1, TARGET_BLOCKS // (n // GEMM_TILE)))
+        ks = -(-steps // want)
+        out[f"ks_{name}"], out[f"splits_{name}"] = ks, -(-steps // ks)
+    if pos == 0:
+        rows, splits = 0, 1
+    else:
+        want = min(max(1, TARGET_BLOCKS // (b * heads)), max(1, pos // ATTN_MIN_ROWS),
+                   MAX_SPLITS)
+        rows = -(-pos // want)
+        splits = -(-pos // rows)
+    out.update(attn_rows=rows, attn_splits=splits)
+    return out
 
 
 def _gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -253,19 +292,23 @@ def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, hea
     x = x.to(torch.bfloat16)
     _check_cuda_args(stacked, x, cache, pos, heads)
     lcount, b, t, c = cache["k"].shape
+    plan = plan_step(b, c, pos, heads)
+    dev = x.device
+    bf = dict(dtype=torch.bfloat16, device=dev)
     hidden = x.clone()
-    qkv = torch.empty((b, 3 * c), dtype=torch.bfloat16, device=x.device)
-    attn = torch.empty((b, c), dtype=torch.bfloat16, device=x.device)
-    ffn = torch.empty((b, 4 * c), dtype=torch.bfloat16, device=x.device)
-    k_rows = torch.empty((lcount, b, c), dtype=torch.bfloat16, device=x.device)
+    qkv, attn, ffn = (torch.empty((b, n * c), **bf) for n in (3, 1, 4))
+    k_rows = torch.empty((lcount, b, c), **bf)
     v_rows = torch.empty_like(k_rows)
+    # the layer-norm statistics: (mean, M2) of each row's 64-column tiles
+    stats = torch.empty((c // GEMM_TILE, b, 2), dtype=torch.float32, device=dev)
     ptr = lambda d, n: d[n].data_ptr() if n in d else None
     _KERNEL(
         x.get_device(), hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
         *(stacked[n].data_ptr() for n in _WEIGHTS), *(ptr(stacked, n) for n in _QSCALES),
         cache["k"].data_ptr(), cache["v"].data_ptr(), ptr(cache, "k_scale"),
-        ptr(cache, "v_scale"), k_rows.data_ptr(), v_rows.data_ptr(),
-        lcount, b, t, c, int(pos))
+        ptr(cache, "v_scale"), k_rows.data_ptr(), v_rows.data_ptr(), stats.data_ptr(),
+        lcount, b, t, c, int(pos),
+        plan["ks_qkv"], plan["ks_proj"], plan["ks_fc"], plan["ks_fc2"], plan["attn_rows"])
     fused_decode_step.launches += 1
     fused_decode_step.launches_by_variant[variant(stacked, cache)] += 1
     return (hidden, k_rows, v_rows, attn) if with_attention else (hidden, k_rows, v_rows)

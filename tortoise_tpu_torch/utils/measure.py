@@ -20,6 +20,9 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # device_ms's head start for the host: ~0.25 ms of sleep (at ~2 GHz) for
 # each run it enqueues, against the few tens of microseconds a launch takes
 SLEEP_CYCLES_PER_RUN = 500_000
+# the same for a whole K2 decode step, whose ~150 launches take the host
+# ~0.5 ms: ~2 ms of sleep a run
+STEP_SLEEP_CYCLES_PER_RUN = 4_000_000
 
 
 def nvidia_smi() -> str:
@@ -56,16 +59,17 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, cycles_per_run: int = SLEEP_CYCLES_PER_RUN) -> float:
     """Device time of ``fn`` a run: after one warm-up, ``reps`` runs queued
     behind a kernel that sleeps while the host enqueues them, so CUDA events
     time the device working through them back to back. Unlike ``time_ms``
     it leaves out the host's time to reach each launch, which dominates a
-    call of a few microseconds. ``fn`` must not synchronise."""
+    call of a few microseconds; ``cycles_per_run`` must outlast the host's
+    time to enqueue one run. ``fn`` must not synchronise."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_RUN * reps)
+    torch.cuda._sleep(cycles_per_run * reps)
     start.record()
     for _ in range(reps):
         fn()

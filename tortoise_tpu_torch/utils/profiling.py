@@ -15,10 +15,16 @@ each kernel twice. The profiler's own host cost stretches the wall, so the
 busy share is a lower bound for an unprofiled request.
 
 ``--k2`` profiles K2's decode step alone instead, each weight x cache
-variant at full width (L=30, C=1024, pos=500, T=768, B in {1, 16}): per
-step the CUDA-event time of 10 back-to-back steps, the device busy time and
-the device time by kernel family, so the launch gaps (event time minus busy
-time) show beside the kernels' own time.
+variant at full width (L=30, C=1024, T=768) at the batches the paths run:
+B=1 and B=16 at pos=500, B=96 at pos=566 (the fast request's last step).
+Per step: the CUDA-event time of back-to-back steps, the device time
+(``measure.device_ms``: no host time), and from one ``torch.profiler`` pass
+the device busy time and the device time by kernel family, so the launch
+gaps (event time minus busy time) show beside the kernels' own time. Beside
+the bf16 rows, the yardstick of K2's products: the device time of the
+step's 120 dense products as ``torch.matmul`` (cuBLAS) at the same shapes,
+which the port never calls. Every event and device time is taken before
+the first profiler pass.
 """
 from __future__ import annotations
 
@@ -66,6 +72,12 @@ class StageTimer:
 
 # kernel name fragment -> family, first match wins
 FAMILIES = (
+    ("tc_gemm_kernel<signed char", "K2 gemm int8"),
+    ("tc_gemm_kernel", "K2 gemm"),
+    ("split_attention_kernel<signed char", "K2 attention int8"),
+    ("split_attention_kernel", "K2 attention"),
+    ("row_stats_kernel", "K2 gemm"),
+    # PR 1-6's K2 kernels, so a profile of that tree reads the same families
     ("rows_gemm_kernel<signed char", "K2 gemm int8"),
     ("rows_gemm_kernel", "K2 gemm"),
     ("decode_attention_kernel<signed char", "K2 attention int8"),
@@ -142,46 +154,72 @@ def profile_requests(tts, clips) -> dict:
     return out
 
 
-def profile_k2_variants(steps: int = 10) -> dict:
-    """Per-step times of each K2 variant on random full-width inputs."""
-    from torch.profiler import ProfilerActivity, profile
+# (batch, pos) of K2's profile: the fast path's, ultra_fast's, the fast
+# request's last step
+K2_SHAPES = ((1, 500), (16, 500), (96, 566))
 
-    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step, quantize_cache,
-                                                    quantize_stack, variant)
 
-    L, C, H, T, pos = 30, 1024, 16, 768, 500
-    g = torch.Generator(device="cuda").manual_seed(0)
+def _k2_stack(L: int, C: int, g: torch.Generator) -> dict:
     rand = lambda *s, std=1.0: (torch.randn(s, generator=g, device="cuda") * std).bfloat16()
     bf = {"ln1": torch.stack([1 + rand(L, C, std=0.1), rand(L, C, std=0.1)], 1).contiguous(),
           "ln2": torch.stack([1 + rand(L, C, std=0.1), rand(L, C, std=0.1)], 1).contiguous()}
     for key, (n, k) in {"qkv": (3 * C, C), "proj": (C, C), "fc": (4 * C, C),
                         "fc2": (C, 4 * C)}.items():
         bf["w" + key], bf["b" + key] = rand(L, n, k, std=k ** -0.5), rand(L, n, std=0.02)
-    out = {}
-    for b in (1, 16):
-        bcache = {n: rand(L, b, T, C) for n in ("k", "v")}
-        qcache = quantize_cache(bcache, H)
-        x = rand(b, C)
-        for stacked in (bf, quantize_stack(bf)):
-            for cache in (bcache, qcache):
-                run = lambda: fused_decode_step(stacked, x, cache, pos, H)
-                for _ in range(3):
-                    run()
-                torch.cuda.synchronize()
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    start.record()
-                    for _ in range(steps):
-                        run()
-                    end.record()
-                    torch.cuda.synchronize()
-                res = device_breakdown(device_events(prof))
-                out[f"{variant(stacked, cache)} B={b}"] = {
-                    "step_ms": start.elapsed_time(end) / steps,
-                    "device_busy_ms_per_step": res["device_busy_ms"] / steps,
-                    "ms_by_family_per_step": {k: v / steps
-                                              for k, v in res["ms_by_family"].items()},
-                    "kernels_per_step": res["n_device_events"] / steps}
+    return bf
+
+
+def products_matmul(stacked: dict, xs: dict):
+    """The step's dense products (4 a layer) as torch.matmul at K2's shapes,
+    ``xs`` = {key: its (B, K) input}: the yardstick of K2's GEMM family.
+    bf16 stack only."""
+    for l in range(stacked["wqkv"].shape[0]):
+        for key, x in xs.items():
+            torch.matmul(x, stacked["w" + key][l].t())
+
+
+def profile_k2_variants(steps: int = 10) -> dict:
+    """Per-step times of each K2 variant on random full-width inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step, quantize_cache,
+                                                    quantize_stack, variant)
+    from tortoise_tpu_torch.utils.measure import STEP_SLEEP_CYCLES_PER_RUN, device_ms, time_ms
+
+    L, C, H, T = 30, 1024, 16, 768
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = _k2_stack(L, C, g)
+    stacks = (bf, quantize_stack(bf))
+    out, runs = {}, []
+    for b, pos in K2_SHAPES:
+        bcache = {n: (torch.randn((L, b, T, C), generator=g, device="cuda")).bfloat16()
+                  for n in ("k", "v")}
+        x = torch.randn((b, C), generator=g, device="cuda").bfloat16()
+        for cache in (bcache, quantize_cache(bcache, H)):
+            for stacked in stacks:
+                key = f"{variant(stacked, cache)} B={b}"
+                runs.append((key, lambda s=stacked, c=cache, x=x, p=pos:
+                             fused_decode_step(s, x, c, p, H)))
+                out[key] = {"B": b, "pos": pos}
+        xs = {"qkv": x, "proj": x, "fc": x, "fc2": x.new_zeros((b, 4 * C))}
+        runs.append((f"cublas_products B={b}", lambda xs=xs: products_matmul(bf, xs)))
+        out[runs[-1][0]] = {"B": b}
+    # every event and device time first: a profiler pass slows the
+    # process's later launches
+    for key, run in runs:
+        out[key].update(step_ms=time_ms(run, steps),
+                        device_ms=device_ms(run, steps, STEP_SLEEP_CYCLES_PER_RUN))
+    for key, run in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+        res = device_breakdown(device_events(prof))
+        out[key].update({
+            "device_busy_ms_per_step": res["device_busy_ms"] / steps,
+            "ms_by_family_per_step": {k: v / steps for k, v in res["ms_by_family"].items()},
+            "kernels_per_step": res["n_device_events"] / steps})
     return out
 
 
