@@ -19,7 +19,9 @@ Phases, each of which raises on failure (nothing falls back):
      scaled_dot_product_attention with the bias as a float mask;
   5. K4 (UnivNet's location-variable convolution) against its plain
      version and the shifted-reshape einsum form at F=2186 frames (a
-     500-token clip), hop in {8, 64, 256}, B=1, f32;
+     500-token clip), hop in {8, 64, 256}, B=1, f32, its kernels in the
+     predictor's frames-innermost layout and with each frame's block
+     contiguous; a line per hop with its share of its bound;
   6. K1 (one layer's decode attention with the row write) against its
      plain version and scaled_dot_product_attention at L=30, C=1024, H=16,
      T=768, B in {1, 16, 96}, pos in {0, 37, 500, 767}, over bf16 and f32
@@ -336,53 +338,64 @@ def check_flash_attention(record: dict) -> dict:
 
 def check_lvc(record: dict) -> dict:
     """K4 against its plain version at the main path's shapes (UnivNet c32,
-    F=2186, B=1, f32), its inputs laid out as UnivNet hands them over;
-    timed beside
-    the plain version and the shifted-reshape einsum form (the JAX
-    package's production LVC). The row's times are the sums over one
-    UnivNet forward's 12 calls (4 per hop), its bound that of their bytes
-    and operations together."""
+    F=2186, B=1, f32), x as UnivNet hands it over, the kernels and bias both
+    in the predictor's frames-innermost layout (what UnivNet passes) and
+    with each frame's block contiguous; timed on the predictor's layout
+    beside the plain version and the shifted-reshape einsum form (the JAX
+    package's production LVC), and on the contiguous blocks. Each hop's row
+    prints with its share of its bound. The returned row's times are the
+    sums over one UnivNet forward's 12 calls (4 per hop), its bound that of
+    their bytes and operations together."""
     import torch
 
     from tortoise_tpu_torch.models.vocoder import location_variable_convolution
     from tortoise_tpu_torch.ops.lvc import (location_variable_convolution_lvc,
-                                            location_variable_convolution_lvc_plain)
+                                            location_variable_convolution_lvc_plain, plan_lvc)
+    from tortoise_tpu_torch.utils.profiling import predictor_layout
 
     b, f, ci, co, k, layers = 1, LVC_FRAMES, 32, 64, 3, 4
     g = torch.Generator(device="cuda").manual_seed(4)
     cases, worst = [], 0.0
     per_forward = dict.fromkeys(("ms", "plain_ms", "library_ms", "device_ms",
-                                 "library_device_ms"), 0.0)
+                                 "library_device_ms", "blocks_device_ms"), 0.0)
     work = [0, 0]   # bytes, operations of one forward's calls
     for hop in LVC_HOPS:
         # x as UnivNet hands it over: the (B, T, Ci) view of a channels-first conv output
         x = torch.randn((b, ci, f * hop), generator=g, device="cuda").transpose(1, 2)
-        # kernels and bias as UnivNet hands them over: slices [:, l] of (B, L, F, ...)
-        kern = torch.randn((b, layers, f, ci, co, k), generator=g, device="cuda")[:, 2]
-        bias = torch.randn((b, layers, f, co), generator=g, device="cuda")[:, 2]
+        # kernels and bias as the predictor leaves them: slices [:, l] of
+        # (B, L, F, ...) views, frames innermost; and each frame's block contiguous
+        kern_all, bias_all = predictor_layout(g, b, layers, f, ci, co, k)
+        kern, bias = kern_all[:, 2], bias_all[:, 2]
+        kern_blocks, bias_blocks = kern.contiguous(), bias.contiguous()
         got = location_variable_convolution_lvc(x, kern, bias, hop)
+        got_blocks = location_variable_convolution_lvc(x, kern_blocks, bias_blocks, hop)
         torch.cuda.synchronize()
-        want = location_variable_convolution_lvc_plain(x, kern, bias, hop)
+        want = location_variable_convolution_lvc_plain(x, kern_blocks, bias_blocks, hop)
         scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
+        err = max((got - want).abs().max().item(), (got_blocks - want).abs().max().item())
         einsum_err = (location_variable_convolution(x, kern, bias, hop) - want).abs().max().item()
         kernel = lambda: location_variable_convolution_lvc(x, kern, bias, hop)
+        blocks = lambda: location_variable_convolution_lvc(x, kern_blocks, bias_blocks, hop)
         library = lambda: location_variable_convolution(x, kern, bias, hop)
         ms, library_ms = _time_ms(kernel, 20), _time_ms(library, 20)
         plain_ms = _time_ms(lambda: location_variable_convolution_lvc_plain(x, kern, bias, hop), 5)
         device_ms, library_device_ms = _device_ms(kernel, 20), _device_ms(library, 20)
+        blocks_device_ms = _device_ms(blocks, 20)
         nbytes, flops = _nbytes(x, kern, bias, got), 2 * b * f * hop * co * ci * k
         bound_ms, bound_by = _bound(nbytes, flops, "f32")
-        case = {"hop": hop, "F": f, "max_abs_err": err, "rel_err": err / scale,
-                "bound": K4_REL_BOUND, "einsum_rel_err": einsum_err / scale, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms, "device_ms": device_ms,
-                "library_device_ms": library_device_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+        case = {"hop": hop, "F": f, "plan": plan_lvc(b, f, hop, ci, co, k), "max_abs_err": err,
+                "rel_err": err / scale, "bound": K4_REL_BOUND, "einsum_rel_err": einsum_err / scale,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "device_ms": device_ms,
+                "library_device_ms": library_device_ms, "blocks_device_ms": blocks_device_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / device_ms}
         cases.append(case)
         print(f"K4 hop={hop:3d} F={f}: max|err| {err:.4g} = {err / scale:.3g} x max|plain| "
-              f"(bound {K4_REL_BOUND}); kernel {ms:.4f} ms (device {device_ms:.4f}), plain "
+              f"(bound {K4_REL_BOUND}, both layouts); kernel {ms:.4f} ms (device "
+              f"{device_ms:.4f}; contiguous blocks {blocks_device_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, einsum {library_ms:.4f} ms (device {library_device_ms:.4f}), "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}): {bound_ms / device_ms:.0%} of the bound "
+              f"on the device")
         if err > K4_REL_BOUND * scale:
             raise AssertionError(f"K4 disagrees with its plain version: {case}")
         worst = max(worst, err)
@@ -391,9 +404,12 @@ def check_lvc(record: dict) -> dict:
             per_forward[key] += case[key] * calls
         work[0] += nbytes * calls
         work[1] += flops * calls
-        del x, kern, bias, got, want
+        del x, kern_all, bias_all, kern, bias, kern_blocks, bias_blocks, got, got_blocks, want
     record["k4"] = cases
     bound_ms, bound_by = _bound(*work, "f32")
+    print(f"K4, one forward's 12 calls: device {per_forward['device_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / per_forward['device_ms']:.0%} of the "
+          f"bound")
     return {"name": K4_NAME, "route": "cuda", "source": "tortoise_tpu_torch/csrc/lvc.cu",
             "replaces": "tortoise_tpu/ops/lvc_pallas.py:52", "max_abs_err": worst,
             "timed_at": f"one UnivNet forward's 12 calls, F={f}", **per_forward,

@@ -402,6 +402,68 @@ def test_lvc_kernel_rejects_bad_input(cuda):
         location_variable_convolution_lvc(x, kernels, bias, 16)
 
 
+def _k4_predictor_inputs(g, dev, b, f, hop, ci=32, co=64, k=3, layers=4, channels_first=True):
+    """x as _k4_inputs; kernels and bias as KernelPredictor.forward leaves
+    them: slices [:, l] of views of channels-first conv outputs, frames
+    innermost."""
+    x = torch.randn((b, ci, f * hop), generator=g, device=dev).transpose(1, 2) \
+        if channels_first else torch.randn((b, f * hop, ci), generator=g, device=dev)
+    kern = torch.randn((b, layers * ci * co * k, f), generator=g, device=dev)
+    bias = torch.randn((b, layers * co, f), generator=g, device=dev)
+    kern = kern.transpose(1, 2).reshape(b, f, layers, ci, co, k).transpose(1, 2)
+    bias = bias.transpose(1, 2).reshape(b, f, layers, co).transpose(1, 2)
+    return x, kern[:, 1], bias[:, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hop", [1, 4, 8, 16, 64, 128, 250, 256])
+@pytest.mark.parametrize("b,f", [(1, 1), (2, 37)])
+@pytest.mark.parametrize("channels_first", [True, False], ids=["x_cf", "x_cl"])
+@pytest.mark.parametrize("layout", ["predictor", "blocks"])
+def test_lvc_kernel_edges(cuda, hop, b, f, channels_first, layout):
+    """K4 within 1e-5 of max|plain| at every hop's launch plan (hop=250: a
+    thread's rows run past the frame), one frame and a tile of frames left
+    part empty (F=37), both batch rows (the clip's first and last frames
+    take zeros), x channels-first and channels-last, kernels in the
+    predictor's frames-innermost view and with each frame's block
+    contiguous; two calls bit-equal."""
+    from tortoise_tpu_torch.ops.lvc import (location_variable_convolution_lvc,
+                                            location_variable_convolution_lvc_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(hop + f)
+    x, kernels, bias = _k4_predictor_inputs(g, cuda, b, f, hop, channels_first=channels_first)
+    if layout == "blocks":
+        kernels = kernels.contiguous()
+    got = location_variable_convolution_lvc(x, kernels, bias, hop)
+    again = location_variable_convolution_lvc(x, kernels, bias, hop)
+    torch.cuda.synchronize()
+    want = location_variable_convolution_lvc_plain(x, kernels, bias, hop)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_lvc_kernel_refuses_what_the_wrapper_refuses(cuda):
+    """tt_lvc returns an error, and launches nothing, for a plan the wrapper
+    would not make: too many frames a tile, R not dividing hop with two
+    frames a tile, Co not a multiple of 8, R not in (1, 2, 4, 8)."""
+    from tortoise_tpu_torch.ops import lvc
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, kernels, bias = _k4_predictor_inputs(g, cuda, 1, 4, 8)
+    out = torch.empty((1, 32, 64), device=cuda)
+
+    def call(co=64, hop=8, rows=8, frames=4, channels=4):
+        lvc._KERNEL(0, x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), 1, 4,
+                    hop, 32, co, 3, *x.stride(), *lvc._kernel_strides(kernels), *bias.stride(),
+                    rows, frames, channels)
+
+    call()
+    for bad in (dict(frames=33), dict(hop=6, rows=4, frames=2), dict(co=60), dict(rows=3)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            call(**bad)
+
+
 # (q dtype, cache dtype, bound per head relative to its max|plain|): the
 # bf16 output rounds once (one bf16 ulp, 2^-8), the f32 one only differs
 # in summation order; a bf16 model over an f32 cache is the quality path's
@@ -562,6 +624,37 @@ def test_attn_body_kernel_rejects_bad_input(cuda):
         attn_body(q, k, k, 10, ck=50, variant="c")
     with pytest.raises(ValueError, match="k:"):
         attn_body(q, k.float(), k, 10, ck=50)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["a", "b"])
+@pytest.mark.parametrize("heads_per_block", [1, 16])
+@pytest.mark.parametrize("b,t,pos,ck", [
+    (1, 128, 0, 32),        # one row
+    (1, 768, 63, 64),       # pos at a chunk's (and a 64-row stage's) last row
+    (2, 192, 95, 96),       # ck not a multiple of a 64-row stage; pos its chunk's last row
+    (2, 96, 15, 24),        # ck not a multiple of a 16-row stage; pos that stage's last row
+    (2, 256, 255, 256),     # ck = T, every row
+    (128, 768, 300, 64),    # the tool's shape
+    (128, 768, 767, 768)])  # ck = T at the tool's batch
+def test_attn_body_kernel_edges(cuda, variant, heads_per_block, b, t, pos, ck):
+    """Both block shapes of K6 per (batch row, head) within 1e-2 of max|plain|
+    over chunk and ring-stage edges; two calls bit-equal."""
+    from tortoise_tpu_torch.tools.bench_attn_body import (attn_body, attn_body_plain,
+                                                          head_rel_err, launch)
+
+    g = torch.Generator(device=cuda).manual_seed(pos + ck)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((b, 1024), (b, t, 1024), (b, t, 1024)))
+    before = attn_body.launches_by_variant[variant]
+    got = launch(q, k, v, pos, ck, variant, heads_per_block)
+    again = launch(q, k, v, pos, ck, variant, heads_per_block)
+    torch.cuda.synchronize()
+    assert attn_body.launches_by_variant[variant] == before + 2
+    want = attn_body_plain(q, k, v, pos, ck=ck, variant=variant)
+    assert head_rel_err(got, want) <= 1e-2
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

@@ -17,130 +17,248 @@
 // The rounding depends on ck, so the kernel takes the caller's ck. Rows
 // past pos weigh exp(-1e30 - m) = 0 and are not read; the TPU kernel's DMA
 // reads whole chunks, so the wrapper refuses a T that ck does not divide.
-//
-// A block per (head, batch row), 4 warps. Per chunk: warp w takes rows w,
-// w + 4, ...; a lane holds two lanes of the head (4 bytes: 128 bytes a row
-// in one read), a warp sum closes each logit into shared memory; a block
-// max and sum update m and l; the same warps weigh their rows of v, and
-// warp 0 folds the four partial sums into acc, which it keeps in registers.
+// The f32 sums are taken in another order than the plain version's: within
+// a chunk, and acc is kept as one partial sum per group of threads (each
+// rescaled by the same alpha), added together at the end.
 //
 // What bounds it on an H100: bytes. At B = 128, pos = 300, C = 1024 a call
 // reads the k and v prefix, 2 x 128 x 301 x 1024 x 2 B = 157.8 MB (about
 // 47 us at 3.35 TB/s); 4 FLOP per cache value.
-#include "common.cuh"
+//
+// The design. A block takes HB heads of one batch row (HB = 1: a block per
+// (head, row), 64 threads; HB = 16: a block per row over all 16 heads,
+// whose cache rows are 2 KB contiguous, 512 threads). The rows stream
+// through a ring of shared-memory stages filled by 16-byte cp.async,
+// as K5's (csrc/decode_attn_kv128.cu): a chunk is ceil(ck / IR) stages of
+// its k rows, then as many of its v rows (IR = min(ck, the stage's rows)),
+// so v is in flight while the chunk's softmax runs. Eight threads take one
+// (row, head): 16 bytes each, four rows a warp at once, a logit closed by a
+// 3-step shuffle over the eight. A stage costs one block barrier (the
+// ring's); the first v stage's barrier also publishes the chunk's logits,
+// from which each group of eight reads the chunk max of its head. Each
+// group keeps its own acc (8 lanes of v a thread) and l; the groups' sums
+// are added in a fixed order at the end, by all threads. The rounded
+// products (variant b's k * q, and bf16(p) * v) are bf16x2 multiplies, two
+// a instruction, each the exact product rounded once as the plain
+// version's f32 product then bf16 cast.
+#include "mma.cuh"
 
 namespace tt {
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 8;     // threads a (row, head): 16 bytes each
 constexpr float kLogitScale = 0.125f;  // 1/sqrt(kHeadDim)
 
-template <bool kRoundProducts>
-__global__ void __launch_bounds__(kThreads)
-attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, int T, int C, int pos, int ck,
-                 bf16* __restrict__ out) {
-  extern __shared__ float p_s[];  // [ck]: the chunk's logits, then bf16(p)
-  __shared__ float pv_s[kWarps][kHeadDim];
-  __shared__ float scratch[kWarps];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = pos + 1;
-  const size_t row0 = (size_t)b * T * C + h * kHeadDim + 2 * lane;  // + t * C
-  const float2 qf = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(q + (size_t)b * C + h * kHeadDim + 2 * lane));
+// HB = 1: 64 threads, 3 stages of 32 rows (4 KB): ~12 KB a block, so the
+// 2048 blocks of B = 128 are resident at once (16 an SM). HB = 16: 512
+// threads, 4 stages of 16 rows (32 KB).
+template <int HB>
+struct Shape {
+  static constexpr int kThreads = HB == 1 ? 64 : 512;
+  static constexpr int kUnits = kThreads / kGroup;
+  static constexpr int kRowPhases = kUnits / HB;         // rows a stage takes at once
+  static constexpr int kStageRows = HB == 1 ? 32 : 16;
+  static constexpr int kStages = HB == 1 ? 3 : 4;
+  static constexpr size_t kStageBytes = (size_t)kStageRows * HB * kHeadDim * sizeof(bf16);
+};
 
-  float m = -1e30f, l = 0.f;      // every thread keeps the same m, l
-  float acc0 = 0.f, acc1 = 0.f;   // warp 0: lanes 2 x lane, 2 x lane + 1
-  for (int start = 0; start < n; start += ck) {
-    const int rows = min(ck, n - start);
-    for (int r = warp; r < rows; r += kWarps) {
-      const float2 kf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(k + row0 + (size_t)(start + r) * C));
-      float d;
-      if (kRoundProducts)
-        d = round_bf16(kf.x * qf.x) + round_bf16(kf.y * qf.y);
-      else
-        d = fmaf(kf.y, qf.y, kf.x * qf.x);
-      d = warp_sum(d);
-      if (lane == 0) p_s[r] = d * kLogitScale;
-    }
-    __syncthreads();
-    float cmax = -1e30f;
-    for (int r = threadIdx.x; r < rows; r += kThreads) cmax = fmaxf(cmax, p_s[r]);
-    const float m_new = fmaxf(m, block_max<kThreads>(cmax, scratch));
-    float psum = 0.f;
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const float p = expf(p_s[r] - m_new);
-      psum += p;
-      p_s[r] = round_bf16(p);
-    }
-    const float alpha = expf(m - m_new);
-    l = l * alpha + block_sum<kThreads>(psum, scratch);  // syncs p_s too
-    m = m_new;
+template <int HB>
+size_t smem_bytes(int ck) {
+  return Shape<HB>::kStages * Shape<HB>::kStageBytes + (size_t)ck * HB * sizeof(float);
+}
 
-    float a0 = 0.f, a1 = 0.f;
-    for (int r = warp; r < rows; r += kWarps) {
-      const float2 vf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(v + row0 + (size_t)(start + r) * C));
-      const float p = p_s[r];
-      a0 += round_bf16(p * vf.x);
-      a1 += round_bf16(p * vf.y);
-    }
-    pv_s[warp][2 * lane] = a0;
-    pv_s[warp][2 * lane + 1] = a1;
-    __syncthreads();
-    if (warp == 0) {
-      float s0 = 0.f, s1 = 0.f;
+// bf16 pairs as floats: the low half, the high half
+__device__ __forceinline__ float lo_f(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// the four bf16 pairs of a 16-byte piece, each multiplied by the pair in w
+// and rounded to bf16 (bf16x2 multiplies: the exact f32 product, rounded
+// once), summed into s[0..7] in f32
+__device__ __forceinline__ void add_rounded_products(const uint4 v, const __nv_bfloat162* w,
+                                                     float* s) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        s0 += pv_s[w][2 * lane];
-        s1 += pv_s[w][2 * lane + 1];
-      }
-      acc0 = acc0 * alpha + s0;
-      acc1 = acc1 * alpha + s1;
-    }
-    __syncthreads();  // p_s and pv_s are rewritten by the next chunk
-  }
-  if (warp == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)b * C + h * kHeadDim + 2 * lane) =
-        __floats2bfloat162_rn(acc0 / l, acc1 / l);
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 p = __hmul2(h[e], w[e]);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+    s[2 * e] += lo_f(u);
+    s[2 * e + 1] += hi_f(u);
   }
 }
 
-template <bool kRoundProducts>
+template <bool kRoundProducts, int HB>
+__global__ void __launch_bounds__(Shape<HB>::kThreads)
+attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, int T, int C, int pos, int ck,
+                 bf16* __restrict__ out) {
+  using S = Shape<HB>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* lg = reinterpret_cast<float*>(smem + kStages * S::kStageBytes);  // [ck][HB] logits
+  const int tid = threadIdx.x, unit = tid / kGroup, sub = tid % kGroup;
+  const int hl = unit % HB, phase = unit / HB;
+  const int h0 = blockIdx.x * HB, b = blockIdx.y;
+  const int n = pos + 1;
+  const int ir = min(ck, S::kStageRows);   // rows a stage
+  const int half = (ck + ir - 1) / ir;     // k stages (and v stages) a chunk
+  const int items = (n + ck - 1) / ck * 2 * half;
+  const size_t base = (size_t)b * T * C + h0 * kHeadDim;
+  constexpr int kChunks = HB * kHeadDim * sizeof(bf16) / 16;  // 16-byte pieces a row
+
+  // item i: chunk i / (2 half), its k (then v) rows off.. off + ir - 1
+  const auto rows_of = [&](int i, int& c, int& kind, int& off) {
+    c = i / (2 * half);
+    const int jj = i % (2 * half);
+    kind = jj / half;
+    off = (jj % half) * ir;
+    return max(0, min(ir, min(ck, n - c * ck) - off));
+  };
+  const auto load = [&](int i) {
+    int c, kind, off;
+    const int nr = rows_of(i, c, kind, off);
+    bf16* dst = ring + (size_t)(i % kStages) * S::kStageRows * HB * kHeadDim;
+    const bf16* src = (kind ? v : k) + base + (size_t)(c * ck + off) * C;
+    for (int x = tid; x < nr * kChunks; x += S::kThreads)
+      cp_async16(dst + x * 8, src + (size_t)(x / kChunks) * C + (x % kChunks) * 8, 16);
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < items) load(i);
+    cp_async_commit();
+  }
+
+  const uint4 q16 =
+      *reinterpret_cast<const uint4*>(q + (size_t)b * C + (h0 + hl) * kHeadDim + sub * 8);
+  const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&q16);
+  float qv[8];
+  unpack8(q16, qv);
+  float m = -1e30f, l = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of item i have landed
+    __syncthreads();               // everyone's; item i - 1's slot and logits are done
+    if (i + kStages - 1 < items) load(i + kStages - 1);
+    cp_async_commit();
+    int c, kind, off;
+    const int nr = rows_of(i, c, kind, off);
+    const bf16* stage = ring + (size_t)(i % kStages) * S::kStageRows * HB * kHeadDim;
+    if (kind == 0) {  // the logits of the stage's rows; the same trip count in every lane
+      for (int r0 = 0; r0 < ir; r0 += S::kRowPhases) {
+        const int r = r0 + phase;
+        float d = 0.f;
+        if (r < nr) {
+          const uint4 k16 =
+              *reinterpret_cast<const uint4*>(stage + (r * HB + hl) * kHeadDim + sub * 8);
+          if (kRoundProducts) {
+            float s8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            add_rounded_products(k16, q2, s8);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) d += s8[e];
+          } else {
+            float k8[8];
+            unpack8(k16, k8);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) d = fmaf(k8[e], qv[e], d);
+          }
+        }
+#pragma unroll
+        for (int o = kGroup / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (r < nr && sub == 0) lg[(off + r) * HB + hl] = d * kLogitScale;
+      }
+      continue;
+    }
+    if (off == 0) {  // the chunk's first v stage: its max, the rescale
+      const int rows = min(ck, n - c * ck);
+      float cmax = -1e30f;
+      for (int r = sub; r < rows; r += kGroup) cmax = fmaxf(cmax, lg[r * HB + hl]);
+#pragma unroll
+      for (int o = kGroup / 2; o > 0; o >>= 1)
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
+      const float m_new = fmaxf(m, cmax);
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] *= alpha;
+      m = m_new;
+    }
+    for (int r = phase; r < nr; r += S::kRowPhases) {
+      const float p = expf(lg[(off + r) * HB + hl] - m);
+      l += p;
+      const __nv_bfloat162 pb = __float2bfloat162_rn(p);
+      const __nv_bfloat162 p4[4] = {pb, pb, pb, pb};
+      add_rounded_products(
+          *reinterpret_cast<const uint4*>(stage + (r * HB + hl) * kHeadDim + sub * 8), p4, acc);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  // the row phases' sums of each head, added in a fixed order
+  float* acc_s = reinterpret_cast<float*>(smem);               // [phase][HB][64]
+  float* l_s = acc_s + S::kRowPhases * HB * kHeadDim;          // [phase][HB]
+  float4* a4 = reinterpret_cast<float4*>(acc_s + (phase * HB + hl) * kHeadDim + sub * 8);
+  a4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  a4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  if (sub == 0) l_s[phase * HB + hl] = l;
+  __syncthreads();
+  for (int o = tid; o < HB * kHeadDim; o += S::kThreads) {
+    float s = 0.f, sum = 0.f;
+#pragma unroll 4
+    for (int ph = 0; ph < S::kRowPhases; ++ph) {
+      s += acc_s[ph * HB * kHeadDim + o];
+      sum += l_s[ph * HB + o / kHeadDim];
+    }
+    out[(size_t)b * C + h0 * kHeadDim + o] = __float2bfloat16(s / sum);
+  }
+}
+
+template <bool kRoundProducts, int HB>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, int B, int T, int C, int pos,
                    int ck, bf16* out, cudaStream_t stream) {
-  const size_t smem = (size_t)ck * sizeof(float);
+  const size_t smem = smem_bytes<HB>(ck);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attn_body_kernel<kRoundProducts>,
+    cudaError_t e = cudaFuncSetAttribute(attn_body_kernel<kRoundProducts, HB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attn_body_kernel<kRoundProducts><<<dim3(C / kHeadDim, B), kThreads, smem, stream>>>(
-      q, k, v, T, C, pos, ck, out);
+  attn_body_kernel<kRoundProducts, HB>
+      <<<dim3(C / (HB * kHeadDim), B), Shape<HB>::kThreads, smem, stream>>>(q, k, v, T, C, pos,
+                                                                           ck, out);
   return cudaGetLastError();
+}
+
+template <int HB>
+cudaError_t launch_variant(int variant, const bf16* q, const bf16* k, const bf16* v, int B,
+                           int T, int C, int pos, int ck, bf16* out, cudaStream_t s) {
+  return variant ? launch<true, HB>(q, k, v, B, T, C, pos, ck, out, s)
+                 : launch<false, HB>(q, k, v, B, T, C, pos, ck, out, s);
 }
 
 }  // namespace
 }  // namespace tt
 
-// q: (B, C) bf16; k, v: (B, T, C) bf16; out: (B, C) bf16; all contiguous.
-// variant 0 is a, 1 is b. C a multiple of 64, 0 <= pos < T, ck >= 1 and a
-// divisor of T. Returns the first CUDA error, 0 on success.
+// q: (B, C) bf16; k, v: (B, T, C) bf16; out: (B, C) bf16; all contiguous and
+// 16-byte aligned. variant 0 is a, 1 is b. heads_per_block 1 or 16, C a
+// multiple of 64 x heads_per_block, 0 <= pos < T, ck >= 1 and a divisor of
+// T, the ring and ck x heads_per_block logits within 227 KB. Returns the
+// first CUDA error, 0 on success.
 extern "C" int tt_attn_body(const void* q, const void* k, const void* v, void* out, int B, int T,
-                            int C, int pos, int ck, int variant, void* stream) {
+                            int C, int pos, int ck, int variant, int heads_per_block,
+                            void* stream) {
   using namespace tt;
-  if (B < 1 || C < kHeadDim || C % kHeadDim != 0 || pos < 0 || pos >= T || ck < 1 ||
-      T % ck != 0 || (variant != 0 && variant != 1))
+  const int hb = heads_per_block;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (B < 1 || (hb != 1 && hb != 16) || C < hb * kHeadDim || C % (hb * kHeadDim) != 0 ||
+      pos < 0 || pos >= T || ck < 1 || T % ck != 0 || (variant != 0 && variant != 1) ||
+      misaligned(q) || misaligned(k) || misaligned(v) ||
+      (hb == 1 ? smem_bytes<1>(ck) : smem_bytes<16>(ck)) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(variant ? launch<true>(qp, kp, vp, B, T, C, pos, ck, op, s)
-                       : launch<false>(qp, kp, vp, B, T, C, pos, ck, op, s));
+  return (int)(hb == 1 ? launch_variant<1>(variant, qp, kp, vp, B, T, C, pos, ck, op, s)
+                       : launch_variant<16>(variant, qp, kp, vp, B, T, C, pos, ck, op, s));
 }

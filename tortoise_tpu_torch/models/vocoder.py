@@ -86,14 +86,10 @@ class LVCBlock(nn.Module):
                                               dilation=d))
 
     def forward(self, x, c):
+        # K4 reads the predictor's frames-innermost layout as it is
         kernels, bias = self.kernel_predictor(c)
-        if self.use_kernel:
-            # K4 reads each frame's (Ci, Co, K) kernel as one contiguous block;
-            # the predictor's convs leave them strided over frames
-            kernels, bias = kernels.contiguous(), bias.contiguous()
-            lvc = location_variable_convolution_lvc
-        else:
-            lvc = location_variable_convolution
+        lvc = location_variable_convolution_lvc if self.use_kernel \
+            else location_variable_convolution
         x = self.convt_pre(F.leaky_relu(x, LRELU_SLOPE))
         ch = self.in_channels
         for i in range(len(self.dilations)):

@@ -1,7 +1,7 @@
 """Stage timing for the APIs (``StageTimer``) and a device-time breakdown of
 TextToSpeech requests on one GPU.
 
-    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2]
+    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2 | --k4k6]
 
 Builds the full-width TextToSpeech (seeded random weights, voice
 train_dotrice), answers one unprofiled warm-up request, then answers one
@@ -25,6 +25,18 @@ the bf16 rows, the yardstick of K2's products: the device time of the
 step's 120 dense products as ``torch.matmul`` (cuBLAS) at the same shapes,
 which the port never calls. Every event and device time is taken before
 the first profiler pass.
+
+``--k4k6`` times K4 and K6 alone, event and device ms (no profiler). K4
+at UnivNet c32's shapes (F=2186 frames, B=1, f32) per hop: on kernels laid
+out as the predictor leaves them (frames innermost, where the kernel
+takes that layout) and as each frame's contiguous (Ci, Co, K) block (what
+``.contiguous()`` of the predictor's output gives), beside the einsum LVC;
+the time of that copy for one block's four layers; one UnivNet forward
+(the full-width generator, seeded random weights, 2176 mel frames), and,
+where K4 reads the predictor's layout, the same forward with the copy put
+back. K6 at the JAX tool's shapes (B=128, T=768, pos=300, ck=64), both
+variants beside SDPA, and each block shape the kernel has. The same code
+runs on a parent tree (copied in), which times what that tree has.
 """
 from __future__ import annotations
 
@@ -223,6 +235,103 @@ def profile_k2_variants(steps: int = 10) -> dict:
     return out
 
 
+K4_HOPS = (8, 64, 256)
+K4_FRAMES = 2186   # a 500-token clip: 2176 mel frames and UnivNet's 10 padding frames
+
+
+def predictor_layout(g: torch.Generator, b: int, layers: int, f: int, ci: int, co: int,
+                     k: int):
+    """Random kernels (B, L, F, Ci, Co, K) and bias (B, L, F, Co) laid out
+    as KernelPredictor.forward returns them: views of channels-first conv
+    outputs, frames innermost."""
+    kern = torch.randn((b, layers * ci * co * k, f), generator=g, device="cuda")
+    bias = torch.randn((b, layers * co, f), generator=g, device="cuda")
+    return (kern.transpose(1, 2).reshape(b, f, layers, ci, co, k).transpose(1, 2),
+            bias.transpose(1, 2).reshape(b, f, layers, co).transpose(1, 2))
+
+
+def _timed(run, reps: int, cycles_per_run: int | None = None) -> dict:
+    from tortoise_tpu_torch.utils.measure import SLEEP_CYCLES_PER_RUN, device_ms, time_ms
+
+    return {"event_ms": time_ms(run, reps),
+            "device_ms": device_ms(run, reps, cycles_per_run or SLEEP_CYCLES_PER_RUN)}
+
+
+def profile_k4_k6(reps: int = 20) -> dict:
+    """K4 per hop and layout, the layout copy, one UnivNet forward, and K6
+    per variant and block shape, each beside its library yardstick."""
+    from tortoise_tpu_torch.models.vocoder import (UnivNetConfig, UnivNetGenerator,
+                                                   location_variable_convolution)
+    from tortoise_tpu_torch.ops import lvc
+    from tortoise_tpu_torch.tools import bench_attn_body as k6
+    from tortoise_tpu_torch.utils.measure import bound, nbytes
+    from tortoise_tpu_torch.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # K4 reads the predictor's layout itself from PR 8 on; before, UnivNet copied it
+    reads_predictor = hasattr(lvc, "plan_lvc")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, f, ci, co, k, layers = 1, K4_FRAMES, 32, 64, 3, 4
+    out = {"k4": {}, "k6": {}}
+    voc = UnivNetGenerator(UnivNetConfig(use_kernel=True)).cuda().eval()
+    init_random(voc, 3)
+    with torch.inference_mode():
+        for hop in K4_HOPS:
+            x = torch.randn((b, ci, f * hop), generator=g, device="cuda").transpose(1, 2)
+            kp, bp = predictor_layout(g, b, layers, f, ci, co, k)
+            kc, bc = kp.contiguous(), bp.contiguous()
+            runs = {"blocks": lambda: lvc.location_variable_convolution_lvc(x, kc[:, 2], bc[:, 2],
+                                                                           hop),
+                    "einsum": lambda: location_variable_convolution(x, kc[:, 2], bc[:, 2], hop)}
+            if reads_predictor:
+                runs["predictor"] = lambda: lvc.location_variable_convolution_lvc(
+                    x, kp[:, 2], bp[:, 2], hop)
+            want = lvc.location_variable_convolution_lvc_plain(x, kc[:, 2], bc[:, 2], hop)
+            row = {"bound_ms": bound(nbytes(x, kc[:, 2], bc[:, 2], want),
+                                     2 * b * f * hop * co * ci * k, "f32")}
+            for name, run in runs.items():
+                row[name] = {"max_rel_err": ((run() - want).abs().max()
+                                             / want.abs().max()).item(), **_timed(run, reps)}
+            out["k4"][f"hop={hop}"] = row
+            if hop == K4_HOPS[0]:
+                out["k4"]["copy_one_block"] = _timed(lambda: (kp.contiguous(), bp.contiguous()),
+                                                     reps)
+            del x, kp, bp, kc, bc, want
+
+        mel = torch.randn((1, K4_FRAMES - 10, 100), generator=g, device="cuda")
+        z = torch.randn((1, K4_FRAMES, voc.config.noise_dim), generator=g, device="cuda")
+        forward = lambda: voc.inference(mel, z)
+        # the forward's ~200 launches take the host milliseconds: ~10 ms of sleep a run
+        out["univnet_forward"] = _timed(forward, 5, 20_000_000)
+        if reads_predictor:
+            preds = [getattr(voc, f"lvc_{i}").kernel_predictor for i in range(3)]
+            for p in preds:
+                p.forward = lambda c, _f=p.forward: tuple(t.contiguous() for t in _f(c))
+            out["univnet_forward_with_copy"] = _timed(forward, 5, 20_000_000)
+            for p in preds:
+                del p.forward
+        del voc, mel, z
+
+        bt, t, c, pos, ck = 128, 768, 1024, 300, 64
+        q, kk, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+                    for s in ((bt, c), (bt, t, c), (bt, t, c)))
+        out["k6"]["bound_ms"] = bound(2 * bt * (pos + 1) * c * 2 + 2 * nbytes(q), 4 * bt *
+                                      (pos + 1) * c, "f32")
+        out["k6"]["sdpa"] = _timed(lambda: k6.sdpa(q, kk, v, pos), reps)
+        shapes = getattr(k6, "HEAD_BLOCKS", (None,))
+        for variant in k6.VARIANTS:
+            for hb in shapes:
+                kw = {} if hb is None else {"heads_per_block": hb}
+                run = lambda: k6.launch(q, kk, v, pos, ck, variant, **kw) if kw else \
+                    k6.attn_body(q, kk, v, pos, ck=ck, variant=variant)
+                want = k6.attn_body_plain(q, kk, v, pos, ck=ck, variant=variant)
+                key = variant if hb is None else f"{variant} heads_per_block={hb}"
+                out["k6"][key] = {"head_rel_err": k6.head_rel_err(run(), want),
+                                  **_timed(run, reps)}
+    return out
+
+
 def main() -> int:
     import subprocess
 
@@ -231,8 +340,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "profile.json"))
-    parser.add_argument("--k2", action="store_true",
-                        help="profile K2's decode step per variant instead of requests")
+    what = parser.add_mutually_exclusive_group()
+    what.add_argument("--k2", action="store_true",
+                      help="profile K2's decode step per variant instead of requests")
+    what.add_argument("--k4k6", action="store_true",
+                      help="time K4 (per hop and layout, UnivNet's forward) and K6 instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: torch sees no CUDA device")
@@ -241,6 +353,8 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     if args.k2:
         result = {"nvidia_smi": smi, **profile_k2_variants()}
+    elif args.k4k6:
+        result = {"nvidia_smi": smi, **profile_k4_k6()}
     else:
         tts = TextToSpeech(device="cuda", enable_redaction=False)
         clips, _ = load_voice("train_dotrice")
