@@ -26,9 +26,10 @@
 // 47 us at 3.35 TB/s); 4 FLOP per cache value.
 //
 // The design. A block takes HB heads of one batch row (HB = 1: a block per
-// (head, row), 64 threads; HB = 16: a block per row over all 16 heads,
-// whose cache rows are 2 KB contiguous, 512 threads). The rows stream
-// through a ring of shared-memory stages filled by 16-byte cp.async,
+// (head, row), 64 threads, attn_body's shape; HB = 16: a block per row over
+// all 16 heads, whose cache rows are 2 KB contiguous, 512 threads, slower
+// on the card and kept for the profiler's comparison of the two). The rows
+// stream through a ring of shared-memory stages filled by 16-byte cp.async,
 // as K5's (csrc/decode_attn_kv128.cu): a chunk is ceil(ck / IR) stages of
 // its k rows, then as many of its v rows (IR = min(ck, the stage's rows)),
 // so v is in flight while the chunk's softmax runs. Eight threads take one
@@ -39,7 +40,7 @@
 // group keeps its own acc (8 lanes of v a thread) and l; the groups' sums
 // are added in a fixed order at the end, by all threads. The rounded
 // products (variant b's k * q, and bf16(p) * v) are bf16x2 multiplies, two
-// a instruction, each the exact product rounded once as the plain
+// an instruction, each the exact product rounded once as the plain
 // version's f32 product then bf16 cast.
 #include "mma.cuh"
 

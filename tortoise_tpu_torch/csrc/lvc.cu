@@ -52,7 +52,9 @@
 // block contiguous (km = 1, 16-byte copies), or frames innermost, as the
 // predictor's conv leaves them (km = F, frame stride 1): then the block's
 // frames of one weight are adjacent, and 4-byte copies along frames read
-// them coalesced, transposing into the stage's [frame][Ci][Co][K] order.
+// them coalesced, transposing into the stage's [frame][Ci][Co][K] order;
+// each asks L2 to prefetch 256 bytes, the next tiles' frames of the weight,
+// which the blocks beside it read next.
 #include "mma.cuh"
 
 namespace tt {
@@ -78,6 +80,15 @@ struct LvcArgs {
   int stage;             // floats of a stage
   int vec;               // kernels copyable in 16-byte pieces (km == 1, aligned)
 };
+
+// cp_async4 with a 256-byte L2 prefetch: a 4-byte copy of the predictor's
+// frames-innermost kernels brings its neighbours' frames into L2 with it,
+// so the blocks of the next tiles find them there
+__device__ __forceinline__ void cp_async4_l2(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], 4;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
 
 // x values xs[0 .. R + K - 2] into registers: 16-byte loads where the rows
 // start 16-byte aligned (R a multiple of 4), the tail read past into padding
@@ -148,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<R>) lvc_kernel(const LvcA
       });
     else        // frames innermost: 4-byte copies along frames, transposed
       walk(nf, m, [&](int jj, int mm) {
-        cp_async4(ws + jj * a.w_frame + mm, kp + jj * a.kf + mm * a.km, 4);
+        cp_async4_l2(ws + jj * a.w_frame + mm, kp + jj * a.kf + mm * a.km);
       });
     const float* xp = a.x + b * a.xb + i0 * a.xi;
     // zeros past the clip's ends

@@ -35,8 +35,8 @@ the time of that copy for one block's four layers; one UnivNet forward
 (the full-width generator, seeded random weights, 2176 mel frames), and,
 where K4 reads the predictor's layout, the same forward with the copy put
 back. K6 at the JAX tool's shapes (B=128, T=768, pos=300, ck=64), both
-variants beside SDPA, and each block shape the kernel has. The same code
-runs on a parent tree (copied in), which times what that tree has.
+variants beside SDPA, and each block shape the kernel has. Copied into an
+older checkout of the repository, the same code times what that checkout has.
 """
 from __future__ import annotations
 
@@ -269,7 +269,7 @@ def profile_k4_k6(reps: int = 20) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # K4 reads the predictor's layout itself from PR 8 on; before, UnivNet copied it
+    # a K4 with a launch plan reads the predictor's layout itself; an older one needed the copy
     reads_predictor = hasattr(lvc, "plan_lvc")
     g = torch.Generator(device="cuda").manual_seed(0)
     b, f, ci, co, k, layers = 1, K4_FRAMES, 32, 64, 3, 4
