@@ -632,7 +632,8 @@ def test_attn_body_kernel_rejects_bad_input(cuda):
 @pytest.mark.parametrize("heads_per_block", [1, 16])
 @pytest.mark.parametrize("b,t,pos,ck", [
     (1, 128, 0, 32),        # one row
-    (1, 768, 63, 64),       # pos at a chunk's (and a 64-row stage's) last row
+    (1, 768, 63, 64),       # pos at a chunk's and a stage's last row
+    (2, 192, 47, 48),       # ck not a multiple of a 32-row stage; pos its chunk's last row
     (2, 192, 95, 96),       # ck not a multiple of a 64-row stage; pos its chunk's last row
     (2, 96, 15, 24),        # ck not a multiple of a 16-row stage; pos that stage's last row
     (2, 256, 255, 256),     # ck = T, every row

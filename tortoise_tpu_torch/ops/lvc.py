@@ -100,9 +100,10 @@ def plan_lvc(b: int, f: int, hop: int, ci: int, co: int, k: int,
     if k not in TAPS:
         raise ValueError(f"the LVC kernel takes K in {TAPS}; got K={k}")
     groups = THREADS // (co // OUT_PER_THREAD)
-    if not 1 <= hop <= groups * max(BLOCKS_PER_SM):
-        raise ValueError(f"the LVC kernel takes hop <= {groups * max(BLOCKS_PER_SM)} "
-                         f"(16384 / Co) at Co={co}; got hop={hop}")
+    max_rows = groups * max(BLOCKS_PER_SM)   # the block's rows at R = 8
+    if not 1 <= hop <= max_rows:
+        raise ValueError(f"the LVC kernel takes hop <= {max_rows} (16384 / Co) at Co={co}; "
+                         f"got hop={hop}")
     best = None
     for rows in sorted(BLOCKS_PER_SM, reverse=True):
         frames = groups * rows // hop
@@ -162,7 +163,8 @@ def _check_cuda_args(x, kernels, bias, hop):
     if strides is None:
         raise ValueError("kernels: the (Ci, Co, K) dims must lie as one run (each frame's "
                          "block contiguous, or the predictor's frames-innermost view)")
-    return plan_lvc(b, f, hop, ci, co, k, frames_innermost=strides[1] == 1 and strides[2] != 1)
+    return plan_lvc(b, f, hop, ci, co, k,
+                    frames_innermost=strides[1] == 1 and strides[2] != 1), strides
 
 
 def location_variable_convolution_lvc(x, kernels, bias, hop: int):
@@ -174,12 +176,12 @@ def location_variable_convolution_lvc(x, kernels, bias, hop: int):
     (B, F*hop, Co) contiguous."""
     if not x.is_cuda:
         return location_variable_convolution_lvc_plain(x, kernels, bias, hop)
-    plan = _check_cuda_args(x, kernels, bias, hop)
+    plan, strides = _check_cuda_args(x, kernels, bias, hop)
     b, t, ci = x.shape
     _, f, _, co, k = kernels.shape
     out = torch.empty((b, t, co), dtype=torch.float32, device=x.device)
     _KERNEL(x.get_device(), x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-            f, hop, ci, co, k, *x.stride(), *_kernel_strides(kernels), *bias.stride(),
+            f, hop, ci, co, k, *x.stride(), *strides, *bias.stride(),
             plan["rows_per_thread"], plan["frames"], plan["channels"])
     location_variable_convolution_lvc.launches += 1
     return out
