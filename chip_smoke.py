@@ -348,10 +348,10 @@ def check_lvc(record: dict) -> dict:
     their bytes and operations together."""
     import torch
 
-    from tortoise_tpu_torch.models.vocoder import location_variable_convolution
+    from tortoise_tpu_torch.models.vocoder import (location_variable_convolution,
+                                                   random_predictor_output)
     from tortoise_tpu_torch.ops.lvc import (location_variable_convolution_lvc,
                                             location_variable_convolution_lvc_plain, plan_lvc)
-    from tortoise_tpu_torch.utils.profiling import predictor_layout
 
     b, f, ci, co, k, layers = 1, LVC_FRAMES, 32, 64, 3, 4
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -364,7 +364,7 @@ def check_lvc(record: dict) -> dict:
         x = torch.randn((b, ci, f * hop), generator=g, device="cuda").transpose(1, 2)
         # kernels and bias as the predictor leaves them: slices [:, l] of
         # (B, L, F, ...) views, frames innermost; and each frame's block contiguous
-        kern_all, bias_all = predictor_layout(g, b, layers, f, ci, co, k)
+        kern_all, bias_all = random_predictor_output(g, b, layers, f, ci, co, k)
         kern, bias = kern_all[:, 2], bias_all[:, 2]
         kern_blocks, bias_blocks = kern.contiguous(), bias.contiguous()
         got = location_variable_convolution_lvc(x, kern, bias, hop)
@@ -383,8 +383,9 @@ def check_lvc(record: dict) -> dict:
         blocks_device_ms = _device_ms(blocks, 20)
         nbytes, flops = _nbytes(x, kern, bias, got), 2 * b * f * hop * co * ci * k
         bound_ms, bound_by = _bound(nbytes, flops, "f32")
-        case = {"hop": hop, "F": f, "plan": plan_lvc(b, f, hop, ci, co, k), "max_abs_err": err,
-                "rel_err": err / scale, "bound": K4_REL_BOUND, "einsum_rel_err": einsum_err / scale,
+        case = {"hop": hop, "F": f, "plan": plan_lvc(b, f, hop, ci, co, k, True),
+                "max_abs_err": err, "rel_err": err / scale, "bound": K4_REL_BOUND,
+                "einsum_rel_err": einsum_err / scale,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "device_ms": device_ms,
                 "library_device_ms": library_device_ms, "blocks_device_ms": blocks_device_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,

@@ -406,12 +406,11 @@ def _k4_predictor_inputs(g, dev, b, f, hop, ci=32, co=64, k=3, layers=4, channel
     """x as _k4_inputs; kernels and bias as KernelPredictor.forward leaves
     them: slices [:, l] of views of channels-first conv outputs, frames
     innermost."""
+    from tortoise_tpu_torch.models.vocoder import random_predictor_output
+
     x = torch.randn((b, ci, f * hop), generator=g, device=dev).transpose(1, 2) \
         if channels_first else torch.randn((b, f * hop, ci), generator=g, device=dev)
-    kern = torch.randn((b, layers * ci * co * k, f), generator=g, device=dev)
-    bias = torch.randn((b, layers * co, f), generator=g, device=dev)
-    kern = kern.transpose(1, 2).reshape(b, f, layers, ci, co, k).transpose(1, 2)
-    bias = bias.transpose(1, 2).reshape(b, f, layers, co).transpose(1, 2)
+    kern, bias = random_predictor_output(g, b, layers, f, ci, co, k)
     return x, kern[:, 1], bias[:, 1]
 
 
@@ -446,20 +445,29 @@ def test_lvc_kernel_edges(cuda, hop, b, f, channels_first, layout):
 def test_lvc_kernel_refuses_what_the_wrapper_refuses(cuda):
     """tt_lvc returns an error, and launches nothing, for a plan the wrapper
     would not make: too many frames a tile, R not dividing hop with two
-    frames a tile, Co not a multiple of 8, R not in (1, 2, 4, 8)."""
+    frames a tile, Co not a multiple of 8, R not in (1, 2, 4, 8), a stage
+    layout too small for a frame's weights or for the last thread's x
+    loads, or not of whole 16-byte pieces, and shared memory that is not
+    four stages."""
     from tortoise_tpu_torch.ops import lvc
 
     g = torch.Generator(device=cuda).manual_seed(0)
     x, kernels, bias = _k4_predictor_inputs(g, cuda, 1, 4, 8)
     out = torch.empty((1, 32, 64), device=cuda)
 
-    def call(co=64, hop=8, rows=8, frames=4, channels=4):
+    def call(co=64, hop=8, rows=8, frames=4, channels=4, **layout):
+        w_frame, x_row = lvc.stage_layout(frames, hop, rows, channels, co, 3)
+        w_frame, x_row = layout.get("w_frame", w_frame), layout.get("x_row", x_row)
+        smem = layout.get("smem", lvc.STAGES * 4 * (frames * w_frame + channels * x_row))
         lvc._KERNEL(0, x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), 1, 4,
                     hop, 32, co, 3, *x.stride(), *lvc._kernel_strides(kernels), *bias.stride(),
-                    rows, frames, channels)
+                    rows, frames, channels, w_frame, x_row, smem)
 
     call()
-    for bad in (dict(frames=33), dict(hop=6, rows=4, frames=2), dict(co=60), dict(rows=3)):
+    w_frame, x_row = lvc.stage_layout(4, 8, 8, 4, 64, 3)
+    for bad in (dict(frames=33), dict(hop=6, rows=4, frames=2), dict(co=60), dict(rows=3),
+                dict(w_frame=4 * 64 * 3 - 4), dict(x_row=x_row - 4), dict(w_frame=w_frame + 2),
+                dict(smem=lvc.STAGES * 4 * (4 * w_frame + 4 * x_row) - 16)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             call(**bad)
 
@@ -629,28 +637,26 @@ def test_attn_body_kernel_rejects_bad_input(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["a", "b"])
-@pytest.mark.parametrize("heads_per_block", [1, 16])
 @pytest.mark.parametrize("b,t,pos,ck", [
     (1, 128, 0, 32),        # one row
-    (1, 768, 63, 64),       # pos at a chunk's and a stage's last row
+    (1, 768, 63, 64),       # pos at a chunk's and a 32-row stage's last row
     (2, 192, 47, 48),       # ck not a multiple of a 32-row stage; pos its chunk's last row
-    (2, 192, 95, 96),       # ck not a multiple of a 64-row stage; pos its chunk's last row
-    (2, 96, 15, 24),        # ck not a multiple of a 16-row stage; pos that stage's last row
+    (2, 192, 95, 96),       # ck not a multiple of a 32-row stage; pos its chunk's last row
+    (2, 96, 15, 24),        # ck under a stage; pos a stage's middle row
     (2, 256, 255, 256),     # ck = T, every row
     (128, 768, 300, 64),    # the tool's shape
     (128, 768, 767, 768)])  # ck = T at the tool's batch
-def test_attn_body_kernel_edges(cuda, variant, heads_per_block, b, t, pos, ck):
-    """Both block shapes of K6 per (batch row, head) within 1e-2 of max|plain|
-    over chunk and ring-stage edges; two calls bit-equal."""
-    from tortoise_tpu_torch.tools.bench_attn_body import (attn_body, attn_body_plain,
-                                                          head_rel_err, launch)
+def test_attn_body_kernel_edges(cuda, variant, b, t, pos, ck):
+    """K6 per (batch row, head) within 1e-2 of max|plain| over chunk and
+    ring-stage edges; two calls bit-equal."""
+    from tortoise_tpu_torch.tools.bench_attn_body import attn_body, attn_body_plain, head_rel_err
 
     g = torch.Generator(device=cuda).manual_seed(pos + ck)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
                for s in ((b, 1024), (b, t, 1024), (b, t, 1024)))
     before = attn_body.launches_by_variant[variant]
-    got = launch(q, k, v, pos, ck, variant, heads_per_block)
-    again = launch(q, k, v, pos, ck, variant, heads_per_block)
+    got = attn_body(q, k, v, pos, ck=ck, variant=variant)
+    again = attn_body(q, k, v, pos, ck=ck, variant=variant)
     torch.cuda.synchronize()
     assert attn_body.launches_by_variant[variant] == before + 2
     want = attn_body_plain(q, k, v, pos, ck=ck, variant=variant)

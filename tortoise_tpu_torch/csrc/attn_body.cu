@@ -25,18 +25,18 @@
 // reads the k and v prefix, 2 x 128 x 301 x 1024 x 2 B = 157.8 MB (about
 // 47 us at 3.35 TB/s); 4 FLOP per cache value.
 //
-// The design. A block takes HB heads of one batch row (HB = 1: a block per
-// (head, row), 64 threads, attn_body's shape; HB = 16: a block per row over
-// all 16 heads, whose cache rows are 2 KB contiguous, 512 threads, slower
-// on the card and kept for the profiler's comparison of the two). The rows
+// The design. A block takes one (head, row): 64 threads, 2048 blocks at
+// B = 128, all resident at once (16 an SM). A block per row over all 16
+// heads, whose cache rows are 2 KB contiguous, measured 5% slower on the
+// card (PERF.md, section 7). The rows
 // stream through a ring of shared-memory stages filled by 16-byte cp.async,
 // as K5's (csrc/decode_attn_kv128.cu): a chunk is ceil(ck / IR) stages of
 // its k rows, then as many of its v rows (IR = min(ck, the stage's rows)),
 // so v is in flight while the chunk's softmax runs. Eight threads take one
-// (row, head): 16 bytes each, four rows a warp at once, a logit closed by a
+// row: 16 bytes each, four rows a warp at once, a logit closed by a
 // 3-step shuffle over the eight. A stage costs one block barrier (the
 // ring's); the first v stage's barrier also publishes the chunk's logits,
-// from which each group of eight reads the chunk max of its head. Each
+// from which each group of eight reads the chunk max. Each
 // group keeps its own acc (8 lanes of v a thread) and l; the groups' sums
 // are added in a fixed order at the end, by all threads. The rounded
 // products (variant b's k * q, and bf16(p) * v) are bf16x2 multiplies, two
@@ -51,23 +51,15 @@ constexpr int kHeadDim = 64;
 constexpr int kGroup = 8;     // threads a (row, head): 16 bytes each
 constexpr float kLogitScale = 0.125f;  // 1/sqrt(kHeadDim)
 
-// HB = 1: 64 threads, 3 stages of 32 rows (4 KB): ~12 KB a block, so the
-// 2048 blocks of B = 128 are resident at once (16 an SM). HB = 16: 512
-// threads, 4 stages of 16 rows (32 KB).
-template <int HB>
-struct Shape {
-  static constexpr int kThreads = HB == 1 ? 64 : 512;
-  static constexpr int kUnits = kThreads / kGroup;
-  static constexpr int kRowPhases = kUnits / HB;         // rows a stage takes at once
-  static constexpr int kStageRows = HB == 1 ? 32 : 16;
-  static constexpr int kStages = HB == 1 ? 3 : 4;
-  static constexpr size_t kStageBytes = (size_t)kStageRows * HB * kHeadDim * sizeof(bf16);
-};
+// 64 threads: eight groups of eight, each a row of the stage at a time;
+// 3 stages of 32 rows (4 KB each) and the chunk's ck f32 logits
+constexpr int kThreads = 64;
+constexpr int kRowPhases = kThreads / kGroup;  // rows a stage takes at once
+constexpr int kStageRows = 32;
+constexpr int kStages = 3;
+constexpr size_t kStageBytes = (size_t)kStageRows * kHeadDim * sizeof(bf16);
 
-template <int HB>
-size_t smem_bytes(int ck) {
-  return Shape<HB>::kStages * Shape<HB>::kStageBytes + (size_t)ck * HB * sizeof(float);
-}
+size_t smem_bytes(int ck) { return kStages * kStageBytes + (size_t)ck * sizeof(float); }
 
 // bf16 pairs as floats: the low half, the high half
 __device__ __forceinline__ float lo_f(uint32_t u) { return __uint_as_float(u << 16); }
@@ -88,25 +80,22 @@ __device__ __forceinline__ void add_rounded_products(const uint4 v, const __nv_b
   }
 }
 
-template <bool kRoundProducts, int HB>
-__global__ void __launch_bounds__(Shape<HB>::kThreads)
+template <bool kRoundProducts>
+__global__ void __launch_bounds__(kThreads)
 attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, int T, int C, int pos, int ck,
                  bf16* __restrict__ out) {
-  using S = Shape<HB>;
-  constexpr int kStages = S::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* lg = reinterpret_cast<float*>(smem + kStages * S::kStageBytes);  // [ck][HB] logits
-  const int tid = threadIdx.x, unit = tid / kGroup, sub = tid % kGroup;
-  const int hl = unit % HB, phase = unit / HB;
-  const int h0 = blockIdx.x * HB, b = blockIdx.y;
+  float* lg = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [ck] logits
+  const int tid = threadIdx.x, phase = tid / kGroup, sub = tid % kGroup;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int n = pos + 1;
-  const int ir = min(ck, S::kStageRows);   // rows a stage
-  const int half = (ck + ir - 1) / ir;     // k stages (and v stages) a chunk
+  const int ir = min(ck, kStageRows);    // rows a stage
+  const int half = (ck + ir - 1) / ir;   // k stages (and v stages) a chunk
   const int items = (n + ck - 1) / ck * 2 * half;
-  const size_t base = (size_t)b * T * C + h0 * kHeadDim;
-  constexpr int kChunks = HB * kHeadDim * sizeof(bf16) / 16;  // 16-byte pieces a row
+  const size_t base = (size_t)b * T * C + h * kHeadDim;
+  constexpr int kChunks = kHeadDim * sizeof(bf16) / 16;  // 16-byte pieces a row
 
   // item i: chunk i / (2 half), its k (then v) rows off.. off + ir - 1
   const auto rows_of = [&](int i, int& c, int& kind, int& off) {
@@ -119,9 +108,9 @@ attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const auto load = [&](int i) {
     int c, kind, off;
     const int nr = rows_of(i, c, kind, off);
-    bf16* dst = ring + (size_t)(i % kStages) * S::kStageRows * HB * kHeadDim;
+    bf16* dst = ring + (size_t)(i % kStages) * kStageRows * kHeadDim;
     const bf16* src = (kind ? v : k) + base + (size_t)(c * ck + off) * C;
-    for (int x = tid; x < nr * kChunks; x += S::kThreads)
+    for (int x = tid; x < nr * kChunks; x += kThreads)
       cp_async16(dst + x * 8, src + (size_t)(x / kChunks) * C + (x % kChunks) * 8, 16);
   };
 #pragma unroll
@@ -130,8 +119,7 @@ attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
 
-  const uint4 q16 =
-      *reinterpret_cast<const uint4*>(q + (size_t)b * C + (h0 + hl) * kHeadDim + sub * 8);
+  const uint4 q16 = *reinterpret_cast<const uint4*>(q + (size_t)b * C + h * kHeadDim + sub * 8);
   const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&q16);
   float qv[8];
   unpack8(q16, qv);
@@ -143,14 +131,13 @@ attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     int c, kind, off;
     const int nr = rows_of(i, c, kind, off);
-    const bf16* stage = ring + (size_t)(i % kStages) * S::kStageRows * HB * kHeadDim;
+    const bf16* stage = ring + (size_t)(i % kStages) * kStageRows * kHeadDim;
     if (kind == 0) {  // the logits of the stage's rows; the same trip count in every lane
-      for (int r0 = 0; r0 < ir; r0 += S::kRowPhases) {
+      for (int r0 = 0; r0 < ir; r0 += kRowPhases) {
         const int r = r0 + phase;
         float d = 0.f;
         if (r < nr) {
-          const uint4 k16 =
-              *reinterpret_cast<const uint4*>(stage + (r * HB + hl) * kHeadDim + sub * 8);
+          const uint4 k16 = *reinterpret_cast<const uint4*>(stage + r * kHeadDim + sub * 8);
           if (kRoundProducts) {
             float s8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
             add_rounded_products(k16, q2, s8);
@@ -165,14 +152,14 @@ attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
 #pragma unroll
         for (int o = kGroup / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        if (r < nr && sub == 0) lg[(off + r) * HB + hl] = d * kLogitScale;
+        if (r < nr && sub == 0) lg[off + r] = d * kLogitScale;
       }
       continue;
     }
     if (off == 0) {  // the chunk's first v stage: its max, the rescale
       const int rows = min(ck, n - c * ck);
       float cmax = -1e30f;
-      for (int r = sub; r < rows; r += kGroup) cmax = fmaxf(cmax, lg[r * HB + hl]);
+      for (int r = sub; r < rows; r += kGroup) cmax = fmaxf(cmax, lg[r]);
 #pragma unroll
       for (int o = kGroup / 2; o > 0; o >>= 1)
         cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
@@ -183,83 +170,71 @@ attn_body_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 8; ++e) acc[e] *= alpha;
       m = m_new;
     }
-    for (int r = phase; r < nr; r += S::kRowPhases) {
-      const float p = expf(lg[(off + r) * HB + hl] - m);
+    for (int r = phase; r < nr; r += kRowPhases) {
+      const float p = expf(lg[off + r] - m);
       l += p;
       const __nv_bfloat162 pb = __float2bfloat162_rn(p);
       const __nv_bfloat162 p4[4] = {pb, pb, pb, pb};
-      add_rounded_products(
-          *reinterpret_cast<const uint4*>(stage + (r * HB + hl) * kHeadDim + sub * 8), p4, acc);
+      add_rounded_products(*reinterpret_cast<const uint4*>(stage + r * kHeadDim + sub * 8), p4,
+                           acc);
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // every thread is done with the ring
 
-  // the row phases' sums of each head, added in a fixed order
-  float* acc_s = reinterpret_cast<float*>(smem);               // [phase][HB][64]
-  float* l_s = acc_s + S::kRowPhases * HB * kHeadDim;          // [phase][HB]
-  float4* a4 = reinterpret_cast<float4*>(acc_s + (phase * HB + hl) * kHeadDim + sub * 8);
+  // the row phases' sums, added in a fixed order
+  float* acc_s = reinterpret_cast<float*>(smem);  // [phase][64]
+  float* l_s = acc_s + kRowPhases * kHeadDim;     // [phase]
+  float4* a4 = reinterpret_cast<float4*>(acc_s + phase * kHeadDim + sub * 8);
   a4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
   a4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  if (sub == 0) l_s[phase * HB + hl] = l;
+  if (sub == 0) l_s[phase] = l;
   __syncthreads();
-  for (int o = tid; o < HB * kHeadDim; o += S::kThreads) {
-    float s = 0.f, sum = 0.f;
-#pragma unroll 4
-    for (int ph = 0; ph < S::kRowPhases; ++ph) {
-      s += acc_s[ph * HB * kHeadDim + o];
-      sum += l_s[ph * HB + o / kHeadDim];
-    }
-    out[(size_t)b * C + h0 * kHeadDim + o] = __float2bfloat16(s / sum);
+  const int o = tid;  // kThreads == kHeadDim: one output lane a thread
+  float s = 0.f, sum = 0.f;
+#pragma unroll
+  for (int ph = 0; ph < kRowPhases; ++ph) {
+    s += acc_s[ph * kHeadDim + o];
+    sum += l_s[ph];
   }
+  out[(size_t)b * C + h * kHeadDim + o] = __float2bfloat16(s / sum);
 }
+static_assert(kThreads == kHeadDim, "the epilogue writes one output lane a thread");
 
-template <bool kRoundProducts, int HB>
+template <bool kRoundProducts>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, int B, int T, int C, int pos,
                    int ck, bf16* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HB>(ck);
+  const size_t smem = smem_bytes(ck);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attn_body_kernel<kRoundProducts, HB>,
+    cudaError_t e = cudaFuncSetAttribute(attn_body_kernel<kRoundProducts>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attn_body_kernel<kRoundProducts, HB>
-      <<<dim3(C / (HB * kHeadDim), B), Shape<HB>::kThreads, smem, stream>>>(q, k, v, T, C, pos,
-                                                                           ck, out);
+  attn_body_kernel<kRoundProducts>
+      <<<dim3(C / kHeadDim, B), kThreads, smem, stream>>>(q, k, v, T, C, pos, ck, out);
   return cudaGetLastError();
-}
-
-template <int HB>
-cudaError_t launch_variant(int variant, const bf16* q, const bf16* k, const bf16* v, int B,
-                           int T, int C, int pos, int ck, bf16* out, cudaStream_t s) {
-  return variant ? launch<true, HB>(q, k, v, B, T, C, pos, ck, out, s)
-                 : launch<false, HB>(q, k, v, B, T, C, pos, ck, out, s);
 }
 
 }  // namespace
 }  // namespace tt
 
 // q: (B, C) bf16; k, v: (B, T, C) bf16; out: (B, C) bf16; all contiguous and
-// 16-byte aligned. variant 0 is a, 1 is b. heads_per_block 1 or 16, C a
-// multiple of 64 x heads_per_block, 0 <= pos < T, ck >= 1 and a divisor of
-// T, the ring and ck x heads_per_block logits within 227 KB. Returns the
-// first CUDA error, 0 on success.
+// 16-byte aligned. variant 0 is a, 1 is b. C a multiple of 64, 0 <= pos < T,
+// ck >= 1 and a divisor of T, the ring and ck logits within 227 KB. Returns
+// the first CUDA error, 0 on success.
 extern "C" int tt_attn_body(const void* q, const void* k, const void* v, void* out, int B, int T,
-                            int C, int pos, int ck, int variant, int heads_per_block,
-                            void* stream) {
+                            int C, int pos, int ck, int variant, void* stream) {
   using namespace tt;
-  const int hb = heads_per_block;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (B < 1 || (hb != 1 && hb != 16) || C < hb * kHeadDim || C % (hb * kHeadDim) != 0 ||
-      pos < 0 || pos >= T || ck < 1 || T % ck != 0 || (variant != 0 && variant != 1) ||
-      misaligned(q) || misaligned(k) || misaligned(v) ||
-      (hb == 1 ? smem_bytes<1>(ck) : smem_bytes<16>(ck)) > 227 * 1024)
+  if (B < 1 || C < kHeadDim || C % kHeadDim != 0 || pos < 0 || pos >= T || ck < 1 ||
+      T % ck != 0 || (variant != 0 && variant != 1) || misaligned(q) || misaligned(k) ||
+      misaligned(v) || smem_bytes(ck) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(hb == 1 ? launch_variant<1>(variant, qp, kp, vp, B, T, C, pos, ck, op, s)
-                       : launch_variant<16>(variant, qp, kp, vp, B, T, C, pos, ck, op, s));
+  return (int)(variant ? launch<true>(qp, kp, vp, B, T, C, pos, ck, op, s)
+                       : launch<false>(qp, kp, vp, B, T, C, pos, ck, op, s));
 }

@@ -20,7 +20,8 @@
 //
 // The design. A block of 256 threads takes a tile of `frames` consecutive
 // frames of one batch row (the launch plan, ops/lvc.py plan_lvc, picks
-// rows_per_thread R, frames and the input channels a stage) and walks the
+// rows_per_thread R, frames, the input channels a stage and the stage's
+// layout, which tt_lvc checks against what the kernel reads) and walks the
 // input channels in stages through a ring of four in shared memory, filled
 // by cp.async while the stage before computes. A stage holds, for its
 // channels, every frame's (Co, K) weights and the tile's x segment
@@ -75,8 +76,8 @@ struct LvcArgs {
   long long bb, bf, bo;  // bias (b, f, o) at b*bb + f*bf + o*bo
   int frames;            // frames a block
   int channels;          // input channels a stage
-  int w_frame;           // floats of one frame's weights in a stage
-  int x_row;             // floats of one channel's x segment in a stage
+  int w_frame;           // floats of one frame's weights in a stage (the plan's)
+  int x_row;             // floats of one channel's x segment in a stage (the plan's)
   int stage;             // floats of a stage
   int vec;               // kernels copyable in 16-byte pieces (km == 1, aligned)
 };
@@ -90,11 +91,17 @@ __device__ __forceinline__ void cp_async4_l2(void* smem, const void* gmem) {
                : "memory");
 }
 
+// the floats of x a thread with R rows loads from its first row on: R + K - 1,
+// in whole 16-byte loads when R is a multiple of 4 (ops/lvc.py x_reads)
+__host__ __device__ constexpr int x_reads(int R, int K) {
+  return R % 4 == 0 ? (R + K - 1 + 3) / 4 * 4 : R + K - 1;
+}
+
 // x values xs[0 .. R + K - 2] into registers: 16-byte loads where the rows
 // start 16-byte aligned (R a multiple of 4), the tail read past into padding
 template <int R, int K>
 struct XRegs {
-  static constexpr int N = R % 4 == 0 ? (R + K - 1 + 3) / 4 * 4 : R + K - 1;
+  static constexpr int N = x_reads(R, K);
   float v[N];
   __device__ __forceinline__ void load(const float* xs) {
     if constexpr (R % 4 == 0) {
@@ -125,7 +132,7 @@ __device__ __forceinline__ void walk(int n_in, int n_out, Fn fn) {
 }
 
 // blocks an SM the register budget allows: 2 for the 8-row tile (64
-// accumulators), 3 below; ops/lvc.py plan_lvc counts on these
+// accumulators), 3 below; ops/lvc.py plan_lvc counts on these (BLOCKS_PER_SM)
 template <int R>
 constexpr int kMinBlocks = R == 8 ? 2 : 3;
 
@@ -269,16 +276,19 @@ cudaError_t launch_rows(int R, const LvcArgs& a, size_t smem, cudaStream_t strea
 // frames-innermost layout); bias: f32, element (b, f, o) at b*bb + f*bf +
 // o*bo; out: (B, F*hop, Co) f32 contiguous, 16-byte aligned. The launch plan
 // (ops/lvc.py plan_lvc): rows_per_thread R in {1, 2, 4, 8}, `frames` frames
-// a block, `channels` input channels a stage. Needs Co a multiple of 8 with
-// Co / 8 dividing 256, K in {1, 3, 5, 7}, a tile of frames x hop rows within
-// the block's (256 / (Co / 8)) x R rows, R dividing hop unless a block holds
-// one frame, and the ring within 227 KB. Returns the launch's CUDA error, 0
-// on success.
+// a block, `channels` input channels a stage, and the stage's layout:
+// `w_frame` floats of each frame's weights, then `x_row` floats of each
+// channel's x, `smem` bytes for the ring of kStages stages. Needs Co a
+// multiple of 8 with Co / 8 dividing 256, K in {1, 3, 5, 7}, a tile of
+// frames x hop rows within the block's (256 / (Co / 8)) x R rows, R dividing
+// hop unless a block holds one frame, a layout of whole 16-byte pieces that
+// holds the stage's weights and the x every thread loads, and a ring of
+// `smem` bytes within 227 KB. Returns the launch's CUDA error, 0 on success.
 extern "C" int tt_lvc(const void* x, const void* kernels, const void* bias, void* out, int B,
                       int F, int hop, int Ci, int Co, int K, long long xb, long long xt,
                       long long xi, long long kb, long long kf, long long km, long long bb,
                       long long bf, long long bo, int rows_per_thread, int frames, int channels,
-                      void* stream) {
+                      int w_frame, int x_row, int smem, void* stream) {
   using namespace tt;
   const int R = rows_per_thread;
   if (B < 1 || F < 1 || hop < 1 || Ci < 1 || Co < kOut || Co % kOut != 0 ||
@@ -286,6 +296,14 @@ extern "C" int tt_lvc(const void* x, const void* kernels, const void* bias, void
       (xt != 1 && xi != 1) || (R != 1 && R != 2 && R != 4 && R != 8) || frames < 1 ||
       channels < 1 || (long long)frames * hop > (long long)(kThreads / (Co / kOut)) * R ||
       (hop % R != 0 && frames != 1) || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // the layout: whole 16-byte pieces, a frame's weights, and the x of the
+  // last thread with rows (its loads may run past the tile's segment)
+  const int tile = frames * hop;
+  const long long stage = (long long)frames * w_frame + (long long)channels * x_row;
+  if (w_frame % 4 != 0 || x_row % 4 != 0 || w_frame < channels * Co * K ||
+      x_row < ((tile + R - 1) / R - 1) * R + x_reads(R, K) ||
+      (long long)smem != kStages * stage * (long long)sizeof(float) || smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   LvcArgs a;
   a.x = static_cast<const float*>(x);
@@ -296,18 +314,8 @@ extern "C" int tt_lvc(const void* x, const void* kernels, const void* bias, void
   a.xb = xb, a.xt = xt, a.xi = xi, a.kb = kb, a.kf = kf, a.km = km;
   a.bb = bb, a.bf = bf, a.bo = bo;
   a.frames = frames, a.channels = channels;
-  // the stage: [frames][channels * Co * K] weights (a frame padded by 4
-  // floats, so the transposing copies of neighbouring frames fall on other
-  // banks), then [channels][x_row] of x, x_row covering the rows the last
-  // thread with rows reads (16-byte loads may run past the segment)
-  const int xr = R % 4 == 0 ? (R + K - 1 + 3) / 4 * 4 : R + K - 1;
-  const int tile = frames * hop;
-  a.w_frame = channels * Co * K + 4;
-  a.x_row = ((tile + R - 1) / R * R - R + xr + 3) / 4 * 4;
-  a.stage = frames * a.w_frame + channels * a.x_row;
+  a.w_frame = w_frame, a.x_row = x_row, a.stage = (int)stage;
   a.vec = km == 1 && kb % 4 == 0 && kf % 4 == 0 && reinterpret_cast<uintptr_t>(kernels) % 16 == 0;
-  const size_t smem = (size_t)kStages * a.stage * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (K) {

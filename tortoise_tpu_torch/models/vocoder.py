@@ -39,6 +39,26 @@ def location_variable_convolution(x, kernels, bias, hop: int):
     return y.reshape(b, f * hop, co).to(x.dtype)
 
 
+def predictor_layout(kernel_out, bias_out, layers: int, ci: int, co: int, k: int):
+    """The kernel predictor's conv outputs (B, F, L*Ci*Co*K) and (B, F, L*Co)
+    as kernels (B, L, F, Ci, Co, K) and bias (B, L, F, Co), views without a
+    copy: from Conv1d's transposed view of a channels-first output, frames
+    innermost, which K4 reads as they lie."""
+    b, f, _ = kernel_out.shape
+    return (kernel_out.reshape(b, f, layers, ci, co, k).transpose(1, 2),
+            bias_out.reshape(b, f, layers, co).transpose(1, 2))
+
+
+def random_predictor_output(g: torch.Generator, b: int, layers: int, f: int, ci: int, co: int,
+                            k: int):
+    """Random kernels and bias on g's device, laid out as
+    KernelPredictor.forward returns them (predictor_layout of channels-first
+    conv outputs): K4's inputs as UnivNet hands them over."""
+    kern = torch.randn((b, layers * ci * co * k, f), generator=g, device=g.device)
+    bias = torch.randn((b, layers * co, f), generator=g, device=g.device)
+    return predictor_layout(kern.transpose(1, 2), bias.transpose(1, 2), layers, ci, co, k)
+
+
 class KernelPredictor(nn.Module):
     def __init__(self, cond_channels: int, conv_in_channels: int, conv_out_channels: int,
                  conv_layers: int, conv_kernel_size: int = 3, hidden: int = 64,
@@ -61,11 +81,7 @@ class KernelPredictor(nn.Module):
         for i in range(3):
             r = F.leaky_relu(getattr(self, f"res_{i}_a")(h), LRELU_SLOPE)
             h = h + F.leaky_relu(getattr(self, f"res_{i}_b")(r), LRELU_SLOPE)
-        layers, ci, co, k = self.shape
-        b, f, _ = h.shape
-        kernels = self.kernel_conv(h).reshape(b, f, layers, ci, co, k).transpose(1, 2)
-        bias = self.bias_conv(h).reshape(b, f, layers, co).transpose(1, 2)
-        return kernels, bias
+        return predictor_layout(self.kernel_conv(h), self.bias_conv(h), *self.shape)
 
 
 class LVCBlock(nn.Module):

@@ -6,8 +6,8 @@ x (B, F*hop, Ci), kernels (B, F, Ci, Co, K), bias (B, F, Co) -> (B, F*hop,
 Co). Each hop-long frame of x is convolved with its own kernel, 'same'
 padding, the halo taken from the neighbouring frames and zeros past the
 ends. The kernel adds the bias in its epilogue; ``plan_lvc`` is its launch
-plan (rows a thread, frames a block, input channels a stage), the one
-place that picks it.
+plan (rows a thread, frames a block, input channels a stage, and the
+stage's layout in shared memory), the one place that picks them.
 
 ``location_variable_convolution_lvc`` dispatches on the device of ``x``:
 CPU tensors run ``location_variable_convolution_lvc_plain``, CUDA tensors
@@ -25,7 +25,7 @@ from tortoise_tpu_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_KERNEL = _build.Kernel("lvc", "tt_lvc", [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 3)
+_KERNEL = _build.Kernel("lvc", "tt_lvc", [_P] * 4 + [_I] * 6 + [_L] * 9 + [_I] * 6)
 
 
 def location_variable_convolution_lvc_plain(x, kernels, bias, hop: int):
@@ -47,8 +47,9 @@ def location_variable_convolution_lvc_plain(x, kernels, bias, hop: int):
 
 
 # the kernel's shape (csrc/lvc.cu): 256 threads, a thread 8 output channels
-# by R rows, a ring of four stages, and the blocks an SM its registers allow
-# at each R (its launch bounds)
+# by R rows, a ring of four stages (tt_lvc refuses a plan whose shared
+# memory is not four of its stages), and the blocks an SM its registers
+# allow at each R (its launch bounds, kMinBlocks)
 THREADS, OUT_PER_THREAD, STAGES = 256, 8, 4
 BLOCKS_PER_SM = {8: 2, 4: 3, 2: 3, 1: 3}
 TAPS = (1, 3, 5, 7)
@@ -64,15 +65,28 @@ STAGE_BYTES = 28 * 1024
 SECTOR_BYTES = 32
 
 
-def _stage_floats(frames: int, hop: int, rows: int, channels: int, co: int, k: int) -> int:
-    """Floats of one stage, as tt_lvc lays it out: every frame's weights of
-    the stage's input channels (a frame padded by 4 floats), then each
-    channel's x segment, long enough for the 16-byte loads of the last
-    thread with rows."""
-    xr = -(-(rows + k - 1) // 4) * 4 if rows % 4 == 0 else rows + k - 1
-    tile = frames * hop
-    x_row = -(-(-(-tile // rows) * rows - rows + xr) // 4) * 4
-    return frames * (channels * co * k + 4) + channels * x_row
+def x_reads(rows: int, k: int) -> int:
+    """Floats of x a thread with R rows loads from its first row on, as
+    lvc.cu's x_reads: R + K - 1, rounded up to whole 16-byte loads when R
+    is a multiple of 4."""
+    return -(-(rows + k - 1) // 4) * 4 if rows % 4 == 0 else rows + k - 1
+
+
+def stage_layout(frames: int, hop: int, rows: int, channels: int, co: int,
+                 k: int) -> tuple[int, int]:
+    """(w_frame, x_row): the floats of one frame's weights and of one
+    channel's x segment in a stage. A stage is every frame's (channels, Co,
+    K) weights, each padded by 4 floats so that the transposing copies of
+    neighbouring frames fall on other banks, then each channel's x segment,
+    long enough for the loads of the last thread with rows. tt_lvc takes
+    the layout from here and refuses one its loads would overrun."""
+    last = (-(-(frames * hop) // rows) - 1) * rows
+    return channels * co * k + 4, -(-(last + x_reads(rows, k)) // 4) * 4
+
+
+def _stage_bytes(frames: int, hop: int, rows: int, channels: int, co: int, k: int) -> int:
+    w_frame, x_row = stage_layout(frames, hop, rows, channels, co, k)
+    return 4 * (frames * w_frame + channels * x_row)
 
 
 def plan_lvc(b: int, f: int, hop: int, ci: int, co: int, k: int,
@@ -92,7 +106,8 @@ def plan_lvc(b: int, f: int, hop: int, ci: int, co: int, k: int,
     TARGET_BLOCKS), and with frames innermost times the share of each
     32-byte sector of the kernels that a tile's frames use.
     "rows_per_thread" is the R of the best score, the larger R on a tie; a
-    block takes each of the "tiles". Raises ValueError for what the kernel
+    block takes each of the "tiles"; "w_frame", "x_row" and "smem" are its
+    stage_layout and the ring's bytes. Raises ValueError for what the kernel
     refuses (tt_lvc's conditions)."""
     if co % OUT_PER_THREAD or co < OUT_PER_THREAD or THREADS % (co // OUT_PER_THREAD):
         raise ValueError(f"the LVC kernel takes Co a multiple of 8 with Co / 8 dividing "
@@ -114,9 +129,9 @@ def plan_lvc(b: int, f: int, hop: int, ci: int, co: int, k: int,
         room = min(STAGE_BYTES, (SM_SMEM // BLOCKS_PER_SM[rows] - BLOCK_SMEM_RESERVED) // STAGES)
         channels = 1
         while channels * 2 <= ci and \
-                4 * _stage_floats(frames, hop, rows, channels * 2, co, k) <= room:
+                _stage_bytes(frames, hop, rows, channels * 2, co, k) <= room:
             channels *= 2
-        smem = STAGES * 4 * _stage_floats(frames, hop, rows, channels, co, k)
+        smem = STAGES * _stage_bytes(frames, hop, rows, channels, co, k)
         if smem > SMEM_LIMIT:
             continue
         tiles = b * -(-f // frames)
@@ -126,8 +141,10 @@ def plan_lvc(b: int, f: int, hop: int, ci: int, co: int, k: int,
         if frames_innermost:
             score *= min(1.0, 4 * frames / SECTOR_BYTES)
         if best is None or score > best[0]:
+            w_frame, x_row = stage_layout(frames, hop, rows, channels, co, k)
             best = (score, {"rows_per_thread": rows, "frames": frames, "channels": channels,
-                            "tiles": tiles, "smem": smem, "threads": THREADS})
+                            "w_frame": w_frame, "x_row": x_row, "tiles": tiles, "smem": smem,
+                            "threads": THREADS})
     if best is None:
         raise ValueError(f"the LVC kernel's ring would take more than {SMEM_LIMIT} bytes of "
                          f"shared memory at Co={co}, K={k}, hop={hop}")
@@ -182,7 +199,8 @@ def location_variable_convolution_lvc(x, kernels, bias, hop: int):
     out = torch.empty((b, t, co), dtype=torch.float32, device=x.device)
     _KERNEL(x.get_device(), x.data_ptr(), kernels.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
             f, hop, ci, co, k, *x.stride(), *strides, *bias.stride(),
-            plan["rows_per_thread"], plan["frames"], plan["channels"])
+            plan["rows_per_thread"], plan["frames"], plan["channels"], plan["w_frame"],
+            plan["x_row"], plan["smem"])
     location_variable_convolution_lvc.launches += 1
     return out
 

@@ -41,19 +41,17 @@ VARIANTS = ("a", "b")
 # bf16 output: one ulp (2^-8) of each (batch row, head)'s max|plain|, and a
 # little more for f32 sums taken in another order
 HEAD_REL_BOUND = 1e-2
-_KERNEL = _build.Kernel("attn_body", "tt_attn_body", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
-# the kernel's block shapes (csrc/attn_body.cu): heads a block -> (threads,
-# rows a ring stage, stages); a block per (head, row) is attn_body's
-HEAD_BLOCKS = {1: (64, 32, 3), 16: (512, 16, 4)}
-HEADS_PER_BLOCK = 1
+_KERNEL = _build.Kernel("attn_body", "tt_attn_body", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
+# the kernel's block (csrc/attn_body.cu): one (head, row), 64 threads, a ring
+# of 3 stages of 32 rows
+THREADS, STAGE_ROWS, STAGES = 64, 32, 3
 SMEM_LIMIT = 227 * 1024
 
 
-def smem_bytes(ck: int, heads_per_block: int) -> int:
+def smem_bytes(ck: int) -> int:
     """Shared memory of one block, as tt_attn_body sizes it: the ring of
-    bf16 (row, head) slices and the chunk's f32 logits."""
-    _, rows, stages = HEAD_BLOCKS[heads_per_block]
-    return stages * rows * heads_per_block * 64 * 2 + ck * heads_per_block * 4
+    bf16 head rows and the chunk's f32 logits."""
+    return STAGES * STAGE_ROWS * 64 * 2 + ck * 4
 
 
 def _check_chunks(t: int, ck: int, pos: int):
@@ -111,19 +109,22 @@ def attn_body(q, k, v, pos: int, *, heads: int = HEADS, ck: int = 64,
     if q.shape[-1] != heads * 64:
         raise ValueError(f"attn_body kernel needs a head dim of 64: C={q.shape[-1]}, "
                          f"heads={heads}")
-    return launch(q, k, v, pos, ck, variant, HEADS_PER_BLOCK)
+    check_launch(q, k, v, pos, ck, variant)
+    out = torch.empty_like(q)
+    _KERNEL(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], k.shape[1], q.shape[1], pos, ck, VARIANTS.index(variant))
+    attn_body.launches += 1
+    attn_body.launches_by_variant[variant] += 1
+    return out
 
 
-def check_launch(q, k, v, pos: int, ck: int, variant: str, heads_per_block: int) -> None:
+def check_launch(q, k, v, pos: int, ck: int, variant: str) -> None:
     """Raises ValueError for what tt_attn_body refuses."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r}: a or b")
-    if heads_per_block not in HEAD_BLOCKS:
-        raise ValueError(f"heads_per_block={heads_per_block}: one of {tuple(HEAD_BLOCKS)}")
     b, c = q.shape
-    if c % (64 * heads_per_block):
-        raise ValueError(f"attn_body kernel needs C a multiple of 64 x {heads_per_block} "
-                         f"heads a block: C={c}")
+    if c % 64:
+        raise ValueError(f"attn_body kernel needs C a multiple of 64: C={c}")
     for name, x, shape in (("q", q, (b, c)), ("k", k, (b, k.shape[1], c)),
                            ("v", v, (b, k.shape[1], c))):
         if tuple(x.shape) != shape or x.dtype != torch.bfloat16 or not x.is_contiguous() \
@@ -131,23 +132,9 @@ def check_launch(q, k, v, pos: int, ck: int, variant: str, heads_per_block: int)
             raise ValueError(f"{name}: needs a contiguous, 16-byte aligned bf16 {shape} tensor "
                              f"on {q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
     _check_chunks(k.shape[1], ck, pos)
-    if smem_bytes(ck, heads_per_block) > SMEM_LIMIT:
-        raise ValueError(f"ck={ck}: the ring and {ck} x {heads_per_block} logits take "
-                         f"{smem_bytes(ck, heads_per_block)} bytes of shared memory, over "
-                         f"{SMEM_LIMIT}")
-
-
-def launch(q, k, v, pos: int, ck: int, variant: str, heads_per_block: int) -> torch.Tensor:
-    """K6's kernel on CUDA tensors with the given block shape (attn_body's
-    is HEADS_PER_BLOCK; the profiler times both), counted as attn_body's."""
-    check_launch(q, k, v, pos, ck, variant, heads_per_block)
-    out = torch.empty_like(q)
-    _KERNEL(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q.shape[0], k.shape[1], q.shape[1], pos, ck, VARIANTS.index(variant),
-            heads_per_block)
-    attn_body.launches += 1
-    attn_body.launches_by_variant[variant] += 1
-    return out
+    if smem_bytes(ck) > SMEM_LIMIT:
+        raise ValueError(f"ck={ck}: the ring and {ck} logits take {smem_bytes(ck)} bytes of "
+                         f"shared memory, over {SMEM_LIMIT}")
 
 
 attn_body.launches = 0

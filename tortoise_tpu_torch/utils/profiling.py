@@ -28,15 +28,13 @@ the first profiler pass.
 
 ``--k4k6`` times K4 and K6 alone, event and device ms (no profiler). K4
 at UnivNet c32's shapes (F=2186 frames, B=1, f32) per hop: on kernels laid
-out as the predictor leaves them (frames innermost, where the kernel
-takes that layout) and as each frame's contiguous (Ci, Co, K) block (what
-``.contiguous()`` of the predictor's output gives), beside the einsum LVC;
-the time of that copy for one block's four layers; one UnivNet forward
-(the full-width generator, seeded random weights, 2176 mel frames), and,
-where K4 reads the predictor's layout, the same forward with the copy put
+out as the predictor leaves them (frames innermost) and as each frame's
+contiguous (Ci, Co, K) block (what ``.contiguous()`` of the predictor's
+output gives), beside the einsum LVC; the time of that copy for one
+block's four layers; one UnivNet forward (the full-width generator, seeded
+random weights, 2176 mel frames), and the same forward with the copy put
 back. K6 at the JAX tool's shapes (B=128, T=768, pos=300, ck=64), both
-variants beside SDPA, and each block shape the kernel has. Copied into an
-older checkout of the repository, the same code times what that checkout has.
+variants beside SDPA.
 """
 from __future__ import annotations
 
@@ -239,17 +237,6 @@ K4_HOPS = (8, 64, 256)
 K4_FRAMES = 2186   # a 500-token clip: 2176 mel frames and UnivNet's 10 padding frames
 
 
-def predictor_layout(g: torch.Generator, b: int, layers: int, f: int, ci: int, co: int,
-                     k: int):
-    """Random kernels (B, L, F, Ci, Co, K) and bias (B, L, F, Co) laid out
-    as KernelPredictor.forward returns them: views of channels-first conv
-    outputs, frames innermost."""
-    kern = torch.randn((b, layers * ci * co * k, f), generator=g, device="cuda")
-    bias = torch.randn((b, layers * co, f), generator=g, device="cuda")
-    return (kern.transpose(1, 2).reshape(b, f, layers, ci, co, k).transpose(1, 2),
-            bias.transpose(1, 2).reshape(b, f, layers, co).transpose(1, 2))
-
-
 def _timed(run, reps: int, cycles_per_run: int | None = None) -> dict:
     from tortoise_tpu_torch.utils.measure import SLEEP_CYCLES_PER_RUN, device_ms, time_ms
 
@@ -258,10 +245,11 @@ def _timed(run, reps: int, cycles_per_run: int | None = None) -> dict:
 
 
 def profile_k4_k6(reps: int = 20) -> dict:
-    """K4 per hop and layout, the layout copy, one UnivNet forward, and K6
-    per variant and block shape, each beside its library yardstick."""
+    """K4 per hop and layout, the layout copy, one UnivNet forward with and
+    without it, and K6 per variant, each beside its library yardstick."""
     from tortoise_tpu_torch.models.vocoder import (UnivNetConfig, UnivNetGenerator,
-                                                   location_variable_convolution)
+                                                   location_variable_convolution,
+                                                   random_predictor_output)
     from tortoise_tpu_torch.ops import lvc
     from tortoise_tpu_torch.tools import bench_attn_body as k6
     from tortoise_tpu_torch.utils.measure import bound, nbytes
@@ -269,8 +257,6 @@ def profile_k4_k6(reps: int = 20) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # a K4 with a launch plan reads the predictor's layout itself; an older one needed the copy
-    reads_predictor = hasattr(lvc, "plan_lvc")
     g = torch.Generator(device="cuda").manual_seed(0)
     b, f, ci, co, k, layers = 1, K4_FRAMES, 32, 64, 3, 4
     out = {"k4": {}, "k6": {}}
@@ -279,14 +265,13 @@ def profile_k4_k6(reps: int = 20) -> dict:
     with torch.inference_mode():
         for hop in K4_HOPS:
             x = torch.randn((b, ci, f * hop), generator=g, device="cuda").transpose(1, 2)
-            kp, bp = predictor_layout(g, b, layers, f, ci, co, k)
+            kp, bp = random_predictor_output(g, b, layers, f, ci, co, k)
             kc, bc = kp.contiguous(), bp.contiguous()
             runs = {"blocks": lambda: lvc.location_variable_convolution_lvc(x, kc[:, 2], bc[:, 2],
                                                                            hop),
-                    "einsum": lambda: location_variable_convolution(x, kc[:, 2], bc[:, 2], hop)}
-            if reads_predictor:
-                runs["predictor"] = lambda: lvc.location_variable_convolution_lvc(
-                    x, kp[:, 2], bp[:, 2], hop)
+                    "einsum": lambda: location_variable_convolution(x, kc[:, 2], bc[:, 2], hop),
+                    "predictor": lambda: lvc.location_variable_convolution_lvc(
+                        x, kp[:, 2], bp[:, 2], hop)}
             want = lvc.location_variable_convolution_lvc_plain(x, kc[:, 2], bc[:, 2], hop)
             row = {"bound_ms": bound(nbytes(x, kc[:, 2], bc[:, 2], want),
                                      2 * b * f * hop * co * ci * k, "f32")}
@@ -304,13 +289,12 @@ def profile_k4_k6(reps: int = 20) -> dict:
         forward = lambda: voc.inference(mel, z)
         # the forward's ~200 launches take the host milliseconds: ~10 ms of sleep a run
         out["univnet_forward"] = _timed(forward, 5, 20_000_000)
-        if reads_predictor:
-            preds = [getattr(voc, f"lvc_{i}").kernel_predictor for i in range(3)]
-            for p in preds:
-                p.forward = lambda c, _f=p.forward: tuple(t.contiguous() for t in _f(c))
-            out["univnet_forward_with_copy"] = _timed(forward, 5, 20_000_000)
-            for p in preds:
-                del p.forward
+        preds = [getattr(voc, f"lvc_{i}").kernel_predictor for i in range(3)]
+        for p in preds:
+            p.forward = lambda c, _f=p.forward: tuple(t.contiguous() for t in _f(c))
+        out["univnet_forward_with_copy"] = _timed(forward, 5, 20_000_000)
+        for p in preds:
+            del p.forward
         del voc, mel, z
 
         bt, t, c, pos, ck = 128, 768, 1024, 300, 64
@@ -319,15 +303,10 @@ def profile_k4_k6(reps: int = 20) -> dict:
         out["k6"]["bound_ms"] = bound(2 * bt * (pos + 1) * c * 2 + 2 * nbytes(q), 4 * bt *
                                       (pos + 1) * c, "f32")
         out["k6"]["sdpa"] = _timed(lambda: k6.sdpa(q, kk, v, pos), reps)
-        shapes = getattr(k6, "HEAD_BLOCKS", (None,))
         for variant in k6.VARIANTS:
-            for hb in shapes:
-                kw = {} if hb is None else {"heads_per_block": hb}
-                run = lambda: k6.launch(q, kk, v, pos, ck, variant, **kw) if kw else \
-                    k6.attn_body(q, kk, v, pos, ck=ck, variant=variant)
-                want = k6.attn_body_plain(q, kk, v, pos, ck=ck, variant=variant)
-                key = variant if hb is None else f"{variant} heads_per_block={hb}"
-                out["k6"][key] = {"head_rel_err": k6.head_rel_err(run(), want),
+            run = lambda: k6.attn_body(q, kk, v, pos, ck=ck, variant=variant)
+            want = k6.attn_body_plain(q, kk, v, pos, ck=ck, variant=variant)
+            out["k6"][variant] = {"head_rel_err": k6.head_rel_err(run(), want),
                                   **_timed(run, reps)}
     return out
 
