@@ -56,8 +56,23 @@ Phases, each of which raises on failure (nothing falls back):
      T=768, L=30, nvalid=600, 32 steps) and, last, profile_ar_step (B=16, 8
      tokens a section; its per-layer decode runs K1), whose torch.profiler
      passes come after every timing of the process, each tool checking its
-     kernels again.
-Before each path of phases 7-11 every launch counter is set to 0, and read
+     kernels again;
+ 12. the quality API's remaining paths, at full width with seeded random
+     weights, on a TextToSpeech whose redaction is left on by default: a
+     bracketed ultra_fast request with no wav2vec2 checkpoint (it warns,
+     returns the unredacted 23.2 s clip and drops the aligner); wav2vec2
+     (24 layers, 1024 wide) from a seeded checkpoint in the HF layout,
+     over that clip at 16 kHz (its frame count, a zero-padded run with
+     n_samples against the exact one, a 2 s clip against the module's
+     float32 forward on the CPU, its event and device time); a bracketed
+     ultra_fast request redacted by that model (shorter than the clip it
+     was given, equal to the kept spans of align on that clip); an
+     ultra_fast request with cvvp_amount=0.5 (CVVP's scores of the 16
+     candidates against the CPU float32 module); the classifier on the
+     23.2 s clip against the CPU; and the is_this_from_tortoise and
+     eval --cer CLIs in this process. It runs between phases 10 and 11:
+     phase 11's profiler passes come after every timing of the process.
+Before each path of phases 7-12 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum those runs only. Every
 UnivNet forward of those paths launches K4 12 times, and K4's plain version
 never runs on the card there.
@@ -129,6 +144,23 @@ K1_F32_BOUND = 1e-5
 # (the sampler-step check of phase 5), which the random-weight HiFi-GAN
 # carries into the wav. Relative L2 over the clip
 STREAM_TTS_REL_L2_BOUND = 0.25
+
+# phase 12. wav2vec2's logits, float32 with TF32 off (api.py turns it off):
+# a zero-padded run and the exact one, and the card and the CPU, sum in
+# other orders over 24 layers; relative to the run's max|logit|
+W2V_REL_BOUND = 1e-4
+# seeds of wav2vec2's random checkpoint, tried in turn until one hears at
+# least W2V_MIN_HEARD symbols in the clip; the redacted request's text is the
+# first W2V_TEXT_CHARS of what it hears, a bracket around the middle third
+W2V_SEEDS = (0, 1, 2, 3)
+W2V_MIN_HEARD = 6
+W2V_TEXT_CHARS = 60
+# CVVP's scores (cosine similarity x e, within +-2.72) from the bf16 model
+# against its float32 forward on the CPU, the same bf16-rounded weights: the
+# activations' bf16 rounding over 8 + 8 layers
+CVVP_ABS_BOUND = 0.02
+# the classifier in float32 on both sides: the probability
+CLASSIFIER_ABS_BOUND = 1e-4
 
 # (preset, text, seed) of the three requests; the fast one decodes its
 # preset's 96 candidates in one batch and runs classifier-free guidance
@@ -1021,15 +1053,20 @@ def run_tools(record: dict, launches: Launches) -> None:
     print("tools path launches", json.dumps(counts))
 
 
-def _wav_ok(wav) -> bool:
+def _wav_ok(wav, whole: bool = True) -> bool:
+    """A (1, 1, S) float32 clip in [-1, 1]; ``whole`` (not redacted): S a
+    multiple of UnivNet's 256 samples a frame."""
     import torch
 
     return (wav.dtype == torch.float32 and wav.ndim == 3 and wav.shape[:2] == (1, 1)
-            and wav.shape[2] > 0 and wav.shape[2] % 256 == 0
+            and wav.shape[2] > 0 and (wav.shape[2] % 256 == 0 or not whole)
             and bool(torch.isfinite(wav).all()) and float(wav.abs().max()) <= 1.0)
 
 
-def _quality_request(tts, clips, preset, text, seed, launches: Launches) -> dict:
+def _quality_request(tts, clips, preset, text, seed, launches: Launches, whole: bool = True,
+                     **kwargs) -> tuple[dict, object]:
+    """One tts_with_preset request (``kwargs`` passed on): its record and
+    its wav."""
     import torch
 
     before = launches.read()
@@ -1037,14 +1074,14 @@ def _quality_request(tts, clips, preset, text, seed, launches: Launches) -> dict
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wav = tts.tts_with_preset(text, preset=preset, voice_samples=clips,
-                              use_deterministic_seed=seed, verbose=False)
+                              use_deterministic_seed=seed, verbose=False, **kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grew = {k: n - before[k] for k, n in launches.read().items() if n > before[k]}
     if grew.get(K4_NAME) != LVC_CALLS_PER_FORWARD:
         raise AssertionError(f"{preset!r} request: one UnivNet forward launched K4 "
                              f"{grew.get(K4_NAME, 0)} times, not {LVC_CALLS_PER_FORWARD}")
-    ok = _wav_ok(wav)
+    ok = _wav_ok(wav, whole)
     res = {"preset": preset, "text": text, "wall_s": wall, "audio_s": wav.shape[2] / 24000.0,
            "stages_s": tts.last_stage_timings, "launches": grew, "finite_wav": ok,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -1052,7 +1089,7 @@ def _quality_request(tts, clips, preset, text, seed, launches: Launches) -> dict
     print("request", json.dumps(res))
     if not ok:
         raise AssertionError(f"bad wav from {preset!r}: shape {tuple(wav.shape)}")
-    return res
+    return res, wav
 
 
 def run_pipeline(tts, clips, record: dict, launches: Launches) -> None:
@@ -1060,7 +1097,7 @@ def run_pipeline(tts, clips, record: dict, launches: Launches) -> None:
     launches.reset()
     results = []
     for preset, text, seed in REQUESTS:
-        res = _quality_request(tts, clips, preset, text, seed, launches)
+        res, _ = _quality_request(tts, clips, preset, text, seed, launches)
         if {"fused_decode_step", "flash_rel_attention"} - set(res["launches"]):
             raise AssertionError(f"{preset!r} request did not launch both kernels: "
                                  f"{res['launches']}")
@@ -1218,7 +1255,7 @@ def run_quality_int8(clips, record: dict, launches: Launches) -> None:
                            gpt_weights=gw)
         init_s = time.perf_counter() - t0
         launches.reset()
-        res = _quality_request(tts, clips, preset, text, seed, launches)
+        res, _ = _quality_request(tts, clips, preset, text, seed, launches)
         counts = launches.read()
         launches.add(counts)
         if counts[_k2_row_name(var)] <= 0 or counts["flash_rel_attention"] <= 0:
@@ -1256,7 +1293,7 @@ def run_quality_f32_cache(clips, record: dict, launches: Launches) -> None:
     init_s = time.perf_counter() - t0
     layers = tts.ar_cfg.layers
     launches.reset()
-    res = _quality_request(tts, clips, preset, text, seed, launches)
+    res, _ = _quality_request(tts, clips, preset, text, seed, launches)
     counts = launches.read()
     launches.add(counts)
     k2 = sum(counts[_k2_row_name(v)] for v in K2_VARIANTS)
@@ -1310,6 +1347,336 @@ def run_cli(record: dict, launches: Launches) -> None:
     torch.cuda.empty_cache()
 
 
+def _reference_wav2vec2(cfg, seed: int) -> dict:
+    """A seeded wav2vec2 checkpoint in the HF Wav2Vec2ForCTC layout (the
+    shipped aligner's) at ``cfg``'s widths: weights N(0, 1/fan_in), biases
+    0, norm scales 1, the positional conv under weight norm (weight_g,
+    weight_v over dim 2)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) * (shape[1] * (shape[2] if len(shape) > 2
+                                                                  else 1)) ** -0.5
+
+    def norm(sd, p, c):
+        sd[f"{p}.weight"], sd[f"{p}.bias"] = torch.ones(c), torch.zeros(c)
+
+    c, ff, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    sd, in_ch = {}, 1
+    for i, (o, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        p = f"wav2vec2.feature_extractor.conv_layers.{i}"
+        sd[f"{p}.conv.weight"], sd[f"{p}.conv.bias"] = w(o, in_ch, k), torch.zeros(o)
+        norm(sd, f"{p}.layer_norm", o)
+        in_ch = o
+    norm(sd, "wav2vec2.feature_projection.layer_norm", in_ch)
+    sd["wav2vec2.feature_projection.projection.weight"] = w(c, in_ch)
+    sd["wav2vec2.feature_projection.projection.bias"] = torch.zeros(c)
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    v = w(c, c // cfg.num_conv_pos_embedding_groups, cfg.num_conv_pos_embeddings)
+    sd[f"{pc}.weight_v"] = v
+    sd[f"{pc}.weight_g"] = torch.linalg.vector_norm(v, dim=(0, 1), keepdim=True)
+    sd[f"{pc}.bias"] = torch.zeros(c)
+    for i in range(cfg.num_layers):
+        p = f"wav2vec2.encoder.layers.{i}"
+        norm(sd, f"{p}.layer_norm", c)
+        norm(sd, f"{p}.final_layer_norm", c)
+        for m in ("q", "k", "v", "out"):
+            sd[f"{p}.attention.{m}_proj.weight"] = w(c, c)
+            sd[f"{p}.attention.{m}_proj.bias"] = torch.zeros(c)
+        sd[f"{p}.feed_forward.intermediate_dense.weight"] = w(ff, c)
+        sd[f"{p}.feed_forward.intermediate_dense.bias"] = torch.zeros(ff)
+        sd[f"{p}.feed_forward.output_dense.weight"] = w(c, ff)
+        sd[f"{p}.feed_forward.output_dense.bias"] = torch.zeros(c)
+    norm(sd, "wav2vec2.encoder.layer_norm", c)
+    sd["lm_head.weight"], sd["lm_head.bias"] = w(vocab, c), torch.zeros(vocab)
+    return sd
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _check_wav2vec2(wav24k, models_dir: str, record: dict):
+    """Phase 12b: the full-width wav2vec2, loaded through the port's
+    converter from a seeded checkpoint in the HF layout (the first of
+    W2V_SEEDS that hears at least W2V_MIN_HEARD symbols in the clip). Returns
+    (model, logits_fn, what it hears)."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch import weights as weights_lib
+    from tortoise_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
+    from tortoise_tpu_torch.utils.audio import resample
+    from tortoise_tpu_torch.utils.wav2vec_alignment import (TacotronCTCTokenizer,
+                                                            wav2vec2_logits_fn)
+
+    cfg = Wav2Vec2Config()
+    audio16 = resample(wav24k, 24000, 16000)
+    n = audio16.shape[0]
+    os.makedirs(models_dir, exist_ok=True)
+    path = os.path.join(models_dir, weights_lib.REFERENCE_CHECKPOINTS["wav2vec2"])
+    tried = []
+    for seed in W2V_SEEDS:
+        torch.save(_reference_wav2vec2(cfg, seed), path)
+        with torch.device("cuda"):
+            model = Wav2Vec2ForCTC(cfg)
+        if weights_lib.load_weights("wav2vec2", model, models_dir, False, 0) != "reference":
+            raise AssertionError("wav2vec2: the checkpoint did not load")
+        fn = wav2vec2_logits_fn(model.eval(), "cuda")
+        logits = fn(audio16)
+        heard = TacotronCTCTokenizer().decode(logits.argmax(-1).tolist()).strip()
+        tried.append(len(heard))
+        if len(heard) >= W2V_MIN_HEARD:
+            break
+    else:
+        raise AssertionError(f"wav2vec2: no seed of {W2V_SEEDS} hears {W2V_MIN_HEARD} symbols "
+                             f"({tried})")
+    if logits.shape != (cfg.frame_count(n), cfg.vocab_size) or not np.isfinite(logits).all():
+        raise AssertionError(f"wav2vec2: logits {logits.shape} for {n} samples, "
+                             f"{cfg.frame_count(n)} frames expected, or not finite")
+
+    with torch.inference_mode():
+        x = torch.as_tensor(audio16, device="cuda")[None]
+        x = (x - x.mean()) / torch.sqrt(x.var() + 1e-7)
+        exact, n_frames = model(x)
+        nb = -(-n // 16000) * 16000 + 16000      # at least one second of zeros
+        padded, n_pad = model(torch.nn.functional.pad(x, (0, nb - n)), n_samples=n)
+        pad_err = _rel_err(padded[:, :n_pad], exact)
+        if n_pad != n_frames or padded.shape[1] <= n_frames or pad_err > W2V_REL_BOUND:
+            raise AssertionError(f"wav2vec2: the padded run ({n_pad} of {padded.shape[1]} "
+                                 f"frames) differs from the exact one: {pad_err:.3g}")
+        ms = _time_ms(lambda: model(x), 5)
+        dev_ms = _device_ms(lambda: model(x), 5)
+        del exact, padded
+
+    clip2 = audio16[:32000]
+    cpu = Wav2Vec2ForCTC(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = wav2vec2_logits_fn(cpu.eval(), "cpu")(clip2)
+    got = fn(clip2)
+    cpu_err = _rel_err(torch.from_numpy(got), torch.from_numpy(want))
+    del cpu
+    res = {"seed": seed, "heard_per_seed": tried, "samples_16k": n, "frames": int(n_frames),
+           "pad_rel_err": pad_err, "cpu_rel_err_2s": cpu_err, "bound": W2V_REL_BOUND,
+           "forward_ms": ms, "forward_device_ms": dev_ms}
+    print("wav2vec2", json.dumps(res))
+    if cpu_err > W2V_REL_BOUND:
+        raise AssertionError(f"wav2vec2: the card's logits differ from the CPU's: {cpu_err:.3g}")
+    record["wav2vec2"] = res
+    return model, fn, heard
+
+
+def _check_redaction(tts, clips, fn, heard: str, launches: Launches, record: dict) -> None:
+    """Phase 12c: a bracketed ultra_fast request redacted by the full-width
+    wav2vec2, its text the first W2V_TEXT_CHARS of what the model heard."""
+    import numpy as np
+
+    from tortoise_tpu_torch.utils.wav2vec_alignment import Wav2VecAlignment, _bracket_segments
+
+    preset, _, seed = REQUESTS[0]
+    h = heard[:W2V_TEXT_CHARS]
+    third = len(h) // 3
+    text = f"{h[:third]}[{h[third:2 * third]}]{h[2 * third:]}"
+    aligner = Wav2VecAlignment(logits_fn=fn, device="cuda")
+    given = {}
+    redact = aligner.redact
+
+    def spy(audio, expected_text, audio_sample_rate=24000):
+        given["audio"] = np.array(audio)
+        return redact(audio, expected_text, audio_sample_rate)
+
+    aligner.redact = spy
+    tts.aligner = aligner
+    res, wav = _quality_request(tts, clips, preset, text, seed, launches, whole=False)
+    full = given["audio"].reshape(-1)
+    segments = _bracket_segments(text)
+    offsets = aligner.align(full, "".join(seg for seg, _ in segments))
+    kept, pos = [], 0
+    for seg, bracketed in segments:
+        if not bracketed and seg:
+            kept.append(full[offsets[pos]:offsets[max(0, pos + len(seg) - 1)]])
+        pos += len(seg)
+    want = np.concatenate(kept)
+    got = wav[0, 0].numpy()
+    res.update(unredacted_samples=full.shape[0], redacted_samples=got.shape[0],
+               redact_finalize_s=res["stages_s"]["redact_finalize"])
+    print("redacted request", json.dumps({k: res[k] for k in (
+        "text", "wall_s", "unredacted_samples", "redacted_samples", "redact_finalize_s")}))
+    if not got.shape[0] < full.shape[0] or not np.array_equal(got, want):
+        raise AssertionError(f"redaction: {got.shape[0]} samples of {full.shape[0]}, "
+                             f"the kept spans of align are {want.shape[0]}")
+    tts.aligner = None
+    record["redacted_request"] = res
+
+
+def _check_cvvp(tts, clips, launches: Launches, record: dict) -> None:
+    """Phase 12d: an ultra_fast request with cvvp_amount=0.5; CVVP's scores
+    of its candidates against each clip, held to the CPU float32 module on
+    the same (bf16-rounded) weights."""
+    import torch
+
+    from tortoise_tpu_torch.models.cvvp import CVVP
+
+    preset, text, seed = REQUESTS[0]
+    tts.load_cvvp()
+    calls = []
+    score = tts.cvvp.score_candidates
+
+    def spy(mel, codes):
+        out = score(mel, codes)
+        calls.append((mel.float().cpu(), codes.cpu(), out.float().cpu()))
+        return out
+
+    tts.cvvp.score_candidates = spy
+    res, _ = _quality_request(tts, clips, preset, text, seed, launches, cvvp_amount=0.5)
+    cpu = CVVP(tts.cvvp.config)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in tts.cvvp.state_dict().items()})
+    cpu.eval()
+    n = cpu.config.mel_codes
+    codes = calls[0][1]
+    bad = ((codes < 0) | (codes >= n)).any(dim=1)
+    err = 0.0
+    with torch.inference_mode():
+        sl = cpu.speech_latents(codes.clamp(0, n - 1))
+        for mel, c, got in calls:
+            want = (sl @ cpu.cond_latents(mel)[0]) * cpu.temperature.exp()
+            if not torch.equal(c, codes) or not torch.equal(torch.isneginf(got), bad):
+                raise AssertionError("CVVP: the candidates or their -inf scores differ")
+            err = max(err, float((got[~bad] - want[~bad]).abs().max()) if (~bad).any() else 0.0)
+    res.update(candidates=codes.shape[0], clips=len(calls), max_abs_err=err,
+               bound=CVVP_ABS_BOUND, cvvp_rerank_s=res["stages_s"]["cvvp_rerank"])
+    print("CVVP request", json.dumps({k: res[k] for k in (
+        "wall_s", "candidates", "clips", "max_abs_err", "bound", "cvvp_rerank_s")}))
+    if len(calls) != len(clips) or err > CVVP_ABS_BOUND:
+        raise AssertionError(f"CVVP: {len(calls)} calls, scores off the CPU's by {err:.3g}")
+    record["cvvp_request"] = res
+
+
+def _check_classifier(wav24k, record: dict) -> None:
+    """Phase 12e: the classifier at full width (seeded random weights, as
+    api.classify_audio_clip loads them) on the 23.2 s clip, against its
+    float32 forward on the CPU."""
+    import torch
+
+    from tortoise_tpu_torch import weights as weights_lib
+    from tortoise_tpu_torch.models.classifier import (AudioMiniEncoderWithClassifierHead,
+                                                      classify_audio_clip)
+
+    with torch.device("cuda"):
+        model = AudioMiniEncoderWithClassifierHead()
+    weights_lib.load_weights("classifier", model, None, True, 7)
+    model.eval()
+    prob = classify_audio_clip(wav24k, model)
+    cpu = AudioMiniEncoderWithClassifierHead()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = classify_audio_clip(wav24k, cpu.eval())
+    with torch.inference_mode():
+        x = torch.as_tensor(wav24k, device="cuda")[None, :, None]
+        ms = _time_ms(lambda: model(x), 5)
+        dev_ms = _device_ms(lambda: model(x), 5)
+    res = {"samples": int(wav24k.shape[0]), "prob": prob, "cpu_prob": want,
+           "abs_err": abs(prob - want), "bound": CLASSIFIER_ABS_BOUND, "forward_ms": ms,
+           "forward_device_ms": dev_ms}
+    print("classifier", json.dumps(res))
+    if not 0.0 <= prob <= 1.0 or abs(prob - want) > CLASSIFIER_ABS_BOUND:
+        raise AssertionError(f"classifier: {res}")
+    record["classifier"] = res
+
+
+def _run_quality_clis(models_dir: str, record: dict) -> None:
+    """Phase 12f: is_this_from_tortoise on phase 10's wav, and eval --cer
+    over a one-line TSV (a text and a train_dotrice clip), its wav2vec2 the
+    phase's seeded checkpoint in ``models_dir``."""
+    import math
+
+    from scipy.io.wavfile import read as wav_read
+
+    from tortoise_tpu_torch.apps import eval as eval_cli
+    from tortoise_tpu_torch.apps import is_this_from_tortoise as detect_cli
+    from tortoise_tpu_torch.utils.audio import BUILTIN_VOICES_DIR
+
+    res = {}
+    t0 = time.perf_counter()
+    prob = detect_cli.main(["--clip", os.path.join(ROOT, "build", "cli.wav")])
+    res["is_this_from_tortoise"] = {"wall_s_with_init": time.perf_counter() - t0, "prob": prob}
+    if not 0.0 <= prob <= 1.0:
+        raise AssertionError(f"is_this_from_tortoise: probability {prob}")
+
+    tsv = os.path.join(ROOT, "build", "eval_lines.tsv")
+    out = os.path.join(ROOT, "build", "eval_out")
+    clip = os.path.join(BUILTIN_VOICES_DIR, "train_dotrice", "1.wav")
+    with open(tsv, "w", encoding="utf-8") as f:
+        f.write(f"{REQUESTS[0][1]}\t{clip}\n")
+    argv = ["--eval_path", tsv, "--output_path", out, "--preset", "ultra_fast", "--cer",
+            "--model_dir", models_dir]
+    t0 = time.perf_counter()
+    rows = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "results.tsv"), encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    sr, wav = wav_read(os.path.join(out, "0.wav"))
+    res["eval"] = {"argv": argv, "wall_s_with_init": wall, "results": lines,
+                   "samples": int(wav.shape[0])}
+    print("quality CLIs", json.dumps(res))
+    if (not rows or len(lines) != 1 or not math.isfinite(rows[0][1]) or rows[0][1] < 0
+            or sr != 24000 or not wav.size):
+        raise AssertionError(f"eval --cer: {res['eval']}")
+    record["quality_clis"] = res
+
+
+def run_quality_api_rest(clips, record: dict, launches: Launches) -> None:
+    """Phase 12, the quality API's remaining paths (redaction, CVVP, the
+    classifier and their CLIs), counted as one path."""
+    import warnings
+
+    import torch
+
+    from tortoise_tpu_torch.api import TextToSpeech
+
+    preset, text, seed = REQUESTS[0]
+    models_dir = os.path.join(ROOT, "build", "w2v_models")
+    t0 = time.perf_counter()
+    tts = TextToSpeech(device="cuda")
+    record["phase12_init_s"] = time.perf_counter() - t0
+    if not tts.enable_redaction or tts.aligner is None:
+        raise AssertionError("TextToSpeech(): redaction is not on by default")
+    launches.reset()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, wav = _quality_request(tts, clips, preset, "[I am really sad,] " + text, seed,
+                                    launches)
+    said = [str(w.message) for w in caught if "redaction disabled" in str(w.message)]
+    res["warned"] = said
+    print("bracketed request without wav2vec2", json.dumps({k: res[k] for k in (
+        "wall_s", "audio_s", "warned")}))
+    if len(said) != 1 or tts.aligner is not None:
+        raise AssertionError(f"bracketed request without a checkpoint: warnings {said}, "
+                             f"aligner {tts.aligner!r}")
+    record["unredacted_request"] = res
+    wav24k = wav[0, 0].numpy()
+
+    model, fn, heard = _check_wav2vec2(wav24k, models_dir, record)
+    _check_redaction(tts, clips, fn, heard, launches, record)
+    del model, fn
+    _check_cvvp(tts, clips, launches, record)
+    _check_classifier(wav24k, record)
+    del tts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _run_quality_clis(models_dir, record)
+    counts = launches.read()
+    launches.add(counts)
+    record["phase12_launches"] = counts
+    print("quality API path launches", json.dumps(counts))
+    if min(counts[_k2_row_name("bf16")], counts[K3_NAME], counts[K4_NAME]) <= 0:
+        raise AssertionError(f"phase 12's requests did not launch K2, K3 and K4: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1359,6 +1726,9 @@ def main() -> int:
     run_quality_int8(clips, record, launches)
     run_quality_f32_cache(clips, record, launches)
     run_cli(record, launches)
+    # phase 12 before phase 11: profile_ar_step's profiler passes come after
+    # every timing of the process
+    run_quality_api_rest(clips, record, launches)
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
 

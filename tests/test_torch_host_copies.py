@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_weights import LAYERS, REFERENCE
+from test_torch_weights import CLS, LAYERS, REFERENCE
 from tortoise_tpu.convert import torch_import as jax_ti
 from tortoise_tpu.diffusion import schedule as jax_schedule
 from tortoise_tpu.utils import audio as jax_audio
@@ -77,6 +77,10 @@ PORT_CONVERTERS = {
     "clvp": port_ti.clvp_params, "vocoder": port_ti.univnet_params,
     "hifidecoder": port_ti.hifigan_params, "rlg_auto": port_ti.rlg_params,
     "rlg_diffuser": port_ti.rlg_params,
+    "cvvp": lambda s: port_ti.cvvp_params(s, cond_depth=LAYERS, speech_depth=LAYERS),
+    "classifier": lambda s: port_ti.classifier_params(s, depth=CLS["depth"],
+                                                      attn_blocks=CLS["attn_blocks"]),
+    "wav2vec2": lambda s: port_ti.wav2vec2_params(s, num_layers=LAYERS, num_convs=2),
 }
 
 

@@ -1,6 +1,7 @@
-"""The PyTorch port imports no jax, flax, HF tokenizers or JAX package.
+"""The PyTorch port imports no jax, flax, HF tokenizers, HF transformers or
+JAX package.
 
-The machine with the GPU has none of the first three, and the port keeps its
+The machine with the GPU has none of the first four, and the port keeps its
 own copies of what it needs from the JAX package (``tortoise_tpu``), even of
 its modules that import no jax. A subprocess is needed: this pytest process
 has imported jax already (tests/conftest.py).
@@ -26,7 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKER = textwrap.dedent("""
     import sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "tokenizers", "tortoise_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "tokenizers", "transformers", "tortoise_tpu"}
 
     class Blocker:
         def find_spec(self, name, path=None, target=None):
@@ -41,7 +42,7 @@ BLOCKER = textwrap.dedent("""
 
 def run_without_jax(code: str) -> subprocess.CompletedProcess:
     """Run ``code`` in a fresh interpreter in which jax, jaxlib, flax,
-    tokenizers and the JAX package cannot be imported."""
+    tokenizers, transformers and the JAX package cannot be imported."""
     return subprocess.run([sys.executable, "-c", BLOCKER + textwrap.dedent(code)],
                           capture_output=True, text=True, timeout=120, cwd=ROOT)
 
@@ -76,7 +77,10 @@ def imported() -> dict:
 def test_the_walk_finds_the_port():
     assert {"tortoise_tpu_torch.api", "tortoise_tpu_torch.api_fast",
             "tortoise_tpu_torch.apps.main", "tortoise_tpu_torch.ops.lvc",
-            "tortoise_tpu_torch.native", "chip_smoke"} <= set(MODULES)
+            "tortoise_tpu_torch.native", "chip_smoke", "tortoise_tpu_torch.models.wav2vec2",
+            "tortoise_tpu_torch.utils.wav2vec_alignment", "tortoise_tpu_torch.models.cvvp",
+            "tortoise_tpu_torch.models.classifier", "tortoise_tpu_torch.apps.eval",
+            "tortoise_tpu_torch.apps.is_this_from_tortoise"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -87,6 +91,11 @@ def test_port_imports_without_jax(module, imported):
 def test_blocker_really_blocks():
     proc = run_without_jax("import jax")
     assert proc.returncode != 0 and "blocked import of jax" in proc.stderr
+
+
+def test_blocker_blocks_transformers():
+    proc = run_without_jax("import transformers")
+    assert proc.returncode != 0 and "blocked import of transformers" in proc.stderr
 
 
 @pytest.mark.parametrize("name", ["tortoise_tpu", "tortoise_tpu.presets",

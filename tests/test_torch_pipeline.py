@@ -38,6 +38,7 @@ AR = dict(layers=2, model_dim=128, heads=4, max_text_tokens=60, max_mel_tokens=8
 DIFF = dict(model_channels=128, num_layers=2, in_latent_channels=128, num_heads=4)
 CLVP = dict(dim_text=128, dim_speech=128, dim_latent=128, text_enc_depth=2, text_heads=4,
             speech_enc_depth=2, speech_heads=4)
+CVVP_KW = dict(model_dim=64, transformer_heads=4, conditioning_enc_depth=2, speech_enc_depth=2)
 
 
 def _t(a, dtype=torch.float32):
@@ -213,12 +214,115 @@ def test_tts_with_preset_end_to_end(pair):
 
 
 def test_unported_options_raise(pair):
-    _, ptts = pair
-    with pytest.raises(NotImplementedError, match="redaction"):
-        papi.TextToSpeech(device="cpu", enable_redaction=True)
-    with pytest.raises(NotImplementedError, match="CVVP"):
-        ptts.tts(TEXT, conditioning_latents=(np.zeros((1, 128)), np.zeros((1, 256))),
-                 cvvp_amount=0.5, verbose=False)
+    """The one refusal left of the options that once raised: cvvp_amount=1
+    with no conditioning mels (latents given, not voice clips) raises the
+    JAX package's ValueError, as tests/test_api_quality.py holds it to."""
+    jtts, ptts = pair
+    kw = dict(conditioning_latents=(np.zeros((1, 128)), np.zeros((1, 256))), cvvp_amount=1.0,
+              num_autoregressive_samples=2, diffusion_iterations=2, max_mel_tokens=16,
+              use_deterministic_seed=5, verbose=False)
+    with pytest.raises(ValueError, match="cvvp_amount=1") as got:
+        ptts.tts(TEXT, **kw)
+    with pytest.raises(ValueError, match="cvvp_amount=1") as want:
+        jtts.tts(TEXT, **kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_redaction_defaults_on_and_degrades_without_weights(tmp_path):
+    """enable_redaction defaults to True (reference api.py:196); with no
+    wav2vec2 checkpoint the first bracketed request warns, returns finite
+    unredacted audio and drops the aligner, as the JAX package does
+    (tests/test_api_quality.py)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tts = papi.TextToSpeech(
+            device="cpu", autoregressive_batch_size=2, half=False, models_dir=str(tmp_path),
+            ar_config=UnifiedVoiceConfig(**AR), diffusion_config=DiffusionTtsConfig(**DIFF),
+            clvp_config=CLVPConfig(**CLVP))
+    assert tts.enable_redaction is True and tts.aligner is not None
+    assert tts.aligner.device == torch.device("cpu")
+    kw = dict(num_autoregressive_samples=2, diffusion_iterations=2, cond_free=False,
+              max_mel_tokens=16, use_deterministic_seed=13, verbose=False)
+    with pytest.warns(UserWarning, match="redaction disabled"):
+        wav = tts.tts("[I am sad,] Hello there.", **kw)
+    assert tts.aligner is None  # no retry on every call
+    assert wav.shape[:2] == (1, 1) and wav.shape[2] % 256 == 0 and torch.isfinite(wav).all()
+    assert "redact_finalize" in tts.last_stage_timings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(tts.tts("[I am sad,] Hello there.", **kw), wav)
+
+
+@pytest.fixture(scope="module")
+def with_cvvp(pair, monkeypatch_module):
+    """The pair with CVVP at 64 wide, depth 2: the JAX side's load_cvvp (its
+    random weights, seed 4) at that config, the port's carrying them."""
+    from tortoise_tpu.models.cvvp import CVVPConfig as JaxCVVPConfig
+    from tortoise_tpu_torch.models.cvvp import CVVP, CVVPConfig
+
+    jtts, ptts = pair
+    monkeypatch_module.setattr(japi, "CVVPConfig", lambda: JaxCVVPConfig(**CVVP_KW))
+    jtts.load_cvvp()
+    ptts.cvvp = CVVP(CVVPConfig(**CVVP_KW))
+    ptts.cvvp.load_state_dict(from_jax(ptts.cvvp, jtts.cvvp_vars["params"]))
+    ptts.cvvp.eval()
+    return jtts, ptts
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    mp = pytest.MonkeyPatch()
+    yield mp
+    mp.undo()
+
+
+@pytest.mark.parametrize("amount", [0.5, 1.0])
+def test_cvvp_mix_matches_jax(with_cvvp, amount, monkeypatch):
+    """tts with voice clips and cvvp_amount in {0.5, 1}: the port's CVVP
+    scores of each candidate against each clip equal the JAX _cvvp_scores on
+    the same mels and codes, and the candidate that goes on to the diffusion
+    is the best of the JAX package's mix of CVVP (mean over the clips) and
+    CLVP scores."""
+    jtts, ptts = with_cvvp
+    seen = {"cvvp": [], "clvp": [], "best": []}
+
+    def spy(fn, key):
+        def wrapped(*args):
+            out = fn(*args)
+            seen[key].append([a.detach().clone() for a in args] + [out.detach().clone()])
+            return out
+        return wrapped
+
+    monkeypatch.setattr(ptts.cvvp, "score_candidates", spy(ptts.cvvp.score_candidates, "cvvp"))
+    monkeypatch.setattr(ptts.clvp, "score_candidates", spy(ptts.clvp.score_candidates, "clvp"))
+    trim = papi.calm_token_trim_length
+    monkeypatch.setattr(papi, "calm_token_trim_length",
+                        lambda codes: seen["best"].append(codes.copy()) or trim(codes))
+    clips, _ = load_voice("train_dotrice")
+    wav = ptts.tts(TEXT, voice_samples=clips, cvvp_amount=amount, num_autoregressive_samples=2,
+                   diffusion_iterations=2, max_mel_tokens=16, use_deterministic_seed=21,
+                   verbose=False)
+    assert torch.isfinite(wav).all() and "cvvp_rerank" in ptts.last_stage_timings
+    assert len(seen["cvvp"]) == len(clips) and len(seen["clvp"]) == (amount != 1)
+    assert ("clvp_rerank" in ptts.last_stage_timings) == (amount != 1)
+    codes = seen["cvvp"][0][1].numpy()
+    ok = (codes < 8192).all(axis=1)  # out-of-vocabulary candidates score -inf in the port
+    jcvvp = []
+    for mel, c, got in seen["cvvp"]:
+        assert np.array_equal(c.numpy(), codes)
+        want = np.asarray(jtts._cvvp_scores(jnp.asarray(np.repeat(mel.numpy(), len(codes), 0)),
+                                            jnp.asarray(np.minimum(codes, 8191))))
+        np.testing.assert_allclose(got.numpy()[ok], want[ok], rtol=1e-4, atol=1e-4)
+        assert np.isneginf(got.numpy()[~ok]).all()
+        jcvvp.append(want)
+    mix = np.mean(jcvvp, axis=0)
+    if amount != 1:
+        text, c, _ = seen["clvp"][0]
+        jclvp = np.asarray(jtts._clvp_scores(jnp.asarray(text.numpy()),
+                                             jnp.asarray(np.minimum(c.numpy(), 8191))))
+        mix = mix * amount + jclvp * (1 - amount)
+    mix = np.where(ok, mix, -np.inf)
+    np.testing.assert_array_equal(seen["best"][0], codes[np.argmax(mix)])
 
 
 def test_tts_without_voice_uses_random_latents(pair):

@@ -102,9 +102,52 @@ def _jax_rlg(channels):
     return make
 
 
+CVVP_KW = dict(model_dim=D, transformer_heads=HEADS, conditioning_enc_depth=LAYERS,
+               speech_enc_depth=LAYERS)
+
+
+def _jax_cvvp():
+    from tortoise_tpu.models.cvvp import CVVP, CVVPConfig
+    from tortoise_tpu_torch.models.cvvp import CVVP as P
+    from tortoise_tpu_torch.models.cvvp import CVVPConfig as PC
+
+    jm = CVVP(CVVPConfig(**CVVP_KW))
+    return (jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 80)),
+                    jnp.zeros((1, 8), jnp.int32))["params"], P(PC(**CVVP_KW)))
+
+
+CLS = dict(embedding_dim=32, base_channels=8, depth=LAYERS, attn_blocks=2)
+
+
+def _jax_classifier():
+    from tortoise_tpu.models.classifier import (AudioMiniEncoderWithClassifierHead,
+                                                ClassifierConfig)
+    from tortoise_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead as P
+    from tortoise_tpu_torch.models.classifier import ClassifierConfig as PC
+
+    jm = AudioMiniEncoderWithClassifierHead(ClassifierConfig(**CLS))
+    return jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 1)))["params"], P(PC(**CLS))
+
+
+# the SMALL config of tests/test_wav2vec2_parity.py
+W2V = dict(vocab_size=11, hidden_size=32, num_layers=LAYERS, num_heads=4, intermediate_size=64,
+           conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
+           num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+def _jax_wav2vec2():
+    from tortoise_tpu.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
+    from tortoise_tpu_torch.models.wav2vec2 import Wav2Vec2Config as PC
+    from tortoise_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC as P
+
+    jm = Wav2Vec2ForCTC(Wav2Vec2Config(**W2V))
+    return jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 3200)))["params"], P(PC(**W2V))
+
+
 MODELS = {"autoregressive": _jax_ar, "diffusion_decoder": _jax_diffusion, "clvp": _jax_clvp,
           "vocoder": _jax_vocoder, "autoregressive_int8": _jax_ar_int8,
-          "hifidecoder": _jax_hifigan, "rlg_auto": _jax_rlg(D), "rlg_diffuser": _jax_rlg(2 * D)}
+          "hifidecoder": _jax_hifigan, "rlg_auto": _jax_rlg(D), "rlg_diffuser": _jax_rlg(2 * D),
+          "cvvp": _jax_cvvp, "classifier": _jax_classifier, "wav2vec2": _jax_wav2vec2}
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -267,9 +310,118 @@ def _ref_rlg(channels):
     return make
 
 
+def _xtransformer(sd, p, dim, heads, depth, ff_mult, wrap):
+    """reference x-transformers Encoder layers under ``p`` (CheckpointedLayer
+    '.wrap' indirection when ``wrap``)."""
+    inner, ff = heads * 64, int(dim * ff_mult)
+    sd.update({f"{p}.norm.weight": _r(dim), f"{p}.norm.bias": _r(dim)})
+    for d in range(depth):
+        a, f = f"{p}.attn_layers.layers.{2 * d}", f"{p}.attn_layers.layers.{2 * d + 1}"
+        sd.update({f"{a}.0.0.g": _r(dim), f"{f}.0.0.g": _r(dim),
+                   f"{a}.1{wrap}.to_q.weight": _r(inner, dim),
+                   f"{a}.1{wrap}.to_k.weight": _r(inner, dim),
+                   f"{a}.1{wrap}.to_v.weight": _r(inner, dim),
+                   f"{a}.1{wrap}.to_out.weight": _r(dim, inner),
+                   f"{a}.1{wrap}.to_out.bias": _r(dim),
+                   f"{f}.1{wrap}.net.0.proj.weight": _r(2 * ff, dim),
+                   f"{f}.1{wrap}.net.0.proj.bias": _r(2 * ff),
+                   f"{f}.1{wrap}.net.3.weight": _r(dim, ff), f"{f}.1{wrap}.net.3.bias": _r(dim)})
+
+
+def _ref_cvvp():
+    """reference CVVP: two conditioning convs, CollapsingTransformers
+    (unwrapped x-transformers, ff_mult 1, pre_combiner conv/attention/conv),
+    the speech codes' embedding under speech_emb.emb."""
+    sd = {"cond_emb.0.weight": _r(D // 2, 80, 5), "cond_emb.0.bias": _r(D // 2),
+          "cond_emb.1.weight": _r(D, D // 2, 3), "cond_emb.1.bias": _r(D),
+          "to_conditioning_latent.weight": _r(D, D), "to_speech_latent.weight": _r(D, D),
+          "speech_emb.emb.weight": _r(8192, D), "temperature": torch.tensor(1.0)}
+    for enc in ("conditioning_transformer", "speech_transformer"):
+        _xtransformer(sd, f"{enc}.transformer", D, HEADS, LAYERS, 1.0, "")
+        sd.update({f"{enc}.pre_combiner.0.weight": _r(D, D, 1),
+                   f"{enc}.pre_combiner.0.bias": _r(D),
+                   f"{enc}.pre_combiner.2.weight": _r(D, D, 1),
+                   f"{enc}.pre_combiner.2.bias": _r(D)})
+        _attn_block(sd, f"{enc}.pre_combiner.1", D, HEADS, rel=False)
+    return sd, lambda s: ti.cvvp_params(s, cond_depth=LAYERS, speech_depth=LAYERS)
+
+
+def _ref_classifier():
+    """reference AudioMiniEncoderWithClassifierHead: init conv, a ResBlock
+    pyramid with strided-conv downsamples (enc.res.{i}.op), final norm and
+    1x1 conv, attention blocks, linear head."""
+    k, ch = 5, CLS["base_channels"]
+    emb = CLS["embedding_dim"]
+    sd = {"enc.init.0.weight": _r(ch, 1, 3), "enc.init.0.bias": _r(ch),
+          "head.weight": _r(2, emb), "head.bias": _r(2)}
+    idx = 0
+    for _ in range(CLS["depth"]):
+        for _ in range(2):
+            p = f"enc.res.{idx}"
+            sd.update({f"{p}.in_layers.0.weight": _r(ch), f"{p}.in_layers.0.bias": _r(ch),
+                       f"{p}.in_layers.2.weight": _r(ch, ch, k), f"{p}.in_layers.2.bias": _r(ch),
+                       f"{p}.out_layers.0.weight": _r(ch), f"{p}.out_layers.0.bias": _r(ch),
+                       f"{p}.out_layers.3.weight": _r(ch, ch, k),
+                       f"{p}.out_layers.3.bias": _r(ch)})
+            idx += 1
+        sd.update({f"enc.res.{idx}.op.weight": _r(2 * ch, ch, 5),
+                   f"enc.res.{idx}.op.bias": _r(2 * ch)})
+        idx += 1
+        ch *= 2
+    sd.update({"enc.final.0.weight": _r(ch), "enc.final.0.bias": _r(ch),
+               "enc.final.2.weight": _r(emb, ch, 1), "enc.final.2.bias": _r(emb)})
+    for a in range(CLS["attn_blocks"]):
+        _attn_block(sd, f"enc.attn.{a}", emb, 4, rel=False)
+    return sd, lambda s: ti.classifier_params(s, depth=CLS["depth"],
+                                              attn_blocks=CLS["attn_blocks"])
+
+
+def _ref_wav2vec2(naming="weight_g"):
+    """HF Wav2Vec2ForCTC (stable layer norm, layer-norm feature extractor) at
+    W2V, built by hand: the positional conv's weight norm (dim=2) under the
+    old ``weight_g``/``weight_v`` keys or torch>=2.1's parametrization keys;
+    ``masked_spec_embed`` is a training parameter the converter skips."""
+    c, ff, k = W2V["hidden_size"], W2V["intermediate_size"], W2V["num_conv_pos_embeddings"]
+    sd = {"wav2vec2.masked_spec_embed": _r(c),
+          "wav2vec2.feature_projection.layer_norm.weight": _r(16),
+          "wav2vec2.feature_projection.layer_norm.bias": _r(16),
+          "wav2vec2.feature_projection.projection.weight": _r(c, 16),
+          "wav2vec2.feature_projection.projection.bias": _r(c),
+          "wav2vec2.encoder.layer_norm.weight": _r(c), "wav2vec2.encoder.layer_norm.bias": _r(c),
+          "wav2vec2.encoder.pos_conv_embed.conv.bias": _r(c),
+          "lm_head.weight": _r(W2V["vocab_size"], c), "lm_head.bias": _r(W2V["vocab_size"])}
+    g, v = _r(1, 1, k).abs() + 0.5, _r(c, c // W2V["num_conv_pos_embedding_groups"], k)
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    if naming == "weight_g":
+        sd.update({f"{pc}.weight_g": g, f"{pc}.weight_v": v})
+    else:
+        sd.update({f"{pc}.parametrizations.weight.original0": g,
+                   f"{pc}.parametrizations.weight.original1": v})
+    in_ch = 1
+    for i, (o, kk) in enumerate(zip(W2V["conv_dim"], W2V["conv_kernel"])):
+        p = f"wav2vec2.feature_extractor.conv_layers.{i}"
+        sd.update({f"{p}.conv.weight": _r(o, in_ch, kk), f"{p}.conv.bias": _r(o),
+                   f"{p}.layer_norm.weight": _r(o), f"{p}.layer_norm.bias": _r(o)})
+        in_ch = o
+    for i in range(W2V["num_layers"]):
+        p = f"wav2vec2.encoder.layers.{i}"
+        for n in ("layer_norm", "final_layer_norm"):
+            sd.update({f"{p}.{n}.weight": _r(c), f"{p}.{n}.bias": _r(c)})
+        for m in ("q", "k", "v", "out"):
+            sd.update({f"{p}.attention.{m}_proj.weight": _r(c, c),
+                       f"{p}.attention.{m}_proj.bias": _r(c)})
+        sd.update({f"{p}.feed_forward.intermediate_dense.weight": _r(ff, c),
+                   f"{p}.feed_forward.intermediate_dense.bias": _r(ff),
+                   f"{p}.feed_forward.output_dense.weight": _r(c, ff),
+                   f"{p}.feed_forward.output_dense.bias": _r(c)})
+    return sd, lambda s: ti.wav2vec2_params(s, num_layers=W2V["num_layers"],
+                                            num_convs=len(W2V["conv_dim"]))
+
+
 REFERENCE = {"autoregressive": _ref_autoregressive, "diffusion_decoder": _ref_diffusion,
              "clvp": _ref_clvp, "vocoder": _ref_vocoder, "hifidecoder": _ref_hifigan,
-             "rlg_auto": _ref_rlg(D), "rlg_diffuser": _ref_rlg(2 * D)}
+             "rlg_auto": _ref_rlg(D), "rlg_diffuser": _ref_rlg(2 * D), "cvvp": _ref_cvvp,
+             "classifier": _ref_classifier, "wav2vec2": _ref_wav2vec2}
 
 
 @pytest.mark.parametrize("name", list(REFERENCE))
@@ -300,7 +452,7 @@ def test_load_weights_reads_a_reference_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["autoregressive", "diffusion_decoder", "clvp", "hifidecoder",
-                                  "rlg_auto"])
+                                  "rlg_auto", "cvvp", "classifier", "wav2vec2"])
 def test_reference_checkpoint_loads_without_jax(name, tmp_path):
     """Where neither jax nor the JAX package can be imported (the GPU
     machine), the port's own converters (layers stacked with numpy) give
@@ -324,6 +476,30 @@ def test_reference_checkpoint_loads_without_jax(name, tmp_path):
     assert set(got) == set(want)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+
+
+def test_wav2vec2_weight_norm_namings():
+    """The positional conv's weight norm folds over dim 2 (the kernel axis)
+    the same under both key namings, in the port's converter and the JAX
+    package's, and the grouped kernel lands in the port's (out, in/groups,
+    K) weight."""
+    from tortoise_tpu_torch.convert import torch_import as port_ti
+
+    torch.manual_seed(0)
+    old, _ = _ref_wav2vec2("weight_g")
+    torch.manual_seed(0)
+    new, _ = _ref_wav2vec2("parametrizations")
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    want = ti.fold_weight_norm(old[f"{pc}.weight_g"], old[f"{pc}.weight_v"], dim=2)
+    np.testing.assert_allclose(np.linalg.norm(want[:, :, 3]),
+                               old[f"{pc}.weight_g"][0, 0, 3].item(), rtol=1e-5)
+    _, port = MODELS["wav2vec2"]()
+    for sd in (old, new):
+        for conv in (port_ti.wav2vec2_params, ti.wav2vec2_params):
+            params = conv(sd, num_layers=LAYERS, num_convs=2)
+            got = from_jax(port, params)["pos_conv.weight"]
+            assert got.shape == (32, 8, 16)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
 def test_random_init_is_seeded_and_full():

@@ -6,7 +6,8 @@ batched AR candidate decode (kernel K2 per step on CUDA); stop-token repair
 and CLVP re-ranking; teacher-forced latent re-extraction for the winners;
 DiffusionTts sampling (kernel K3 in its 13 per-step attention blocks on
 CUDA); UnivNet vocoding (kernel K4 in its 12 location-variable
-convolutions on CUDA). With K2 off (``gpt_fused_step=False``, the only
+convolutions on CUDA); redaction of ``[bracketed]`` text by the wav2vec2
+aligner. With K2 off (``gpt_fused_step=False``, the only
 decode for ``kv_cache_dtype="f32"``) each decode step runs the layer stack,
 whose per-layer attention is kernel K1 on CUDA.
 
@@ -14,8 +15,10 @@ Options as in the JAX package: ``kv_cache_dtype="int8"`` (int8 rows plus
 f32 scales, about 0.53x the bf16 cache's bytes per candidate) and
 ``gpt_weights`` "bf16" | "int8" (int8 block denses everywhere) |
 "int8_decode" (bf16 model, int8 weights only in K2's stack); ``tts``
-without a voice draws random voice latents. Not ported yet (ROADMAP.md):
-CVVP re-ranking, redaction.
+without a voice draws random voice latents; ``cvvp_amount`` mixes CVVP's
+scores into CLVP's. Module level: ``classify_audio_clip`` (the
+Tortoise-detect classifier), ``load_discrete_vocoder_diffuser`` and
+``pad_or_truncate``, as in the reference's api.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ from tortoise_tpu_torch.diffusion.sampler import (SamplerConfig, ddim_sample_loo
                                                   p_sample_loop)
 from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, sample_speech
 from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
+from tortoise_tpu_torch.models.classifier import ClassifierConfig
 from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
+from tortoise_tpu_torch.models.cvvp import CVVP, CVVPConfig
 from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts, DiffusionTtsConfig
 from tortoise_tpu_torch.models.random_latent import RandomLatentConverter, sample_random_latent
 from tortoise_tpu_torch.models.vocoder import UnivNetConfig, UnivNetGenerator
@@ -44,6 +49,7 @@ from tortoise_tpu_torch.utils import audio as audio_utils
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
 from tortoise_tpu_torch.utils.profiling import StageTimer
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
+from tortoise_tpu_torch.utils.wav2vec_alignment import Wav2VecAlignment
 
 CALM_TOKEN = 83  # mel code for silence (reference api.py:409)
 # T = 1024 cache rows cover the longest prompt of the shipped config plus 500
@@ -160,10 +166,6 @@ class TextToSpeech:
                  diffusion_config: DiffusionTtsConfig | None = None,
                  clvp_config: CLVPConfig | None = None):
         del kv_cache  # reference API compatibility: the cache is always on
-        if enable_redaction:
-            raise NotImplementedError(
-                "redaction (the wav2vec2 aligner) is not ported to tortoise_tpu_torch yet "
-                "(ROADMAP.md, Queue 1); pass enable_redaction=False")
         self.device = torch.device(device)
         is_cuda = self.device.type == "cuda"
         if is_cuda and not torch.cuda.is_available():
@@ -195,6 +197,13 @@ class TextToSpeech:
         self.mel_norms = mel_ops.load_mel_norms().to(self.device)
         self._models_dir, self._allow_random = models_dir, allow_random_weights
         self.rlg_auto = self.rlg_diffusion = None
+        self.cvvp = None
+        # Redaction is on by default, as in the reference (api.py:196). The
+        # aligner loads its wav2vec2 at the first bracketed request; with no
+        # checkpoint that request warns and returns unredacted audio.
+        self.enable_redaction = enable_redaction
+        self.aligner = (Wav2VecAlignment(models_dir=models_dir, device=self.device)
+                        if enable_redaction else None)
 
         def build(name, ctor, seed, dtype):
             with torch.device(self.device):
@@ -219,6 +228,14 @@ class TextToSpeech:
         self.autoregressive_batch_size = (
             autoregressive_batch_size
             or pick_best_batch_size_for_device(self.device, self.ar_cfg, self.kv_cache_dtype))
+
+    def load_cvvp(self):
+        """Load CVVP at its first use (reference api.py:252-256): seed 4 when
+        random, cast to the serving dtype."""
+        with torch.device(self.device):
+            model = CVVP(CVVPConfig())
+        weights_lib.load_weights("cvvp", model, self._models_dir, self._allow_random, 4)
+        self.cvvp = weights_lib.cast_for_inference(model, self.dtype).eval()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -325,10 +342,10 @@ class TextToSpeech:
             **unused_hf_kwargs):
         """Full quality pipeline. Returns a float32 (1, 1, S) CPU tensor at
         24 kHz, or a list of k of them. ``length_penalty`` only affects beam
-        search in the reference, which never runs: a no-op here too."""
-        if cvvp_amount:
-            raise NotImplementedError("CVVP re-ranking is not ported yet (ROADMAP.md); "
-                                      "use cvvp_amount=0")
+        search in the reference, which never runs: a no-op here too.
+        ``cvvp_amount`` in (0, 1] mixes CVVP's scores of the candidates
+        against each voice clip (their mean over the clips) into CLVP's; it
+        needs ``voice_samples``."""
         timer = StageTimer(enabled=True)
         det_seed = deterministic_state(use_deterministic_seed)
         gen = torch.Generator(device=self.device).manual_seed(det_seed)
@@ -348,10 +365,11 @@ class TextToSpeech:
             text_tokens = np.pad(text_tokens, ((0, 0), (0, tb - text_tokens.shape[1])))
         text_t = torch.as_tensor(text_tokens, device=dev)
 
+        auto_conds = None
         with timer.stage("conditioning"):
             if voice_samples is not None:
-                auto_latent, diff_latent = self.get_conditioning_latents(
-                    voice_samples, crop_rng=random.Random(det_seed))
+                auto_latent, diff_latent, auto_conds, _ = self.get_conditioning_latents(
+                    voice_samples, return_mels=True, crop_rng=random.Random(det_seed))
             elif conditioning_latents is not None:
                 auto_latent, diff_latent = (torch.as_tensor(c, device=dev).to(self.dtype)
                                             for c in conditioning_latents)
@@ -384,12 +402,33 @@ class TextToSpeech:
             samples = torch.cat(samples).cpu().numpy()
 
         if verbose:
-            print("Computing best candidates using CLVP")
+            print("Computing best candidates using CLVP" +
+                  ("" if cvvp_amount == 0 else f" {(1 - cvvp_amount) * 100:2.0f}% and "
+                                               f"CVVP {cvvp_amount * 100:2.0f}%"))
         stop = cfg.stop_mel_token
         fixed = np.stack([fix_autoregressive_output(s, stop, complain=verbose) for s in samples])
-        with timer.stage("clvp_rerank"):
-            scores = self.clvp.score_candidates(text_unbucketed, torch.as_tensor(fixed, device=dev))
-            scores = scores.float().cpu().numpy()
+        if cvvp_amount == 1 and auto_conds is None:
+            # the reference raises NameError here (tortoise/api.py:474-491
+            # leaves clvp_scores unbound); the JAX package's message instead
+            raise ValueError(
+                "cvvp_amount=1 requires conditioning mels (pass voice_samples, "
+                "not precomputed latents): CVVP scores candidates against the "
+                "reference clips, and with cvvp_amount=1 there is no CLVP "
+                "score to fall back on.")
+        fixed_t = torch.as_tensor(fixed, device=dev)
+        if cvvp_amount != 1:
+            with timer.stage("clvp_rerank"):
+                scores = self.clvp.score_candidates(text_unbucketed, fixed_t).float().cpu().numpy()
+        if auto_conds is not None and cvvp_amount > 0:
+            if self.cvvp is None:
+                self.load_cvvp()
+            with timer.stage("cvvp_rerank"):
+                n_clips = auto_conds.shape[1]
+                cvvp_scores = sum(
+                    self.cvvp.score_candidates(auto_conds[:, c], fixed_t).float().cpu().numpy()
+                    for c in range(n_clips)) / n_clips
+            scores = cvvp_scores if cvvp_amount == 1 else \
+                cvvp_scores * cvvp_amount + scores * (1 - cvvp_amount)
         best = fixed[np.argsort(scores)[::-1][:k]]
 
         with timer.stage("latent_reextraction"):
@@ -416,6 +455,8 @@ class TextToSpeech:
             with timer.stage("vocoder"):
                 wav = self._vocode_clip(mel.transpose(1, 2), gen)
                 wavs.append(wav[:, :, 0][:, None, :].float().cpu())
+        with timer.stage("redact_finalize"):
+            wavs = [self._potentially_redact(w, text) for w in wavs]
         if verbose:
             timer.report(print_it=True)
         self.last_stage_timings = timer.report()
@@ -424,5 +465,52 @@ class TextToSpeech:
             return res, (det_seed, text, voice_samples, conditioning_latents)
         return res
 
+    def _potentially_redact(self, clip, text):
+        """clip: (1, 1, S) -> the clip with its [bracketed] spans cut out.
+        With no wav2vec2 weights it warns once, drops the aligner and
+        returns the clip unredacted (the reference would fail on its hub
+        download; the JAX package degrades the same way)."""
+        if self.enable_redaction and self.aligner is not None:
+            try:
+                return torch.as_tensor(self.aligner.redact(clip[0].numpy(), text))[None]
+            except FileNotFoundError as e:
+                warnings.warn(
+                    f"redaction disabled - wav2vec2 aligner weights unavailable ({e}); "
+                    "returning unredacted audio. Pass enable_redaction=False to silence "
+                    "this.", stacklevel=3)
+                self.aligner = None
+        return clip
+
     def deterministic_state(self, seed=None):
         return deterministic_state(seed)
+
+
+# ---------------------------------------------------------------------------
+# Module-level API of the reference (tortoise/api.py)
+# ---------------------------------------------------------------------------
+
+def load_discrete_vocoder_diffuser(trained_diffusion_steps=4000, desired_diffusion_steps=200,
+                                   cond_free=True, cond_free_k=1):
+    """The reference's helper (api.py:64-70): the spaced schedule and the
+    sampler config that the port's sampling loops take."""
+    return (spaced_schedule("linear", trained_diffusion_steps, desired_diffusion_steps),
+            SamplerConfig(cond_free=cond_free, cond_free_k=cond_free_k))
+
+
+def classify_audio_clip(clip, models_dir=None, device="cuda",
+                        config: ClassifierConfig | None = None) -> float:
+    """Probability that a 24 kHz clip came from Tortoise (reference
+    api.py:133-145), through the Tortoise-detect classifier in float32 on
+    ``device`` (seed 7 when no checkpoint is found)."""
+    from tortoise_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
+    from tortoise_tpu_torch.models.classifier import classify_audio_clip as classify
+
+    with torch.device(device):
+        model = AudioMiniEncoderWithClassifierHead(config or ClassifierConfig())
+    weights_lib.load_weights("classifier", model, models_dir, True, 7)
+    return classify(clip, model.eval())
+
+
+def pad_or_truncate(t, length):
+    """The reference's helper (api.py:52-61)."""
+    return audio_utils.pad_or_truncate(np.asarray(t), length)

@@ -1,8 +1,9 @@
 """Torch checkpoint -> flax param pytree converters.
 
 A copy of the converters of ``tortoise_tpu/convert/torch_import.py`` that
-the port calls (UnifiedVoice, DiffusionTts, CLVP, UnivNet, HiFi-GAN and the
-random-latent generators), with the per-layer trees stacked by a numpy map
+the port calls (UnifiedVoice, DiffusionTts, CLVP, CVVP, UnivNet, HiFi-GAN,
+the random-latent generators, the Tortoise-detect classifier and the
+aligner's wav2vec2), with the per-layer trees stacked by a numpy map
 over nested dicts (``stack_layers``) instead of ``jax.tree.map``: the port
 imports nothing of jax or the JAX package. ``convert/from_jax.py`` then
 turns a tree into the port's ``state_dict``.
@@ -87,6 +88,22 @@ def attention_block_params(sd, prefix: str) -> dict:
     rel = f"{prefix}.relative_pos_embeddings.relative_attention_bias.weight"
     if rel in sd:
         p["rel_pos"] = {"embedding": t2n(sd[rel])}
+    return p
+
+
+def resblock_params(sd, prefix: str) -> dict:
+    """reference arch_util/classifier ResBlock -> blocks.ResBlock params."""
+    p = {
+        "GroupNorm32_0": _groupnorm(sd, f"{prefix}.in_layers.0"),
+        "in_conv": {"kernel": conv1d_kernel(sd[f"{prefix}.in_layers.2.weight"]),
+                    "bias": t2n(sd[f"{prefix}.in_layers.2.bias"])},
+        "GroupNorm32_1": _groupnorm(sd, f"{prefix}.out_layers.0"),
+        "out_conv": {"kernel": conv1d_kernel(sd[f"{prefix}.out_layers.3.weight"]),
+                     "bias": t2n(sd[f"{prefix}.out_layers.3.bias"])},
+    }
+    if f"{prefix}.skip_connection.weight" in sd:
+        p["skip_conv"] = {"kernel": conv1d_kernel(sd[f"{prefix}.skip_connection.weight"]),
+                          "bias": t2n(sd[f"{prefix}.skip_connection.bias"])}
     return p
 
 
@@ -293,6 +310,41 @@ def clvp_params(sd) -> dict:
     return p
 
 
+def _collapsing_transformer_params(sd, prefix: str, depth: int) -> dict:
+    return {
+        "transformer": xtransformer_encoder_params(sd, f"{prefix}.transformer",
+                                                   depth, wrapped=False),
+        "pre_conv": {"kernel": conv1x1_as_dense(sd[f"{prefix}.pre_combiner.0.weight"]),
+                     "bias": t2n(sd[f"{prefix}.pre_combiner.0.bias"])},
+        "pre_attn": attention_block_params(sd, f"{prefix}.pre_combiner.1"),
+        "post_conv": {"kernel": conv1x1_as_dense(sd[f"{prefix}.pre_combiner.2.weight"]),
+                      "bias": t2n(sd[f"{prefix}.pre_combiner.2.bias"])},
+    }
+
+
+def cvvp_params(sd, cond_depth: int = 8, speech_depth: int = 8) -> dict:
+    """reference CVVP -> models.cvvp.CVVP params."""
+    p = {
+        "cond_conv1": {"kernel": conv1d_kernel(sd["cond_emb.0.weight"]),
+                       "bias": t2n(sd["cond_emb.0.bias"])},
+        "cond_conv2": {"kernel": conv1d_kernel(sd["cond_emb.1.weight"]),
+                       "bias": t2n(sd["cond_emb.1.bias"])},
+        "conditioning_transformer": _collapsing_transformer_params(
+            sd, "conditioning_transformer", cond_depth),
+        "to_conditioning_latent": {"kernel": dense_kernel(sd["to_conditioning_latent.weight"])},
+        "speech_transformer": _collapsing_transformer_params(
+            sd, "speech_transformer", speech_depth),
+        "to_speech_latent": {"kernel": dense_kernel(sd["to_speech_latent.weight"])},
+        "temperature": t2n(sd["temperature"]).reshape(()),
+    }
+    if "speech_emb.emb.weight" in sd:
+        p["speech_emb"] = {"embedding": t2n(sd["speech_emb.emb.weight"])}
+    else:
+        p["speech_emb"] = {"kernel": conv1d_kernel(sd["speech_emb.weight"]),
+                           "bias": t2n(sd["speech_emb.bias"])}
+    return p
+
+
 def _timestep_resblock_params(sd, prefix: str) -> dict:
     """reference diffusion_decoder.ResBlock (efficient, scale-shift) ->
     models.diffusion_decoder.TimestepResBlock."""
@@ -377,3 +429,83 @@ def univnet_params(sd, n_blocks: int = 3, n_dilations: int = 4) -> dict:
             blk[f"conv_{j}"] = _wn_conv(sd, f"{rp}.conv_blocks.{j}.1")
         p[f"lvc_{i}"] = blk
     return p
+
+
+def classifier_params(sd, depth: int = 5, resnet_blocks: int = 2,
+                      attn_blocks: int = 4) -> dict:
+    """reference AudioMiniEncoderWithClassifierHead -> models.classifier params."""
+    enc = {"init": {"kernel": conv1d_kernel(sd["enc.init.0.weight"]),
+                    "bias": t2n(sd["enc.init.0.bias"])}}
+    idx = 0
+    for _ in range(depth):
+        for _ in range(resnet_blocks):
+            enc[f"res_{idx}"] = resblock_params(sd, f"enc.res.{idx}")
+            idx += 1
+        enc[f"down_{idx}"] = {"conv": {"kernel": conv1d_kernel(sd[f"enc.res.{idx}.op.weight"]),
+                                       "bias": t2n(sd[f"enc.res.{idx}.op.bias"])}}
+        idx += 1
+    enc["GroupNorm32_0"] = _groupnorm(sd, "enc.final.0")
+    enc["final"] = {"kernel": conv1d_kernel(sd["enc.final.2.weight"]),
+                    "bias": t2n(sd["enc.final.2.bias"])}
+    for a in range(attn_blocks):
+        enc[f"attn_{a}"] = attention_block_params(sd, f"enc.attn.{a}")
+    return {"enc": enc,
+            "head": {"kernel": dense_kernel(sd["head.weight"]),
+                     "bias": t2n(sd["head.bias"])}}
+
+
+def wav2vec2_params(sd, num_layers: int = 24, num_convs: int = 7) -> dict:
+    """HF Wav2Vec2ForCTC (stable-layer-norm, layer-norm-extractor variant:
+    the 'large-robust' architecture of the shipped aligner checkpoint,
+    reference wav2vec_alignment.py:48-57) -> models/wav2vec2 params."""
+    fe = {}
+    for i in range(num_convs):
+        cp = f"wav2vec2.feature_extractor.conv_layers.{i}"
+        fe[f"conv_{i}"] = {"kernel": conv1d_kernel(sd[f"{cp}.conv.weight"]),
+                           "bias": t2n(sd[f"{cp}.conv.bias"])}
+        fe[f"ln_{i}"] = _layernorm(sd, f"{cp}.layer_norm")
+
+    def layer(i):
+        lp = f"wav2vec2.encoder.layers.{i}"
+        qkv_w = np.concatenate([dense_kernel(sd[f"{lp}.attention.{m}_proj.weight"])
+                                for m in ("q", "k", "v")], axis=1)
+        qkv_b = np.concatenate([t2n(sd[f"{lp}.attention.{m}_proj.bias"])
+                                for m in ("q", "k", "v")])
+        return {
+            "ln_attn": _layernorm(sd, f"{lp}.layer_norm"),
+            "qkv": {"kernel": qkv_w, "bias": qkv_b},
+            "attn_out": {"kernel": dense_kernel(sd[f"{lp}.attention.out_proj.weight"]),
+                         "bias": t2n(sd[f"{lp}.attention.out_proj.bias"])},
+            "ln_ff": _layernorm(sd, f"{lp}.final_layer_norm"),
+            "ff_in": {"kernel": dense_kernel(
+                          sd[f"{lp}.feed_forward.intermediate_dense.weight"]),
+                      "bias": t2n(sd[f"{lp}.feed_forward.intermediate_dense.bias"])},
+            "ff_out": {"kernel": dense_kernel(
+                           sd[f"{lp}.feed_forward.output_dense.weight"]),
+                       "bias": t2n(sd[f"{lp}.feed_forward.output_dense.bias"])},
+        }
+
+    stacked = stack_layers([layer(i) for i in range(num_layers)])
+
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    # HF wraps the positional conv in weight_norm with dim=2 (the kernel axis)
+    if f"{pc}.weight_g" in sd:
+        w = fold_weight_norm(sd[f"{pc}.weight_g"], sd[f"{pc}.weight_v"], dim=2)
+    elif f"{pc}.parametrizations.weight.original0" in sd:  # torch>=2.1 naming
+        w = fold_weight_norm(sd[f"{pc}.parametrizations.weight.original0"],
+                             sd[f"{pc}.parametrizations.weight.original1"], dim=2)
+    else:
+        w = t2n(sd[f"{pc}.weight"])
+    return {
+        "feature_extractor": fe,
+        "proj_ln": _layernorm(sd, "wav2vec2.feature_projection.layer_norm"),
+        "proj": {"kernel": dense_kernel(
+                     sd["wav2vec2.feature_projection.projection.weight"]),
+                 "bias": t2n(sd["wav2vec2.feature_projection.projection.bias"])},
+        "pos_conv": {"kernel": np.ascontiguousarray(w.transpose(2, 1, 0)),
+                     "bias": t2n(sd[f"{pc}.bias"])},
+        "layers": {"layer": stacked},
+        "encoder_ln": _layernorm(sd, "wav2vec2.encoder.layer_norm"),
+        "lm_head": {"kernel": dense_kernel(sd["lm_head.weight"]),
+                    "bias": t2n(sd["lm_head.bias"])},
+    }

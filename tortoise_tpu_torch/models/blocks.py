@@ -1,4 +1,5 @@
-"""Shared building blocks: GroupNorm32, AttentionBlock, ConditioningEncoder.
+"""Shared building blocks: GroupNorm32, AttentionBlock, ConditioningEncoder,
+and the classifier's ResBlock, Downsample, Upsample and AudioMiniEncoder.
 
 Port of ``tortoise_tpu/models/blocks.py`` (itself the reference's
 arch_util.py). Activations are (batch, time, channels); normalizations run
@@ -11,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tortoise_tpu_torch.models.layers import Dense, Embed, Norm
+from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, Norm
 from tortoise_tpu_torch.ops import attn as attn_ops
 
 
@@ -129,5 +130,96 @@ class ConditioningEncoder(nn.Module):
     def forward(self, mel_btc):
         h = self.init(mel_btc)
         for i in range(self.n_blocks):
+            h = getattr(self, f"attn_{i}")(h)
+        return h[:, 0]
+
+
+class ResBlock(nn.Module):
+    """1-D residual block: GroupNorm32, SiLU and a conv, twice (reference
+    arch_util.py:181-246; its up/down options are unused by the shipped
+    models). The skip is the identity, a k-conv (``use_conv_skip``) or a
+    1x1 conv."""
+
+    def __init__(self, channels: int, out_channels: int | None = None, kernel_size: int = 3,
+                 use_conv_skip: bool = False):
+        super().__init__()
+        out_ch = out_channels or channels
+        pad = 1 if kernel_size == 3 else 2
+        self.GroupNorm32_0 = GroupNorm32(channels)
+        self.in_conv = Conv1d(channels, out_ch, kernel_size, padding=pad)
+        self.GroupNorm32_1 = GroupNorm32(out_ch)
+        self.out_conv = Conv1d(out_ch, out_ch, kernel_size, padding=pad)
+        if out_ch == channels:
+            self.skip_conv = None
+        elif use_conv_skip:
+            self.skip_conv = Conv1d(channels, out_ch, kernel_size, padding=pad)
+        else:
+            self.skip_conv = Conv1d(channels, out_ch, 1)
+
+    def forward(self, x):
+        h = self.in_conv(F.silu(self.GroupNorm32_0(x)))
+        h = self.out_conv(F.silu(self.GroupNorm32_1(h)))
+        return (x if self.skip_conv is None else self.skip_conv(x)) + h
+
+
+class Downsample(nn.Module):
+    """Strided-conv downsampling (reference arch_util.py:153-178)."""
+
+    def __init__(self, channels: int, out_channels: int | None = None, factor: int = 4,
+                 ksize: int = 5, pad: int = 2):
+        super().__init__()
+        self.conv = Conv1d(channels, out_channels or channels, ksize, stride=factor,
+                           padding=pad)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsampling, then a k=5 conv (reference
+    arch_util.py:126-150)."""
+
+    def __init__(self, channels: int, out_channels: int | None = None, factor: int = 4):
+        super().__init__()
+        self.factor = factor
+        self.conv = Conv1d(channels, out_channels or channels, 5, padding=2)
+
+    def forward(self, x):
+        return self.conv(x.repeat_interleave(self.factor, dim=1))
+
+
+class AudioMiniEncoder(nn.Module):
+    """Waveform/spectrogram pyramid encoder of the Tortoise-detect classifier
+    (reference tortoise/models/classifier.py:78-120): ResBlocks and a
+    downsampling per level, then attention blocks; returns the t=0 vector."""
+
+    def __init__(self, spec_dim: int, embedding_dim: int, base_channels: int = 128,
+                 depth: int = 2, resnet_blocks: int = 2, attn_blocks: int = 4,
+                 num_attn_heads: int = 4, downsample_factor: int = 2, kernel_size: int = 3):
+        super().__init__()
+        self.init = Conv1d(spec_dim, base_channels, 3, padding=1)
+        self.pyramid = []
+        ch, idx = base_channels, 0
+        for _ in range(depth):
+            for _ in range(resnet_blocks):
+                self.pyramid.append(f"res_{idx}")
+                setattr(self, f"res_{idx}", ResBlock(ch, kernel_size=kernel_size))
+                idx += 1
+            self.pyramid.append(f"down_{idx}")
+            setattr(self, f"down_{idx}", Downsample(ch, ch * 2, factor=downsample_factor))
+            idx += 1
+            ch *= 2
+        self.GroupNorm32_0 = GroupNorm32(ch)
+        self.final = Conv1d(ch, embedding_dim, 1)
+        self.n_attn = attn_blocks
+        for i in range(attn_blocks):
+            setattr(self, f"attn_{i}", AttentionBlock(embedding_dim, num_attn_heads))
+
+    def forward(self, x_btc):
+        h = self.init(x_btc)
+        for name in self.pyramid:
+            h = getattr(self, name)(h)
+        h = self.final(F.silu(self.GroupNorm32_0(h)))
+        for i in range(self.n_attn):
             h = getattr(self, f"attn_{i}")(h)
         return h[:, 0]

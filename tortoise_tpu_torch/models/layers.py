@@ -66,19 +66,22 @@ class QuantDense(nn.Module):
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv`` over time on (B, T, C) input: weight (*lead, out, in, K)."""
+    """flax ``nn.Conv`` over time on (B, T, C) input: weight (*lead, out,
+    in / groups, K); ``groups`` is flax's ``feature_group_count``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dilation: int = 1, lead: tuple = ()):
+                 padding: int = 0, dilation: int = 1, lead: tuple = (), groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(*lead, out_ch, in_ch, kernel_size))
+        self.weight = nn.Parameter(torch.empty(*lead, out_ch, in_ch // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(*lead, out_ch))
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
 
     def forward(self, x, l: int | None = None):
         w = _pick(self.weight, l)
         y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, _pick(self.bias, l),
-                     stride=self.stride, padding=self.padding, dilation=self.dilation)
+                     stride=self.stride, padding=self.padding, dilation=self.dilation,
+                     groups=self.groups)
         return y.transpose(1, 2)
 
 

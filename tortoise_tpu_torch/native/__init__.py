@@ -2,12 +2,13 @@
 
 A copy of ``tortoise_tpu/native`` with two changes: the library is built
 with ``make`` at first use into ``build/native/`` beside the package (a
-directory git ignores), never into the package, and only the resampler is
-bound (the aligner and the crossfade serve redaction and the socket server,
-which are not ported yet). ``resample`` returns None when the library
-cannot be built or loaded, and its caller then takes scipy's polyphase
-resampler, so the native library is an accelerator, never a hard
-dependency. This is host code, not a device kernel.
+directory git ignores), never into the package, and only the resampler and
+the redaction aligner's DP are bound (the crossfade serves the socket
+server, which is not ported yet). Each binding returns None when the
+library cannot be built or loaded, and its caller then takes scipy's
+polyphase resampler or the Python DP, so the native library is an
+accelerator, never a hard dependency. This is host code, not a device
+kernel.
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ def _load():
         lib.resample_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+        lib.align_dp.restype = None
+        lib.align_dp.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_char]
         _lib = lib
         return _lib
 
@@ -73,3 +78,17 @@ def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray | None:
                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_out)
     return out
 
+
+
+def align_dp(s1: str, s2: str, skip: str = "~") -> str | None:
+    """Native ``max_alignment`` DP of ASCII strings; None if unavailable or
+    either string is not ASCII (byte and character indices would differ)."""
+    lib = _load()
+    if not lib:
+        return None
+    b1, b2 = s1.encode("utf-8"), s2.encode("utf-8")
+    if len(b1) != len(s1) or len(b2) != len(s2):
+        return None
+    out = ctypes.create_string_buffer(len(b1) + 1)
+    lib.align_dp(b1, len(b1), b2, len(b2), out, skip.encode()[0])
+    return out.value.decode("utf-8")

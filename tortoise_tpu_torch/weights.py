@@ -26,6 +26,9 @@ REFERENCE_CHECKPOINTS = {
     "autoregressive": "autoregressive.pth",
     "diffusion_decoder": "diffusion_decoder.pth",
     "clvp": "clvp2.pth",
+    "cvvp": "cvvp.pth",
+    "classifier": "classifier.pth",
+    "wav2vec2": "wav2vec2.pth",
     "vocoder": "vocoder.pth",
     "hifidecoder": "hifidecoder.pth",
     "rlg_auto": "rlg_auto.pth",
@@ -138,6 +141,13 @@ def convert_reference_checkpoint(name: str, path: str, model: nn.Module) -> dict
         "diffusion_decoder": lambda s: ti.diffusion_tts_params(
             s, num_layers=model.config.num_layers),
         "clvp": ti.clvp_params,
+        "cvvp": lambda s: ti.cvvp_params(s, cond_depth=model.config.conditioning_enc_depth,
+                                         speech_depth=model.config.speech_enc_depth),
+        "classifier": lambda s: ti.classifier_params(
+            s, depth=model.config.depth, resnet_blocks=model.config.resnet_blocks,
+            attn_blocks=model.config.attn_blocks),
+        "wav2vec2": lambda s: ti.wav2vec2_params(s, num_layers=model.config.num_layers,
+                                                 num_convs=len(model.config.conv_dim)),
         "vocoder": ti.univnet_params,
         "hifidecoder": ti.hifigan_params,
         "rlg_auto": ti.rlg_params,
