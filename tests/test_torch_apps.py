@@ -181,16 +181,17 @@ def test_is_this_from_tortoise_on_the_cpu(tmp_path, monkeypatch, capsys):
     from tortoise_tpu_torch.models.classifier import ClassifierConfig
     from tortoise_tpu_torch.utils.audio import load_audio, save_wav
 
-    tiny = ClassifierConfig(embedding_dim=32, base_channels=8, depth=2, attn_blocks=2)
+    monkeypatch.setattr(api, "ClassifierConfig", lambda: ClassifierConfig(
+        embedding_dim=32, base_channels=8, depth=2, attn_blocks=2))
     full = api.classify_audio_clip
     monkeypatch.setattr(api, "classify_audio_clip", lambda clip, models_dir=None: full(
-        clip, models_dir=models_dir, device="cpu", config=tiny))
+        clip, models_dir=models_dir, device="cpu"))
     path = str(tmp_path / "clip.wav")
     save_wav(path, 0.3 * np.sin(np.arange(4800, dtype=np.float32) / 7), 24000)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         prob = cli.main(["--clip", path])
-        want = full(load_audio(path, 24000)[0], device="cpu", config=tiny)
+        want = full(load_audio(path, 24000)[0], device="cpu")
     assert prob == want and 0.0 <= prob <= 1.0
     assert capsys.readouterr().out.strip() == (
         f"This classifier thinks there is a {prob * 100:.2f}% chance that this clip was "

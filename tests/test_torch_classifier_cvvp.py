@@ -103,7 +103,7 @@ def test_classifier_logits(classifier):
     _close(got, jm.apply({"params": params}, jnp.asarray(x)))
 
 
-def test_classify_audio_clip(classifier):
+def test_classify_audio_clip(classifier, monkeypatch):
     """The model-level function on a (T,) and a (1, T) clip, and the api's
     module-level one (its weights loaded by seed when there is no
     checkpoint) against the JAX function on the same weights."""
@@ -119,10 +119,11 @@ def test_classify_audio_clip(classifier):
         got = classify_audio_clip(c, port)
         assert isinstance(got, float) and 0.0 <= got <= 1.0
         assert abs(got - want) < 1e-5
+    monkeypatch.setattr(papi, "ClassifierConfig", lambda: PC(**CLS))
     with pytest.warns(UserWarning, match="classifier"):
-        prob = papi.classify_audio_clip(clip, device="cpu", config=PC(**CLS))
+        prob = papi.classify_audio_clip(clip, device="cpu")
     with pytest.warns(UserWarning, match="classifier"):
-        assert papi.classify_audio_clip(clip, device="cpu", config=PC(**CLS)) == prob
+        assert papi.classify_audio_clip(clip, device="cpu") == prob
     assert 0.0 <= prob <= 1.0
 
 
@@ -140,6 +141,8 @@ def cvvp():
 
 
 def test_cvvp_similarity_and_latents(cvvp):
+    from tortoise_tpu.models.cvvp import CVVP as J
+
     jm, params, port = cvvp
     v = {"params": params}
     mel = _x(5, 3, 60, 80)
@@ -147,8 +150,6 @@ def test_cvvp_similarity_and_latents(cvvp):
     got = port(torch.from_numpy(mel), torch.from_numpy(codes))
     assert got.shape == (3,) and got.dtype == torch.float32
     _close(got, jm.apply(v, jnp.asarray(mel), jnp.asarray(codes)))
-    from tortoise_tpu.models.cvvp import CVVP as J
-
     _close(port.cond_latents(torch.from_numpy(mel)),
            jm.apply(v, jnp.asarray(mel), method=J.cond_latents))
     _close(port.speech_latents(torch.from_numpy(codes)),

@@ -497,8 +497,7 @@ def load_discrete_vocoder_diffuser(trained_diffusion_steps=4000, desired_diffusi
             SamplerConfig(cond_free=cond_free, cond_free_k=cond_free_k))
 
 
-def classify_audio_clip(clip, models_dir=None, device="cuda",
-                        config: ClassifierConfig | None = None) -> float:
+def classify_audio_clip(clip, models_dir=None, device="cuda") -> float:
     """Probability that a 24 kHz clip came from Tortoise (reference
     api.py:133-145), through the Tortoise-detect classifier in float32 on
     ``device`` (seed 7 when no checkpoint is found)."""
@@ -506,7 +505,7 @@ def classify_audio_clip(clip, models_dir=None, device="cuda",
     from tortoise_tpu_torch.models.classifier import classify_audio_clip as classify
 
     with torch.device(device):
-        model = AudioMiniEncoderWithClassifierHead(config or ClassifierConfig())
+        model = AudioMiniEncoderWithClassifierHead(ClassifierConfig())
     weights_lib.load_weights("classifier", model, models_dir, True, 7)
     return classify(clip, model.eval())
 

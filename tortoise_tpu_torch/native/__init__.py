@@ -79,7 +79,6 @@ def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray | None:
     return out
 
 
-
 def align_dp(s1: str, s2: str, skip: str = "~") -> str | None:
     """Native ``max_alignment`` DP of ASCII strings; None if unavailable or
     either string is not ASCII (byte and character indices would differ)."""
