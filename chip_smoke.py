@@ -66,11 +66,15 @@ Phases, each of which raises on failure (nothing falls back):
      n_samples against the exact one, a 2 s clip against the module's
      float32 forward on the CPU, its event and device time); a bracketed
      ultra_fast request redacted by that model (shorter than the clip it
-     was given, equal to the kept spans of align on that clip); an
-     ultra_fast request with cvvp_amount=0.5 (CVVP's scores of the 16
-     candidates against the CPU float32 module); the classifier on the
-     23.2 s clip against the CPU; and the is_this_from_tortoise and
-     eval --cer CLIs in this process. It runs between phases 10 and 11:
+     was given, equal to the kept spans of align on that clip), and the
+     parts of its redaction timed alone on the host (the native and scipy
+     resamplers, the logits, the DP); an ultra_fast request with
+     cvvp_amount=0.5 (CVVP's scores of the 16 candidates against the CPU
+     float32 module); the classifier on the 23.2 s clip through
+     api.classify_audio_clip with cuDNN's TF32 turned back on first (the
+     call must turn it off), against the CPU; is_this_from_tortoise in a
+     process of its own, held to the CPU classifier; and eval --cer in
+     this process. It runs between phases 10 and 11:
      phase 11's profiler passes come after every timing of the process.
 Before each path of phases 7-12 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum those runs only. Every
@@ -1468,6 +1472,41 @@ def _check_wav2vec2(wav24k, models_dir: str, record: dict):
     return model, fn, heard
 
 
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host wall of ``fn()`` in ms, after one untimed call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[reps // 2]
+
+
+def _redaction_parts_ms(wav24k, bare_text: str, fn) -> dict:
+    """The parts of ``redact`` on one clip, each timed alone on this host:
+    the resampler to 16 kHz (the native library's and scipy's polyphase, the
+    fallback of ``utils.audio.resample``), the logits (wav2vec2's forward
+    with its copies in and out) and the DP."""
+    import numpy as np
+    from scipy.signal import resample_poly
+
+    from tortoise_tpu_torch import native
+    from tortoise_tpu_torch.utils.wav2vec_alignment import TacotronCTCTokenizer, max_alignment
+
+    audio16 = resample_poly(wav24k, 2, 3).astype(np.float32)
+    heard = TacotronCTCTokenizer().decode(fn(audio16).argmax(-1).tolist())
+    out = {"native_built": native.available(),
+           "resample_scipy_ms": _wall_ms(lambda: resample_poly(wav24k, 2, 3)),
+           "logits_ms": _wall_ms(lambda: fn(audio16)),
+           "align_dp_ms": _wall_ms(lambda: max_alignment(bare_text.lower(), heard))}
+    if out["native_built"]:
+        out["resample_native_ms"] = _wall_ms(lambda: native.resample(wav24k, 24000, 16000))
+        out["native_vs_scipy_max_abs"] = float(np.abs(
+            native.resample(wav24k, 24000, 16000) - audio16).max())
+    return out
+
+
 def _check_redaction(tts, clips, fn, heard: str, launches: Launches, record: dict) -> None:
     """Phase 12c: a bracketed ultra_fast request redacted by the full-width
     wav2vec2, its text the first W2V_TEXT_CHARS of what the model heard."""
@@ -1501,9 +1540,11 @@ def _check_redaction(tts, clips, fn, heard: str, launches: Launches, record: dic
     want = np.concatenate(kept)
     got = wav[0, 0].numpy()
     res.update(unredacted_samples=full.shape[0], redacted_samples=got.shape[0],
-               redact_finalize_s=res["stages_s"]["redact_finalize"])
+               redact_finalize_s=res["stages_s"]["redact_finalize"],
+               parts_ms=_redaction_parts_ms(full, "".join(seg for seg, _ in segments), fn))
     print("redacted request", json.dumps({k: res[k] for k in (
-        "text", "wall_s", "unredacted_samples", "redacted_samples", "redact_finalize_s")}))
+        "text", "wall_s", "unredacted_samples", "redacted_samples", "redact_finalize_s",
+        "parts_ms")}))
     if not got.shape[0] < full.shape[0] or not np.array_equal(got, want):
         raise AssertionError(f"redaction: {got.shape[0]} samples of {full.shape[0]}, "
                              f"the kept spans of align are {want.shape[0]}")
@@ -1554,61 +1595,106 @@ def _check_cvvp(tts, clips, launches: Launches, record: dict) -> None:
     record["cvvp_request"] = res
 
 
-def _check_classifier(wav24k, record: dict) -> None:
-    """Phase 12e: the classifier at full width (seeded random weights, as
-    api.classify_audio_clip loads them) on the 23.2 s clip, against its
-    float32 forward on the CPU."""
+def _tf32_flags() -> list:
     import torch
 
+    return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+
+
+def _check_classifier(wav24k, record: dict):
+    """Phase 12e: the classifier at full width through
+    api.classify_audio_clip (seeded random weights) on the 23.2 s clip, with
+    cuDNN's TF32 first turned back on, as a fresh process has it: the call
+    must turn it off itself. Held to the float32 forward on the CPU; the
+    TF32 forward's distance from it is recorded beside the bound. Returns
+    the CPU module, phase 12f's reference."""
+    import torch
+
+    from tortoise_tpu_torch import api
     from tortoise_tpu_torch import weights as weights_lib
     from tortoise_tpu_torch.models.classifier import (AudioMiniEncoderWithClassifierHead,
                                                       classify_audio_clip)
 
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    prob = api.classify_audio_clip(wav24k, device="cuda")
+    flags = _tf32_flags()
     with torch.device("cuda"):
         model = AudioMiniEncoderWithClassifierHead()
     weights_lib.load_weights("classifier", model, None, True, 7)
     model.eval()
-    prob = classify_audio_clip(wav24k, model)
     cpu = AudioMiniEncoderWithClassifierHead()
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     want = classify_audio_clip(wav24k, cpu.eval())
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = classify_audio_clip(wav24k, model)
+    weights_lib.float32_device("cuda")
     with torch.inference_mode():
         x = torch.as_tensor(wav24k, device="cuda")[None, :, None]
         ms = _time_ms(lambda: model(x), 5)
         dev_ms = _device_ms(lambda: model(x), 5)
     res = {"samples": int(wav24k.shape[0]), "prob": prob, "cpu_prob": want,
-           "abs_err": abs(prob - want), "bound": CLASSIFIER_ABS_BOUND, "forward_ms": ms,
-           "forward_device_ms": dev_ms}
+           "abs_err": abs(prob - want), "bound": CLASSIFIER_ABS_BOUND,
+           "tf32_after_call": flags, "tf32_prob": tf32, "tf32_abs_err": abs(tf32 - want),
+           "forward_ms": ms, "forward_device_ms": dev_ms}
     print("classifier", json.dumps(res))
-    if not 0.0 <= prob <= 1.0 or abs(prob - want) > CLASSIFIER_ABS_BOUND:
+    if any(flags) or not 0.0 <= prob <= 1.0 or abs(prob - want) > CLASSIFIER_ABS_BOUND:
         raise AssertionError(f"classifier: {res}")
     record["classifier"] = res
+    return cpu
 
 
-def _run_quality_clis(models_dir: str, record: dict) -> None:
-    """Phase 12f: is_this_from_tortoise on phase 10's wav, and eval --cer
-    over a one-line TSV (a text and a train_dotrice clip), its wav2vec2 the
-    phase's seeded checkpoint in ``models_dir``."""
+# phase 12f: is_this_from_tortoise's main in a process of its own (so with
+# PyTorch's default TF32 flags until the CLI sets them), reporting the
+# probability unrounded, the flags it ran with and its own wall
+DETECT_CLI = """import json, sys, time
+t0 = time.perf_counter()
+import torch
+from tortoise_tpu_torch.apps import is_this_from_tortoise as cli
+prob = cli.main(sys.argv[1:])
+print(json.dumps({"prob": prob, "main_s": time.perf_counter() - t0, "tf32": [
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}))
+"""
+
+
+def _run_quality_clis(models_dir: str, cpu_classifier, record: dict) -> None:
+    """Phase 12f: is_this_from_tortoise on phase 10's wav, in a process of
+    its own and held to the CPU float32 classifier, and eval --cer over a
+    one-line TSV (a text and a train_dotrice clip), its wav2vec2 the phase's
+    seeded checkpoint in ``models_dir``."""
     import math
+    import subprocess
 
     from scipy.io.wavfile import read as wav_read
 
     from tortoise_tpu_torch.apps import eval as eval_cli
-    from tortoise_tpu_torch.apps import is_this_from_tortoise as detect_cli
-    from tortoise_tpu_torch.utils.audio import BUILTIN_VOICES_DIR
+    from tortoise_tpu_torch.models.classifier import classify_audio_clip
+    from tortoise_tpu_torch.utils.audio import BUILTIN_VOICES_DIR, load_audio
 
     res = {}
+    clip = os.path.join(ROOT, "build", "cli.wav")
     t0 = time.perf_counter()
-    prob = detect_cli.main(["--clip", os.path.join(ROOT, "build", "cli.wav")])
-    res["is_this_from_tortoise"] = {"wall_s_with_init": time.perf_counter() - t0, "prob": prob}
-    if not 0.0 <= prob <= 1.0:
-        raise AssertionError(f"is_this_from_tortoise: probability {prob}")
+    run = subprocess.run([sys.executable, "-c", DETECT_CLI, "--clip", clip], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"is_this_from_tortoise exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    want = classify_audio_clip(load_audio(clip, 24000)[0], cpu_classifier)
+    res["is_this_from_tortoise"] = {
+        "wall_s": wall, "main_s": got["main_s"], "prob": got["prob"], "cpu_prob": want,
+        "abs_err": abs(got["prob"] - want), "bound": CLASSIFIER_ABS_BOUND,
+        "tf32": got["tf32"],
+        "said": [l for l in run.stdout.splitlines() if "classifier thinks" in l]}
+    if (any(got["tf32"]) or not 0.0 <= got["prob"] <= 1.0
+            or abs(got["prob"] - want) > CLASSIFIER_ABS_BOUND):
+        raise AssertionError(f"is_this_from_tortoise: {res['is_this_from_tortoise']}")
 
     tsv = os.path.join(ROOT, "build", "eval_lines.tsv")
     out = os.path.join(ROOT, "build", "eval_out")
-    clip = os.path.join(BUILTIN_VOICES_DIR, "train_dotrice", "1.wav")
+    real = os.path.join(BUILTIN_VOICES_DIR, "train_dotrice", "1.wav")
     with open(tsv, "w", encoding="utf-8") as f:
-        f.write(f"{REQUESTS[0][1]}\t{clip}\n")
+        f.write(f"{REQUESTS[0][1]}\t{real}\n")
     argv = ["--eval_path", tsv, "--output_path", out, "--preset", "ultra_fast", "--cer",
             "--model_dir", models_dir]
     t0 = time.perf_counter()
@@ -1662,11 +1748,11 @@ def run_quality_api_rest(clips, record: dict, launches: Launches) -> None:
     _check_redaction(tts, clips, fn, heard, launches, record)
     del model, fn
     _check_cvvp(tts, clips, launches, record)
-    _check_classifier(wav24k, record)
+    cpu_classifier = _check_classifier(wav24k, record)
     del tts
     gc.collect()
     torch.cuda.empty_cache()
-    _run_quality_clis(models_dir, record)
+    _run_quality_clis(models_dir, cpu_classifier, record)
     counts = launches.read()
     launches.add(counts)
     record["phase12_launches"] = counts

@@ -135,16 +135,25 @@ def test_eval_cer_with_stub_aligner(tmp_path, monkeypatch):
     """eval --cer on the CPU at the tiny config, its aligner a stub (as
     tests/test_alignment_and_small_models.py scores the JAX CLI's): a wav
     per line and results.tsv as index<TAB>cer<TAB>text, the scores those of
-    the JAX package's evaluate_clips; with no wav2vec2 checkpoint --cer warns
-    and is skipped."""
+    the JAX package's evaluate_clips. The redaction's aligner does the
+    scoring, so one aligner is built. With no wav2vec2 checkpoint --cer
+    warns and is skipped."""
     from tortoise_tpu.apps.eval import evaluate_clips as jax_evaluate
+    from tortoise_tpu_torch import api
     from tortoise_tpu_torch.apps import eval as port_eval
     from tortoise_tpu_torch.utils import wav2vec_alignment as palign
     from tortoise_tpu_torch.utils.audio import BUILTIN_VOICES_DIR
 
+    built = []
+
     class Stub:
         def __init__(self, models_dir=None, device="cuda"):
             assert torch.device(device) == torch.device("cpu")
+            built.append(self)
+
+        def redact(self, audio, expected_text, audio_sample_rate=24000):
+            assert "[" not in expected_text
+            return audio
 
         def transcribe(self, wav, audio_sample_rate=24000):
             assert audio_sample_rate == 24000 and np.isfinite(wav).all()
@@ -156,9 +165,11 @@ def test_eval_cer_with_stub_aligner(tmp_path, monkeypatch):
     tsv.write_text(f"A perfect transcript.\t{clip}\nSomething else.\t{clip}\n")
     out = tmp_path / "out"
     with monkeypatch.context() as m:
+        m.setattr(api, "Wav2VecAlignment", Stub)
         m.setattr(palign, "Wav2VecAlignment", Stub)
         rows = port_eval.main(["--eval_path", str(tsv), "--output_path", str(out),
                                "--preset", "ultra_fast", "--cer"])
+    assert len(built) == 1
     wavs = [wav_read(out / f"{i}.wav")[1] for i in range(2)]
     assert all(w.size and np.isfinite(w).all() for w in wavs)
     want = jax_evaluate([(i, w, t) for i, w, t in zip(

@@ -127,6 +127,30 @@ def test_classify_audio_clip(classifier, monkeypatch):
     assert 0.0 <= prob <= 1.0
 
 
+def test_classify_audio_clip_runs_in_float32(classifier, monkeypatch):
+    """The api's classify_audio_clip resolves its device through
+    weights.float32_device, so the classifier CLI on the card runs with TF32
+    off even when no TextToSpeech was built in the process (here the CUDA
+    device is swapped for the CPU)."""
+    from tortoise_tpu_torch import api as papi
+    from tortoise_tpu_torch.models.classifier import ClassifierConfig as PC
+
+    asked = []
+
+    def float32_device(device):
+        asked.append(torch.device(device))
+        return torch.device("cpu")
+
+    monkeypatch.setattr(papi, "ClassifierConfig", lambda: PC(**CLS))
+    clip = 0.5 * _x(4, 2400)
+    with pytest.warns(UserWarning, match="classifier"):
+        want = papi.classify_audio_clip(clip, device="cpu")
+    monkeypatch.setattr(papi.weights_lib, "float32_device", float32_device)
+    with pytest.warns(UserWarning, match="classifier"):
+        assert papi.classify_audio_clip(clip, device="cuda") == want
+    assert asked == [torch.device("cuda")]
+
+
 @pytest.fixture(scope="module")
 def cvvp():
     from tortoise_tpu.models.cvvp import CVVP as J

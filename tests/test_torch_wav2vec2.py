@@ -93,6 +93,27 @@ def test_logits_fn_matches_the_jax_aligners_run(models):
     np.testing.assert_allclose(got, np.asarray(want)[0, :int(jn)], atol=ATOL)
 
 
+def test_logits_fn_runs_in_float32(models, monkeypatch):
+    """wav2vec2_logits_fn resolves its device through
+    weights.float32_device, so the aligner on the card runs with TF32 off
+    even when no TextToSpeech was built in the process (here the CUDA
+    device is swapped for the CPU)."""
+    from tortoise_tpu_torch import weights as port_weights
+
+    _, _, port = models
+    audio = 0.3 * _audio(2, 5000)[0]
+    want = palign.wav2vec2_logits_fn(port, "cpu")(audio)
+    asked = []
+
+    def float32_device(device):
+        asked.append(torch.device(device))
+        return torch.device("cpu")
+
+    monkeypatch.setattr(port_weights, "float32_device", float32_device)
+    np.testing.assert_array_equal(palign.wav2vec2_logits_fn(port, "cuda")(audio), want)
+    assert asked == [torch.device("cuda")]
+
+
 def _random_strings(seed, count):
     rng = np.random.default_rng(seed)
     alphabet = list("abcde '")

@@ -502,6 +502,22 @@ def test_wav2vec2_weight_norm_namings():
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
+def test_float32_device_turns_tf32_off(monkeypatch):
+    """float32_device: on CUDA, cuBLAS and cuDNN keep float32 products in
+    float32 (cuDNN's default is TF32); asking for CUDA without a card
+    raises; the CPU leaves the flags as they are."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert port_weights.float32_device("cpu") == torch.device("cpu")
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_weights.float32_device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert port_weights.float32_device("cuda:0") == torch.device("cuda:0")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
 def test_random_init_is_seeded_and_full():
     from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
 

@@ -166,16 +166,9 @@ class TextToSpeech:
                  diffusion_config: DiffusionTtsConfig | None = None,
                  clvp_config: CLVPConfig | None = None):
         del kv_cache  # reference API compatibility: the cache is always on
-        self.device = torch.device(device)
+        # UnivNet runs in float32 as in the JAX package: no TF32
+        self.device = weights_lib.float32_device(device)
         is_cuda = self.device.type == "cuda"
-        if is_cuda and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' asked for, but torch sees no CUDA device")
-        if is_cuda:
-            # float32 products stay float32 (cuBLAS and cuDNN would otherwise
-            # be free to use TF32): UnivNet runs in float32 as in the JAX
-            # package, and the pipeline is held to it
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         if kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: one of "
                              f"{tuple(KV_CACHE_DTYPES)}")
@@ -504,6 +497,7 @@ def classify_audio_clip(clip, models_dir=None, device="cuda") -> float:
     from tortoise_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
     from tortoise_tpu_torch.models.classifier import classify_audio_clip as classify
 
+    device = weights_lib.float32_device(device)
     with torch.device(device):
         model = AudioMiniEncoderWithClassifierHead(ClassifierConfig())
     weights_lib.load_weights("classifier", model, models_dir, True, 7)

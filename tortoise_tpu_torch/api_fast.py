@@ -93,14 +93,9 @@ class TextToSpeechFast:
                  dtype=torch.bfloat16, allow_random_weights=True,
                  ar_config: UnifiedVoiceConfig | None = None, text_bucket: int = 32,
                  gpt_weights="bf16", gpt_fused_step: bool | None = None, device="cuda"):
-        self.device = torch.device(device)
+        # HiFi-GAN runs in float32 as in the JAX package: no TF32
+        self.device = weights_lib.float32_device(device)
         is_cuda = self.device.type == "cuda"
-        if is_cuda and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' asked for, but torch sees no CUDA device")
-        if is_cuda:
-            # HiFi-GAN runs in float32 as in the JAX package: no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.dtype = dtype
         self.gpt_fused_step = is_cuda if gpt_fused_step is None else bool(gpt_fused_step)
         # text pads to a multiple of this with the stop token (in-distribution:

@@ -66,9 +66,10 @@ def main(argv=None):
     if args.cer:
         from tortoise_tpu_torch.utils.wav2vec_alignment import Wav2VecAlignment
 
-        try:
-            results = evaluate_clips(clips, Wav2VecAlignment(models_dir=args.model_dir,
-                                                             device=tts.device))
+        try:  # the redaction's aligner scores too: one wav2vec2 on the card
+            aligner = tts.aligner or Wav2VecAlignment(models_dir=args.model_dir,
+                                                      device=tts.device)
+            results = evaluate_clips(clips, aligner)
         except FileNotFoundError as e:
             warnings.warn(f"--cer skipped: {e}")
             return None

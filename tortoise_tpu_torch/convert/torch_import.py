@@ -323,8 +323,9 @@ def _collapsing_transformer_params(sd, prefix: str, depth: int) -> dict:
 
 
 def cvvp_params(sd, cond_depth: int = 8, speech_depth: int = 8) -> dict:
-    """reference CVVP -> models.cvvp.CVVP params."""
-    p = {
+    """reference CVVP (mel_codes=8192: the speech side embeds discrete
+    codes) -> models.cvvp.CVVP params."""
+    return {
         "cond_conv1": {"kernel": conv1d_kernel(sd["cond_emb.0.weight"]),
                        "bias": t2n(sd["cond_emb.0.bias"])},
         "cond_conv2": {"kernel": conv1d_kernel(sd["cond_emb.1.weight"]),
@@ -335,14 +336,9 @@ def cvvp_params(sd, cond_depth: int = 8, speech_depth: int = 8) -> dict:
         "speech_transformer": _collapsing_transformer_params(
             sd, "speech_transformer", speech_depth),
         "to_speech_latent": {"kernel": dense_kernel(sd["to_speech_latent.weight"])},
+        "speech_emb": {"embedding": t2n(sd["speech_emb.emb.weight"])},
         "temperature": t2n(sd["temperature"]).reshape(()),
     }
-    if "speech_emb.emb.weight" in sd:
-        p["speech_emb"] = {"embedding": t2n(sd["speech_emb.emb.weight"])}
-    else:
-        p["speech_emb"] = {"kernel": conv1d_kernel(sd["speech_emb.weight"]),
-                           "bias": t2n(sd["speech_emb.bias"])}
-    return p
 
 
 def _timestep_resblock_params(sd, prefix: str) -> dict:

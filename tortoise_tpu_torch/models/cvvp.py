@@ -25,7 +25,7 @@ class CVVPConfig:
     conditioning_enc_depth: int = 8
     speech_enc_depth: int = 8
     mel_channels: int = 80
-    mel_codes: int | None = 8192
+    mel_codes: int = 8192
     latent_multiplier: int = 1
 
 
@@ -60,10 +60,7 @@ class CVVP(nn.Module):
         self.conditioning_transformer = CollapsingTransformer(
             cfg.model_dim, cfg.model_dim, cfg.transformer_heads, cfg.conditioning_enc_depth)
         self.to_conditioning_latent = Dense(cfg.model_dim, latent_dim, bias=False)
-        if cfg.mel_codes is None:
-            self.speech_emb = Conv1d(cfg.mel_channels, cfg.model_dim, 5, padding=2)
-        else:
-            self.speech_emb = Embed(cfg.mel_codes, cfg.model_dim)
+        self.speech_emb = Embed(cfg.mel_codes, cfg.model_dim)
         self.speech_transformer = CollapsingTransformer(
             cfg.model_dim, latent_dim, cfg.transformer_heads, cfg.speech_enc_depth)
         self.to_speech_latent = Dense(latent_dim, latent_dim, bias=False)
@@ -75,8 +72,7 @@ class CVVP(nn.Module):
         return _unit(self.to_conditioning_latent(self.conditioning_transformer(h)))
 
     def speech_latents(self, mel_input):
-        """mel_input: (B, Ts) codes (or (B, Ts, mel_channels) when mel_codes
-        is None) -> unit (B, latent) in float32."""
+        """mel_input: (B, Ts) codes -> unit (B, latent) in float32."""
         return _unit(self.to_speech_latent(self.speech_transformer(self.speech_emb(mel_input))))
 
     def forward(self, mel_cond, mel_input):

@@ -253,10 +253,9 @@ def profile_k4_k6(reps: int = 20) -> dict:
     from tortoise_tpu_torch.ops import lvc
     from tortoise_tpu_torch.tools import bench_attn_body as k6
     from tortoise_tpu_torch.utils.measure import bound, nbytes
-    from tortoise_tpu_torch.weights import init_random
+    from tortoise_tpu_torch.weights import float32_device, init_random
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_device("cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     b, f, ci, co, k, layers = 1, K4_FRAMES, 32, 64, 3, 4
     out = {"k4": {}, "k6": {}}

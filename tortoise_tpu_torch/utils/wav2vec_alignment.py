@@ -268,8 +268,11 @@ def wav2vec2_logits_fn(model, device) -> Callable[[np.ndarray], np.ndarray]:
     """``logits_fn`` of a port ``Wav2Vec2ForCTC`` on ``device``: a 16 kHz clip
     -> float32 (frames, vocab) logits, at the clip's exact length. The clip
     is normalised over its samples first: zero mean, unbiased variance,
-    ``(x - mean) / sqrt(var + 1e-7)`` (reference :65)."""
-    device = torch.device(device)
+    ``(x - mean) / sqrt(var + 1e-7)`` (reference :65). On CUDA it runs in
+    float32 with TF32 off, as the JAX aligner does."""
+    from tortoise_tpu_torch.weights import float32_device
+
+    device = float32_device(device)
 
     @torch.inference_mode()
     def fn(audio_16k: np.ndarray) -> np.ndarray:

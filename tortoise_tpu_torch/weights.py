@@ -41,6 +41,21 @@ GPT_WEIGHTS = ("bf16", "int8", "int8_decode")
 _QUANT_NAMES = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
 
 
+def float32_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` for models that compute in float32,
+    as the JAX package does. Asking for CUDA without a card raises. On CUDA,
+    cuBLAS and cuDNN keep float32 products in float32 (PyTorch lets cuDNN
+    use TF32 by default). The flags are process-wide, so every entry point
+    that runs a float32 model on the card calls this first."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for, but torch sees no CUDA device")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def resolve_gpt_quant(cfg, gpt_weights: str):
     """A ``gpt_weights`` option applied to a UnifiedVoiceConfig: "int8" turns
     on the int8 block denses (QuantDense) everywhere; "bf16" and
