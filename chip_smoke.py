@@ -76,8 +76,18 @@ Phases, each of which raises on failure (nothing falls back):
      process of its own, held to the CPU classifier; and eval --cer in
      this process. It runs between phases 10 and 11:
      phase 11's profiler passes come after every timing of the process.
-Before each path of phases 7-12 every launch counter is set to 0, and read
-after it: the "launches" of the kernels line sum those runs only. Every
+ 13. the training path, at full width with seeded random weights in float32
+     with TF32 off, between phases 12 and 11: five UnifiedVoice train steps
+     at B=4 over the full 402 text and 604 mel tokens (the loss holds at
+     the warmup's lr 0, then falls; step ms, tokens/s, TFLOP/s, peak
+     memory); two steps of the same weights on the card and on the CPU over
+     a short batch (loss, grad_norm and five leaves against each other);
+     one train step each of DiffusionTts (training_losses over 2229 frames
+     from 512 AR latents, B=2), CLVP (token-dropout masks) and CVVP. It
+     launches no kernel of the port: the training forward takes the plain
+     attention, as the JAX package's does.
+Before each path of phases 7-13 every launch counter is set to 0, and read
+after it: the "launches" of the kernels line sum the runs of phases 7-12. Every
 UnivNet forward of those paths launches K4 12 times, and K4's plain version
 never runs on the card there.
 
@@ -198,6 +208,34 @@ TOOL_RUNS = (
     # last: its busy passes run torch.profiler, which slows every launch after it
     ("profile_ar_step", ["--batch", "16", "--tokens", "8"]),
 )
+# phase 13, training in float32 with TF32 off. UnifiedVoice: TRAIN_STEPS
+# steps at B=4 over the full 402 text and 604 mel tokens (1011 positions a
+# row), the JAX package's lr and a warmup of 2 (the first step changes
+# nothing: lr 0)
+TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL = 4, 402, 604
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 5, 1e-4, 2
+# the card against the CPU at full width over a short batch (B=2, 16 text
+# and 24 mel tokens) from the same initial weights, float32 on both with
+# TF32 off, sums in other orders over 30 layers: each leaf's gradient
+# relative to its max |grad| (the CPU tests' bound against JAX), then two
+# steps' loss and grad_norm, relative
+TRAIN_CPU_GRAD_FRAC = 1e-4
+TRAIN_CPU_REL_BOUND = 1e-4
+TRAIN_CPU_BATCH, TRAIN_CPU_TEXT, TRAIN_CPU_MEL = 2, 16, 24
+# and these leaves after the second step (lr 5e-5): every element within 2
+# lr (Adam's m / sqrt(v) makes a gradient at rounding level an update of
+# +-lr), all but TRAIN_FAR_SHARE of them within TRAIN_NEAR_FRAC of lr
+TRAIN_NEAR_FRAC, TRAIN_FAR_SHARE = 0.01, 1e-3
+TRAIN_LEAVES = ("mel_head.weight", "mel_head.bias", "text_embedding.weight",
+                "gpt.h_scan.block.mlp_fc.weight", "final_norm.weight")
+# one step each: DiffusionTts on the quality path's 2229 frames from 512 AR
+# latents (B=2), CLVP over 350 text and 604 speech tokens with token-dropout
+# masks (B=4), CVVP over 500 mel frames and 604 codes (B=4)
+DIFF_TRAIN = (2, 2229, 512)
+CLVP_TRAIN = (4, 350, 604)
+CVVP_TRAIN = (4, 500, 604)
+# f32 peak of the H100 SXM without tensor cores (the data sheet), TFLOP/s
+F32_PEAK_TFLOPS = 67.0
 # UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
 LVC_HOPS = (8, 64, 256)
 LVC_CALLS_PER_FORWARD = 12
@@ -1763,6 +1801,242 @@ def run_quality_api_rest(clips, record: dict, launches: Launches) -> None:
     torch.cuda.empty_cache()
 
 
+def _uv_train_flops(cfg, b: int, t_text: int, t_mel: int) -> float:
+    """Operations of one UnifiedVoice train step (forward and backward, 3x
+    the forward's products): the blocks' denses (24 C^2 a position and
+    layer), the attention's two products over the whole (T, T) matrix the
+    plain attention computes, and the two heads."""
+    n = 1 + (t_text + 2) + (t_mel + 2)
+    c = cfg.model_dim
+    layers = cfg.layers * (24 * c * c * n + 4 * n * n * c)
+    heads = 2 * c * (cfg.text_vocab * (t_text + 2) + cfg.number_mel_codes * (t_mel + 2))
+    return 3.0 * b * (layers + heads)
+
+
+def _train_steps(model, batch: dict, steps: int, loss_fn=None) -> tuple[list, list]:
+    """``steps`` steps of make_train_step (lr TRAIN_LR, warmup TRAIN_WARMUP)
+    on one batch: (each step's metrics as floats, each step's wall in ms,
+    synchronised)."""
+    import torch
+
+    from tortoise_tpu_torch.training import train_step as ts
+
+    opt = ts.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+    step = ts.make_train_step(model, opt, loss_fn or ts.unified_voice_loss)
+    state = ts.init_train_state(model, opt)
+    cuda = next(model.parameters()).is_cuda
+    metrics, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, walls
+
+
+def _leaf_grad_errs(model, cpu_model, batch: dict) -> dict:
+    """One loss and backward on each from the same weights: every leaf's
+    max |card - CPU| gradient over its max |CPU grad|, and the losses. A
+    leaf the loss does not reach has no gradient on either."""
+    from tortoise_tpu_torch.training.train_step import unified_voice_loss
+
+    losses = []
+    for m in (model, cpu_model):
+        dev = next(m.parameters()).device
+        for p in m.parameters():
+            p.grad = None
+        loss, _ = unified_voice_loss(m, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    errs = {}
+    for (name, p), q in zip(model.named_parameters(), cpu_model.parameters()):
+        if q.grad is not None:
+            errs[name] = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max())
+        p.grad = q.grad = None
+    return {"loss": losses, "leaf_rel_err": errs}
+
+
+def _leaves_close(got: dict, want: dict, lr: float) -> dict:
+    """TRAIN_LEAVES of two state dicts after the same steps: the largest
+    difference and the share beyond TRAIN_NEAR_FRAC of lr, per leaf."""
+    out = {}
+    for name in TRAIN_LEAVES:
+        d = (got[name].cpu() - want[name]).abs()
+        out[name] = {"max_abs": float(d.max()),
+                     "far_share": float((d > TRAIN_NEAR_FRAC * lr).float().mean())}
+        if out[name]["max_abs"] > 2 * lr or out[name]["far_share"] > TRAIN_FAR_SHARE:
+            raise AssertionError(f"{name} after two steps, card vs CPU: {out[name]}")
+    return out
+
+
+def _check_uv_against_cpu(model, record: dict) -> None:
+    """Phase 13a: the full-width model from the same (initial) weights on
+    the card and on the CPU over a short batch: each leaf's gradient, then
+    two steps (the first changes nothing, the second takes lr TRAIN_LR /
+    TRAIN_WARMUP)."""
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice
+    from tortoise_tpu_torch.utils.profiling import train_batch
+
+    cpu_model = UnifiedVoice(model.config)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = train_batch(model.config, TRAIN_CPU_BATCH, TRAIN_CPU_TEXT, TRAIN_CPU_MEL, "cpu",
+                        seed=7)
+    t0 = time.perf_counter()
+    res = _leaf_grad_errs(model, cpu_model, batch)
+    res["worst_leaf"] = max(res["leaf_rel_err"].items(), key=lambda kv: kv[1])
+    got, _ = _train_steps(model, {k: v.cuda() for k, v in batch.items()}, 2)
+    want, _ = _train_steps(cpu_model, batch, 2)
+    res.update({"s": time.perf_counter() - t0, "card": got, "cpu": want})
+    res["metrics_rel_err"] = max(abs(g[k] - w[k]) / abs(w[k])
+                                 for g, w in zip(got, want) for k in ("loss", "grad_norm"))
+    res["leaves"] = _leaves_close(model.state_dict(), cpu_model.state_dict(),
+                                  TRAIN_LR / TRAIN_WARMUP)
+    print("UnifiedVoice, card vs CPU", json.dumps(res))
+    if res["worst_leaf"][1] > TRAIN_CPU_GRAD_FRAC or \
+            res["metrics_rel_err"] > TRAIN_CPU_REL_BOUND:
+        raise AssertionError(f"UnifiedVoice on the card vs the CPU: worst leaf "
+                             f"{res['worst_leaf']} (bound {TRAIN_CPU_GRAD_FRAC}), metrics "
+                             f"{res['metrics_rel_err']} (bound {TRAIN_CPU_REL_BOUND})")
+    record["train_uv_vs_cpu"] = res
+
+
+def _finite(metrics: list, what: str) -> None:
+    import math
+
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{what}: a metric is not finite: {metrics}")
+
+
+def _train_uv(record: dict) -> None:
+    """Phase 13a and 13b: UnifiedVoice against the CPU, then its train
+    steps at full length."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
+    from tortoise_tpu_torch.utils.profiling import train_batch
+
+    cfg = UnifiedVoiceConfig()
+    model = UnifiedVoice(cfg).cuda()
+    weights.init_random(model, 0)
+    _check_uv_against_cpu(model, record)
+    weights.init_random(model, 0)
+    shape = (TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL)
+    batch = train_batch(cfg, *shape, "cuda", seed=5)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = _train_steps(model, batch, TRAIN_STEPS)
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    flops = _uv_train_flops(cfg, *shape)
+    b, t_text, t_mel = shape
+    res = {"batch": list(shape), "steps": metrics, "walls_ms": walls, "step_ms": step_ms,
+           "tokens_per_s": b * (t_text + t_mel + 4) / step_ms * 1e3,
+           "tflop_per_step": flops / 1e12, "tflops": flops / step_ms / 1e9,
+           "trained_params": sum(p.numel() for p in model.parameters() if p.requires_grad),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    res["f32_peak_share"] = res["tflops"] / F32_PEAK_TFLOPS
+    print("UnifiedVoice train steps", json.dumps(res))
+    _finite(metrics, "UnifiedVoice steps")
+    losses = [m["loss"] for m in metrics]
+    if abs(losses[1] - losses[0]) > 1e-6 * losses[0] or not losses[-1] < losses[1]:
+        raise AssertionError(f"UnifiedVoice's loss did not hold at lr 0, then fall: {losses}")
+    record["train_uv"] = res
+
+
+def _train_one_step(name: str, model, batch: dict, loss_fn, shape, record: dict) -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = _train_steps(model, batch, 1, loss_fn=loss_fn)
+    res = {"batch": list(shape), "metrics": metrics[0], "wall_ms": walls[0],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    print(f"{name} train step", json.dumps(res))
+    _finite(metrics, name)
+    record[f"train_{name}"] = res
+
+
+def _train_others(record: dict) -> None:
+    """Phase 13c: one step each of DiffusionTts (training_losses, latent
+    conditioning), CLVP (token-dropout masks) and CVVP."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.diffusion.losses import training_losses
+    from tortoise_tpu_torch.diffusion.schedule import spaced_schedule
+    from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
+    from tortoise_tpu_torch.models.cvvp import CVVP, CVVPConfig
+    from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts, DiffusionTtsConfig
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    ints = lambda hi, *shape: torch.randint(0, hi, shape, generator=g, device="cuda")
+    keep = lambda *shape: torch.rand(shape, generator=g, device="cuda") > 0.2
+
+    cfg = DiffusionTtsConfig()
+    model = DiffusionTts(cfg).cuda()
+    weights.init_random(model, 1)
+    schedule = spaced_schedule("linear", 4000, 4000)
+    b, frames, n_lat = DIFF_TRAIN
+    batch = {"x": torch.tanh(rand(b, frames, cfg.in_channels)),
+             "t": ints(schedule.num_timesteps, b),
+             "latents": rand(b, n_lat, cfg.in_latent_channels),
+             "cond": rand(b, 2 * cfg.model_channels)}
+
+    def diffusion_loss(m, bt):
+        fn = lambda x, t: m(x, t, aligned_conditioning=bt["latents"],
+                            conditioning_latent=bt["cond"])
+        terms = training_losses(fn, schedule, bt["x"], bt["t"], generator=g)
+        return terms["loss"].mean(), {"mse": terms["mse"].mean(), "vb": terms["vb"].mean()}
+
+    _train_one_step("diffusion", model, batch, diffusion_loss, DIFF_TRAIN, record)
+    del model
+    cfg = CLVPConfig()
+    model = CLVP(cfg).cuda()
+    weights.init_random(model, 2)
+    b, t_text, t_speech = CLVP_TRAIN
+    batch = {"text": ints(cfg.num_text_tokens, b, t_text),
+             "speech": ints(cfg.num_speech_tokens, b, t_speech),
+             "text_mask": keep(b, t_text), "voice_mask": keep(b, t_speech)}
+    _train_one_step("clvp", model, batch, lambda m, bt: (m(
+        bt["text"], bt["speech"], return_loss=True, text_mask=bt["text_mask"],
+        voice_mask=bt["voice_mask"]), {}), CLVP_TRAIN, record)
+    del model
+    cfg = CVVPConfig()
+    model = CVVP(cfg).cuda()
+    weights.init_random(model, 3)
+    b, frames, n_codes = CVVP_TRAIN
+    batch = {"mel": rand(b, frames, cfg.mel_channels), "codes": ints(cfg.mel_codes, b, n_codes)}
+    _train_one_step("cvvp", model, batch,
+                    lambda m, bt: (m(bt["mel"], bt["codes"], return_loss=True), {}),
+                    CVVP_TRAIN, record)
+
+
+def run_training(record: dict, launches: Launches) -> None:
+    """Phase 13, the training path at full width with seeded random weights,
+    float32 with TF32 off. It launches no kernel of the port: the training
+    forward takes the plain attention, as the JAX package's does."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+
+    weights.float32_device("cuda")
+    launches.reset()
+    t0 = time.perf_counter()
+    _train_uv(record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_others(record)
+    counts = launches.read()
+    record["phase13_launches"] = counts
+    record["phase13_s"] = time.perf_counter() - t0
+    print("training path launches", json.dumps(counts))
+    if counts[K3_NAME] or any(counts.values()):
+        raise AssertionError(f"phase 13 launched a kernel of the port: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1815,6 +2089,7 @@ def main() -> int:
     # phase 12 before phase 11: profile_ar_step's profiler passes come after
     # every timing of the process
     run_quality_api_rest(clips, record, launches)
+    run_training(record, launches)
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
 

@@ -87,7 +87,7 @@ def test_unified_voice_teacher_forced_logits_and_latents(voice):
     jt, jmel = jm.apply({"params": params}, *j_args, return_logits=True)
     jlat = jm.apply({"params": params}, *j_args, return_latent=True)
     with torch.no_grad():
-        pt, pmel = port(*p_args)
+        pt, pmel = port(*p_args, return_logits=True)
         plat = port(*p_args, return_latent=True)
     _close(pt, jt)
     _close(pmel, jmel)

@@ -434,6 +434,12 @@ def test_reference_layout_loads_through_torch_import(name):
     if name == "autoregressive":  # HF Conv1D (in, out) -> torch Linear (out, in)
         np.testing.assert_array_equal(port.gpt.h_scan.block.attn.c_attn.weight[1].detach(),
                                       sd["gpt.h.1.attn.c_attn.weight"].T)
+    if name == "diffusion_decoder":   # the discrete-code path, carried through
+        for port_w, ref_w in ((port.code_embedding.weight, sd["code_embedding.weight"]),
+                              (port.code_converter_2.qkv.weight,
+                               sd["code_converter.2.qkv.weight"][:, :, 0]),
+                              (port.mel_head.weight, sd["mel_head.weight"])):
+            np.testing.assert_array_equal(port_w.detach(), ref_w)
     if name == "hifidecoder":     # the transposed conv's kernel, un-flipped: torch's own
         np.testing.assert_allclose(port.up_1.weight.detach().numpy(), ti.fold_weight_norm(
             sd["ups.1.weight_g"], sd["ups.1.weight_v"]), rtol=1e-6)

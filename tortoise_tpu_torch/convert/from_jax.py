@@ -16,8 +16,8 @@ counterpart, changing layout by module type:
   JAX layout is torch's) is copied under its own name.
 
 ``…`` is the leading layer axis of the scan-stacked layers, kept as is.
-JAX entries the port does not hold (the diffusion model's discrete-code
-path) are ignored. A reference ``.pth`` reaches this through the port's
+The same walk maps a JAX gradient tree onto the port's parameters. A
+reference ``.pth`` reaches this through the port's
 numpy converters (``convert/torch_import.py``); see ``weights.py``.
 """
 from __future__ import annotations

@@ -82,10 +82,12 @@ class UnifiedVoice(nn.Module):
         return enc.reshape(b, n, -1).mean(dim=1)
 
     def forward(self, cond_latent, text_inputs, mel_codes, wav_lengths=None,
-                return_latent: bool = False):
+                return_latent: bool = False, return_logits: bool = False):
         """Teacher-forced forward (reference autoregressive.py:454-512).
-        Returns the mel latents (B, Tm, D) with ``return_latent``, else
-        (text_logits, mel_logits)."""
+        Returns (loss_text, loss_mel, mel_logits) by default, the mel latents
+        (B, Tm, D) with ``return_latent``, (text_logits, mel_logits) with
+        ``return_logits``. Mel positions past wav_length // 1024 + 1 become
+        the stop token."""
         cfg = self.config
         if wav_lengths is not None:
             mel_lengths = wav_lengths // cfg.mel_length_compression
@@ -96,6 +98,8 @@ class UnifiedVoice(nn.Module):
         mel_codes = F.pad(mel_codes, (0, 1), value=cfg.stop_mel_token)
         text_inp = F.pad(text_inputs, (1, 0), value=cfg.start_text_token)
         mel_inp = F.pad(mel_codes, (1, 0), value=cfg.start_mel_token)
+        text_tar = F.pad(text_inputs, (0, 1), value=cfg.stop_text_token)
+        mel_tar = F.pad(mel_codes, (0, 1), value=cfg.stop_mel_token)
         text_emb = self.text_embedding(text_inp) + self.text_pos_embedding(
             self._positions(text_inp.shape[1]))
         mel_emb = self.mel_embedding(mel_inp) + self.mel_pos_embedding(
@@ -106,7 +110,11 @@ class UnifiedVoice(nn.Module):
         t_text, t_mel = text_inp.shape[1], mel_inp.shape[1]
         if return_latent:
             return enc[:, t_text:t_text + t_mel][:, :-2]
-        return self.text_head(enc[:, :t_text]), self.mel_head(enc[:, -t_mel:])
+        text_logits = self.text_head(enc[:, :t_text])
+        mel_logits = self.mel_head(enc[:, -t_mel:])
+        if return_logits:
+            return text_logits, mel_logits
+        return _xent(text_logits, text_tar), _xent(mel_logits, mel_tar), mel_logits
 
     def compute_prompt(self, cond_latent, text_tokens):
         """Decode prompt [cond | start, text..., stop, stop | start_mel] (B, P, D);
@@ -134,3 +142,10 @@ class UnifiedVoice(nn.Module):
     def hidden_to_latent(self, hidden):
         """final_norm'd hidden state (float32)."""
         return self.final_norm(hidden)
+
+
+def _xent(logits, targets):
+    """Mean float32 cross-entropy over every position, start and stop
+    padding included."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None]).mean()

@@ -26,6 +26,14 @@ class CLVPConfig:
     speech_heads: int = 12
 
 
+def masked_mean(t, mask):
+    """(B, T, D) -> (B, D): the mean over the kept positions (reference
+    clvp.py:15-17)."""
+    if mask is None:
+        return t.mean(dim=1)
+    return (t * mask[..., None].to(t.dtype)).sum(dim=1) / mask.sum(dim=1)[..., None]
+
+
 class CLVP(nn.Module):
     def __init__(self, config: CLVPConfig = CLVPConfig()):
         super().__init__()
@@ -41,16 +49,31 @@ class CLVP(nn.Module):
         self.temperature = nn.Parameter(torch.ones(()))
 
     @staticmethod
-    def _latent(emb, transformer, proj):
-        lat = proj(transformer(emb).mean(dim=1))
+    def _latent(emb, transformer, proj, mask):
+        lat = proj(masked_mean(transformer(emb, mask=mask), mask))
         return lat / torch.linalg.vector_norm(lat.float(), dim=-1, keepdim=True)
 
-    def text_latents(self, text):
-        return self._latent(self.text_emb(text), self.text_transformer, self.to_text_latent)
+    def text_latents(self, text, mask=None):
+        return self._latent(self.text_emb(text), self.text_transformer, self.to_text_latent,
+                            mask)
 
-    def speech_latents(self, speech_tokens):
+    def speech_latents(self, speech_tokens, mask=None):
         return self._latent(self.speech_emb(speech_tokens), self.speech_transformer,
-                            self.to_speech_latent)
+                            self.to_speech_latent, mask)
+
+    def forward(self, text, speech_tokens, return_loss: bool = False, text_mask=None,
+                voice_mask=None):
+        """text (B, Tt), speech_tokens (B, Ts) codes; the masks (B, T) bool
+        keep positions (training's token dropout). Returns each pair's
+        cosine similarity x exp(temperature) (B,), or with ``return_loss``
+        the symmetric contrastive loss over the batch's B x B similarities
+        (reference clvp.py:99-140)."""
+        tl = self.text_latents(text, mask=text_mask)
+        sl = self.speech_latents(speech_tokens, mask=voice_mask)
+        temp = self.temperature.float().exp()
+        if not return_loss:
+            return (tl * sl).sum(dim=-1) * temp
+        return contrastive_loss(tl @ sl.T * temp)
 
     def score_candidates(self, text, candidate_tokens):
         """One text (1, Tt) against B candidates (B, Ts) -> (B,) similarities.
@@ -63,3 +86,16 @@ class CLVP(nn.Module):
         sl = self.speech_latents(candidate_tokens.clamp(0, self.config.num_speech_tokens - 1))
         scores = (sl @ tl[0]) * self.temperature.float().exp()
         return scores.masked_fill(bad.any(dim=1), -float("inf"))
+
+
+def _xent_rows(sim, labels):
+    logp = torch.log_softmax(sim.float(), dim=-1)
+    return -logp.gather(-1, labels[:, None]).mean()
+
+
+def contrastive_loss(sim):
+    """The symmetric contrastive loss of a (B, B) similarity matrix whose
+    diagonal holds the matching pairs: the mean float32 cross-entropy of its
+    rows and of its columns, averaged (CLVP's and CVVP's training loss)."""
+    labels = torch.arange(sim.shape[0], device=sim.device)
+    return (_xent_rows(sim, labels) + _xent_rows(sim.T, labels)) / 2

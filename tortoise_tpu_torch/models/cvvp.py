@@ -2,9 +2,9 @@
 ``tortoise_tpu/models/cvvp.py``; reference tortoise/models/cvvp.py).
 
 Shipped config (reference api.py:254-255): 512 wide, 8 heads, depth 8 on
-both sides, mel_codes=8192 (the speech side reads discrete mel codes). The
-contrastive loss of the JAX module (``return_loss``) is training and is
-not ported here.
+both sides, mel_codes=8192 (the speech side reads discrete mel codes).
+``forward(..., return_loss=True)`` gives the training's symmetric
+contrastive loss.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from tortoise_tpu_torch.models.blocks import AttentionBlock
+from tortoise_tpu_torch.models.clvp import contrastive_loss
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed
 from tortoise_tpu_torch.models.xtransformer import XTransformerEncoder
 
@@ -75,11 +76,15 @@ class CVVP(nn.Module):
         """mel_input: (B, Ts) codes -> unit (B, latent) in float32."""
         return _unit(self.to_speech_latent(self.speech_transformer(self.speech_emb(mel_input))))
 
-    def forward(self, mel_cond, mel_input):
+    def forward(self, mel_cond, mel_input, return_loss: bool = False):
         """Row-wise similarity (B,) of B conditioning clips and B speech
-        inputs, scaled by exp(temperature)."""
-        sim = (self.cond_latents(mel_cond) * self.speech_latents(mel_input)).sum(dim=-1)
-        return sim * self.temperature.float().exp()
+        inputs, scaled by exp(temperature); with ``return_loss`` the
+        symmetric contrastive loss over their B x B similarities."""
+        cl, sl = self.cond_latents(mel_cond), self.speech_latents(mel_input)
+        temp = self.temperature.float().exp()
+        if return_loss:
+            return contrastive_loss(cl @ sl.T * temp)
+        return (cl * sl).sum(dim=-1) * temp
 
     def score_candidates(self, mel_cond, candidate_tokens):
         """One conditioning clip (1, T, mel) against B candidates (B, Ts) ->

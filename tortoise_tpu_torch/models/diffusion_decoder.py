@@ -1,11 +1,11 @@
-"""DiffusionTts: the latent-conditioned mel diffusion decoder.
+"""DiffusionTts: the latent/code-conditioned mel diffusion decoder.
 
 Port of ``tortoise_tpu/models/diffusion_decoder.py`` (reference
-tortoise/models/diffusion_decoder.py:134-322), latent path: 10 DiffusionLayers
+tortoise/models/diffusion_decoder.py:134-322): 10 DiffusionLayers
 (scale-shift ResBlock + relative-position attention) and 3 timestep ResBlocks
-at d=1024, fed by AR latents and FiLM'd by a 2048-d voice latent. The discrete
-code path (``code_embedding``, ``code_converter``, ``mel_head``) is not on the
-quality pipeline and is not ported.
+at d=1024, fed by AR latents (the quality pipeline, bucketed) or discrete mel
+codes (``code_embedding``, ``code_converter``, ``mel_head``; the training's
+unbucketed ``timestep_independent``) and FiLM'd by a 2048-d voice latent.
 
 The relative-position bias of the 13 attention blocks that run every
 diffusion step is a per-layer diagonal vector (L, H, 2T-1) built once per
@@ -22,8 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tortoise_tpu_torch.models.blocks import AttentionBlock, GroupNorm32
-from tortoise_tpu_torch.models.layers import Conv1d, Dense
+from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed
 from tortoise_tpu_torch.ops.attn import rel_bias_vector
+from tortoise_tpu_torch.ops.interpolate import nearest_interpolate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +33,7 @@ class DiffusionTtsConfig:
     num_layers: int = 10
     in_channels: int = 100
     in_latent_channels: int = 1024
+    in_tokens: int = 8193
     out_channels: int = 200
     num_heads: int = 16
 
@@ -126,6 +128,13 @@ class DiffusionTts(nn.Module):
             setattr(self, f"tail_{i}", TimestepResBlock(ch, ch))
         self.out_norm = GroupNorm32(ch)
         self.out_conv = Conv1d(ch, cfg.out_channels, 3, padding=1)
+        # the code path, registered last so that weights.init_random draws
+        # every other parameter as it did before the path existed
+        self.code_embedding = Embed(cfg.in_tokens, ch)
+        for i in range(3):
+            setattr(self, f"code_converter_{i}",
+                    AttentionBlock(ch, cfg.num_heads, relative_pos_embeddings=True))
+        self.mel_head = Conv1d(ch, cfg.in_channels, 3, padding=1)
 
     @property
     def dtype(self):
@@ -138,6 +147,29 @@ class DiffusionTts(nn.Module):
         for i in range(5):
             h = getattr(self, f"ctx_attn_{i}")(h)
         return h.reshape(b, n * h.shape[1], -1).mean(dim=1)
+
+    def timestep_independent(self, aligned_conditioning, conditioning_latent,
+                             expected_seq_len: int, return_code_pred: bool = False):
+        """The conditioning path at exact lengths (reference
+        diffusion_decoder.py:232-260): float latents (B, S, 1024) through
+        ``latent_conv`` and ``latent_attn``, or integer codes (B, S) through
+        ``code_embedding`` and ``code_converter``; then FiLM by the voice
+        latent (B, 2048) and a nearest resize to ``expected_seq_len``.
+        ``return_code_pred`` adds ``mel_head``'s (B, T, 100) prediction."""
+        if aligned_conditioning.is_floating_point():
+            code_emb = self.latent_conv(aligned_conditioning)
+            blocks = [f"latent_attn_{i}" for i in range(4)]
+        else:
+            code_emb = self.code_embedding(aligned_conditioning)
+            blocks = [f"code_converter_{i}" for i in range(3)]
+        for name in blocks:
+            code_emb = getattr(self, name)(code_emb, flash=False)
+        cond_scale, cond_shift = conditioning_latent.chunk(2, dim=-1)
+        code_emb = self.code_norm(code_emb) * (1 + cond_scale[:, None]) + cond_shift[:, None]
+        expanded = nearest_interpolate(code_emb, expected_seq_len)
+        if not return_code_pred:
+            return expanded
+        return expanded, self.mel_head(expanded)
 
     def timestep_independent_bucketed(self, latents, n_latents, conditioning_latent,
                                       out_len, out_bucket: int):
@@ -172,18 +204,31 @@ class DiffusionTts(nn.Module):
             .to(self.dtype).float()
         return vec(self.layers_scan), vec(self.cond_scan)
 
-    def forward(self, x, timesteps, precomputed_aligned_embeddings, valid_len=None,
-                rel_biases=None, flash: bool = False):
-        """x (B, T, 100) noisy mel; timesteps (B,) original-scale steps;
-        precomputed_aligned_embeddings (B, T, C); valid_len (B,) or None;
-        rel_biases from ``rel_bias_vectors(T)`` (or None: each block builds
-        its own). Returns (B, T, 200): eps and variance channels."""
+    def forward(self, x, timesteps, precomputed_aligned_embeddings=None,
+                aligned_conditioning=None, conditioning_latent=None,
+                conditioning_free: bool = False, valid_len=None, rel_biases=None,
+                flash: bool = False):
+        """x (B, T, 100) noisy mel; timesteps (B,) original-scale steps. The
+        conditioning (B, T, C) is the learned unconditioned embedding with
+        ``conditioning_free``, else precomputed_aligned_embeddings, else
+        ``timestep_independent(aligned_conditioning, conditioning_latent,
+        T)``. valid_len (B,) or None; rel_biases from
+        ``rel_bias_vectors(T)`` (or None: each block builds its own); flash
+        routes the 13 per-step attention blocks through K3. Returns
+        (B, T, 200): eps and variance channels."""
         valid_mask = None
         if valid_len is not None:
             pos = torch.arange(x.shape[1], device=x.device)[None, :]
             valid_mask = pos < valid_len.reshape(-1, 1)
             x = _masked(x, valid_mask)
-        code_emb = precomputed_aligned_embeddings
+        if conditioning_free:
+            code_emb = _masked(self.unconditioned_embedding.to(self.dtype).expand(
+                x.shape[0], x.shape[1], -1), valid_mask)
+        elif precomputed_aligned_embeddings is not None:
+            code_emb = precomputed_aligned_embeddings
+        else:
+            code_emb = self.timestep_independent(aligned_conditioning, conditioning_latent,
+                                                 x.shape[1])
         time_emb = self.time_embed_2(F.silu(self.time_embed_1(
             timestep_embedding(timesteps, self.config.model_channels))))
         b_layers, b_cond = rel_biases if rel_biases is not None else (None, None)

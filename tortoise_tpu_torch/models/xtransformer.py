@@ -52,7 +52,9 @@ class EncoderAttention(nn.Module):
         self.to_v = Dense(dim, inner, bias=False, lead=lead)
         self.to_out = Dense(inner, dim, lead=lead)
 
-    def forward(self, x, l: int | None = None):
+    def forward(self, x, l: int | None = None, mask=None):
+        """``mask`` (B, T) bool: a logit counts only where its query and its
+        key are both kept."""
         b, n, _ = x.shape
         h, dh, r = self.heads, self.dim_head, self.rot_dim
         q, k, v = (f(x, l).reshape(b, n, h, dh).transpose(1, 2)
@@ -63,6 +65,9 @@ class EncoderAttention(nn.Module):
                                   dim=-1)
         q, k, v = rot(q), rot(k), rot(v)
         logits = torch.einsum("bhid,bhjd->bhij", q, k) * dh ** -0.5
+        if mask is not None:
+            pair = mask[:, None, :, None] & mask[:, None, None, :]
+            logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.einsum("bhij,bhjd->bhid", attn, v.to(x.dtype))
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh), l)
@@ -99,9 +104,9 @@ class XTransformerEncoder(nn.Module):
         self.layers_scan = _EncoderLayers(dim, heads, ff_mult, depth)
         self.final_norm = LayerNorm(dim)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         ls = self.layers_scan
         for l in range(self.depth):
-            x = x + ls.attn(ls.attn_norm(x, l), l)
+            x = x + ls.attn(ls.attn_norm(x, l), l, mask=mask)
             x = x + ls.ff(ls.ff_norm(x, l), l)
         return self.final_norm(x).to(x.dtype)

@@ -1,7 +1,7 @@
 """Stage timing for the APIs (``StageTimer``) and a device-time breakdown of
 TextToSpeech requests on one GPU.
 
-    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2 | --k4k6]
+    python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2 | --k4k6 | --train]
 
 Builds the full-width TextToSpeech (seeded random weights, voice
 train_dotrice), answers one unprofiled warm-up request, then answers one
@@ -35,6 +35,11 @@ block's four layers; one UnivNet forward (the full-width generator, seeded
 random weights, 2176 mel frames), and the same forward with the copy put
 back. K6 at the JAX tool's shapes (B=128, T=768, pos=300, ck=64), both
 variants beside SDPA.
+
+``--train`` profiles one full-width UnifiedVoice train step (B=4 over the
+full 402 text and 604 mel tokens, float32 with TF32 off, seeded random
+weights and batch) after three unprofiled steps: its wall, the device busy
+time, device time by kernel family and the kernels that take the most.
 """
 from __future__ import annotations
 
@@ -310,6 +315,54 @@ def profile_k4_k6(reps: int = 20) -> dict:
     return out
 
 
+def train_batch(cfg, b: int, t_text: int, t_mel: int, device, seed: int) -> dict:
+    """A seeded UnifiedVoice train batch of ``b`` rows, ``t_text`` text and
+    ``t_mel`` mel tokens; the last row's wav_length pads the last quarter of
+    its mel codes with the stop token."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.full((b,), t_mel * cfg.mel_length_compression, dtype=torch.long)
+    lens[-1] = (t_mel * 3 // 4) * cfg.mel_length_compression
+    batch = {"cond_latent": torch.randn((b, cfg.model_dim), generator=g),
+             "text_tokens": torch.randint(1, cfg.number_text_tokens, (b, t_text), generator=g),
+             "mel_codes": torch.randint(0, cfg.number_mel_codes - 2, (b, t_mel), generator=g),
+             "wav_lengths": lens}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def profile_train_step() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice
+    from tortoise_tpu_torch.training import train_step as ts
+
+    dev = weights.float32_device("cuda")
+    model = UnifiedVoice().to(dev)
+    weights.init_random(model, 0)
+    shape = (4, 402, 604)
+    batch = train_batch(model.config, *shape, dev, seed=5)
+    opt = ts.make_optimizer()
+    step = ts.make_train_step(model, opt)
+    state = ts.init_train_state(model, opt)
+    for _ in range(3):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    events = device_events(prof)
+    res = device_breakdown(events)
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + (e["end_us"] - e["start_us"]) / 1e3
+    res.update(batch=list(shape), wall_ms_profiled=wall_ms,
+               busy_share_of_wall=res["device_busy_ms"] / wall_ms,
+               top_kernels_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
+    return res
+
+
 def main() -> int:
     import subprocess
 
@@ -323,6 +376,8 @@ def main() -> int:
                       help="profile K2's decode step per variant instead of requests")
     what.add_argument("--k4k6", action="store_true",
                       help="time K4 (per hop and layout, UnivNet's forward) and K6 instead")
+    what.add_argument("--train", action="store_true",
+                      help="profile one full-width UnifiedVoice train step instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: torch sees no CUDA device")
@@ -333,6 +388,8 @@ def main() -> int:
         result = {"nvidia_smi": smi, **profile_k2_variants()}
     elif args.k4k6:
         result = {"nvidia_smi": smi, **profile_k4_k6()}
+    elif args.train:
+        result = {"nvidia_smi": smi, **profile_train_step()}
     else:
         tts = TextToSpeech(device="cuda", enable_redaction=False)
         clips, _ = load_voice("train_dotrice")
