@@ -24,8 +24,9 @@ Phases, each of which raises on failure (nothing falls back):
      contiguous; a line per hop with its share of its bound;
   6. K1 (one layer's decode attention with the row write) against its
      plain version and scaled_dot_product_attention at L=30, C=1024, H=16,
-     T=768, B in {1, 16, 96}, pos in {0, 37, 500, 767}, over bf16 and f32
-     caches: the row write bit-exact, every other row untouched;
+     T=768, B in {1, 8, 16, 96} (8: a dp=2 rank's rows in phase 14), pos
+     in {0, 37, 500, 767}, over bf16 and f32 caches: the row write
+     bit-exact, every other row untouched;
   7. the full-width TextToSpeech (seeded random weights, voice
      train_dotrice): K2 at the fast request's shapes (96 candidates, the
      last decode position) over a bf16 cache and over an int8 cache, and
@@ -86,10 +87,36 @@ Phases, each of which raises on failure (nothing falls back):
      from 512 AR latents, B=2), CLVP (token-dropout masks) and CVVP. It
      launches no kernel of the port: the training forward takes the plain
      attention, as the JAX package's does.
-Before each path of phases 7-13 every launch counter is set to 0, and read
-after it: the "launches" of the kernels line sum the runs of phases 7-12. Every
-UnivNet forward of those paths launches K4 12 times, and K4's plain version
-never runs on the card there.
+ 14. the mesh path (tortoise_tpu_torch/parallel) on the one card, between
+     phases 13 and 11: the mp3-only voice tim_reynolds loaded where the
+     machine has ffmpeg (else the error that names it, checked); K1
+     against its plain version at a tp=2 rank's width
+     (C=512, H=8, B in {8, 16}, bf16 and f32 caches); ops.sampling.categorical
+     on CUDA against torch.multinomial's draws, before any mesh request; a
+     world of one over NCCL, whose TextToSpeech(mesh=make_mesh(1, 1))
+     answers phase 7's first ultra_fast request (float32 model, f32 cache)
+     with the codes of the same request unsplit; then a world of two
+     processes over gloo on the card (this script with --mesh-worker):
+     one teacher-forced decode step's logits over tp=2 held to the unsplit
+     model's in float32 and in bf16, at three seeds of its inputs; each rank answering the request over
+     tp=2 and over dp=2 in float32 and over dp=2 in bf16 (K1, K3 and K4
+     launched on each rank; the rows of codes equal to the unsplit
+     request's reported, those of phase 9 for bf16); then one UnifiedVoice
+     train step at full width over tp=2 (B=2 x 1011 positions) whose loss
+     and grad_norm are held to the unsplit step's.
+Before each path of phases 7-14 every launch counter is set to 0, and read
+after it: the "launches" of the kernels line sum the runs of phases 7-12 and
+of phase 14's world of one. Every UnivNet forward of those paths launches K4
+12 times, and K4's plain version never runs on the card there.
+
+    python3 chip_smoke.py --serving-walls [--root DIR]
+
+times phases 7-10's requests alone (a warm-up request, then phase 7's three,
+phase 8's fast path, phase 9's int8-cache and f32-cache requests, phase
+10's CLI; each with its checks) on the package of the checkout at DIR,
+this one by default, and prints one JSON line of their walls. Run on two
+checkouts in one call, in the order A, B, B, A, it compares their serving
+walls on one card.
 
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel and K2 variant, and {"ok": true, "device": {...}}. The full
@@ -104,13 +131,17 @@ from __future__ import annotations
 
 import concurrent.futures
 import gc
+import itertools
 import json
 import os
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+# --serving-walls --root DIR imports the package of the checkout at DIR
+PACKAGE_ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1]
+                               if "--root" in sys.argv else ROOT)
+sys.path.insert(0, PACKAGE_ROOT)
 # the bounds and timings of the port's tools, one reckoning for both
 from tortoise_tpu_torch.utils.measure import bound as _bound  # noqa: E402
 from tortoise_tpu_torch.utils.measure import device_ms as _device_ms  # noqa: E402
@@ -234,6 +265,30 @@ TRAIN_LEAVES = ("mel_head.weight", "mel_head.bias", "text_embedding.weight",
 DIFF_TRAIN = (2, 2229, 512)
 CLVP_TRAIN = (4, 350, 604)
 CVVP_TRAIN = (4, 500, 604)
+# phase 14, the mesh on the one card. The request is REQUESTS[0] with the
+# f32 cache (K2 is off under a mesh); a world of two runs over gloo, which
+# carries all_reduce and broadcast on CUDA tensors (NCCL refuses two ranks
+# on one card); its ranks write build/phase14_rank{r}.{log,json}.
+# One teacher-forced decode step's mel logits of the tp=2 split against the
+# unsplit model's, each row relative to its max|logit|, at three seeds of
+# the step's inputs: float32 partial sums in another order. In bf16 each
+# rank's float32 partial product is summed, then rounded once, as the
+# unsplit product is; the split's other bf16 roundings (K1 at C=512,
+# products of other widths) still part by an ulp here and there, and the
+# flips compound over the 30 layers and the prompt's prefill, as in K2's
+# check of a whole step. Read 0.0137, 0.0172, 0.0167 at seeds 3, 4, 5 on an
+# H100, 3.5-4.4 bf16 ulps (2^-8) of the row's max: the bound is 8 ulps,
+# about twice the largest reading
+MESH_LOGITS_F32_BOUND = 1e-4
+MESH_LOGITS_BF16_BOUND = 2.0 ** -5
+MESH_LOGIT_ROWS, MESH_LOGIT_PROMPT, MESH_LOGIT_SEEDS = 16, 32, (3, 4, 5)
+# (name, dp, tp, half) of the world of two's requests; every one with the
+# f32 cache. Over gloo each of tp=2's ~31,000 all-reduces a request takes
+# 1.5-1.9 ms with two ranks on one H100, so one tp=2 request runs; the bf16
+# model's split is held by its decode step's logits
+MESH_REQUESTS = (("tp2_f32", 1, 2, False), ("dp2_f32", 2, 1, False), ("dp2_bf16", 2, 1, True))
+MESH_TRAIN_BATCH = 2
+MESH_WORLD_TIMEOUT = 900
 # f32 peak of the H100 SXM without tensor cores (the data sheet), TFLOP/s
 F32_PEAK_TFLOPS = 67.0
 # UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
@@ -498,26 +553,28 @@ def _k1_inputs(g, b, c, q_dtype):
     return qkv.split(c, dim=-1)   # q, k_new, v_new: views, rows 3C apart
 
 
-def check_decode_attention_merged(record: dict) -> dict:
+def check_decode_attention_merged(record: dict, C: int = 1024, H: int = 16,
+                                  batches: tuple = (1, 8, 16, 96), key: str = "k1") -> dict:
     """K1 against its plain version at full width over bf16 and f32 caches:
     every (batch row, head) within its bound, the row write bit-exact and
     every other row untouched (the whole cache equals the plain version's
     after each call). Timed at pos=500 beside the plain version and the row
     write plus scaled_dot_product_attention over the strided prefix views;
-    the row's numbers are B=16, pos=500, bf16 cache."""
+    the row's numbers are B=16, pos=500, bf16 cache. ``C`` and ``H`` are
+    one rank's channels and heads (phase 14 checks tp=2's half)."""
     import torch
     import torch.nn.functional as F
 
     from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
 
-    L, C, H, T, layer, dh = 30, 1024, 16, 768, 7, 64
+    L, T, layer, dh = 30, 768, 7, 64
     g = torch.Generator(device="cuda").manual_seed(5)
     cases, row, worst = [], None, 0.0
     for q_dtype, c_dtype, bound in ((torch.bfloat16, torch.bfloat16, K1_BF16_BOUND),
                                     (torch.float32, torch.float32, K1_F32_BOUND),
                                     (torch.bfloat16, torch.float32, K1_BF16_BOUND)):
-        what = f"q {str(q_dtype)[6:]}, cache {str(c_dtype)[6:]}"
-        for b in (1, 16, 96):
+        what = f"C={C} H={H}, q {str(q_dtype)[6:]}, cache {str(c_dtype)[6:]}"
+        for b in batches:
             cache = {n: torch.randn((L, b, T, C), generator=g, device="cuda").to(c_dtype)
                      for n in "kv"}
             plain = {n: t_.clone() for n, t_ in cache.items()}
@@ -569,11 +626,11 @@ def check_decode_attention_merged(record: dict) -> dict:
                 worst = max(worst, abs_err)
             del cache, plain
             torch.cuda.empty_cache()
-    record["k1"] = cases
+    record[key] = cases
     return {"name": K1_NAME, "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/decode_attn_merged.cu",
             "replaces": "tortoise_tpu/ops/attn_pallas.py:215", "max_abs_err": worst,
-            "timed_at": "B=16 pos=500 T=768 bf16 cache", **row}
+            "timed_at": f"B=16 pos=500 T=768 C={C} H={H} bf16 cache", **row}
 
 
 def _head_rel_err(got, want, heads: int) -> float:
@@ -1322,10 +1379,10 @@ def run_quality_int8(clips, record: dict, launches: Launches) -> None:
     record["quality_int8_cache"] = out
 
 
-def run_quality_f32_cache(clips, record: dict, launches: Launches) -> None:
+def run_quality_f32_cache(clips, record: dict, launches: Launches):
     """One ultra_fast request with the f32 KV cache and gpt_fused_step=False:
     every decode step runs the layer stack, K1 in each of its 30 layers;
-    K2 never runs."""
+    K2 never runs. Returns its candidates' codes (phase 14's reference)."""
     from tortoise_tpu_torch.api import TextToSpeech
 
     preset, text, seed = REQUESTS[0]
@@ -1347,11 +1404,13 @@ def run_quality_f32_cache(clips, record: dict, launches: Launches) -> None:
     print("f32-cache request", json.dumps({k: res[k] for k in (
         "wall_s", "stages_s", "peak_mem_bytes", "launches", "decode_steps")}))
     record["quality_f32_cache"] = res
+    codes = tts.last_candidates
     del tts
     gc.collect()
     import torch
 
     torch.cuda.empty_cache()
+    return codes
 
 
 def run_cli(record: dict, launches: Launches) -> None:
@@ -1364,6 +1423,7 @@ def run_cli(record: dict, launches: Launches) -> None:
     from tortoise_tpu_torch.apps import main as cli
 
     out = os.path.join(ROOT, "build", "cli.wav")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.unlink(out)
     argv = ["--voice", "train_dotrice", "--preset", "ultra_fast", "--seed", "0", "-q", "-o", out,
@@ -2037,6 +2097,374 @@ def run_training(record: dict, launches: Launches) -> None:
     torch.cuda.empty_cache()
 
 
+def check_categorical_cuda(record: dict) -> None:
+    """Phase 14, before any mesh request: ops.sampling.categorical on the
+    card draws what torch.multinomial(probs, 1) draws from the same
+    generator, from float32 and from bf16 logits, and leaves the generator
+    where multinomial leaves it."""
+    import torch
+
+    from tortoise_tpu_torch.ops.sampling import categorical
+
+    cases = []
+    for seed, shape, dtype in itertools.product((3, 5, 11), ((8, 50), (16, 8194), (96, 50)),
+                                                (torch.float32, torch.bfloat16)):
+        logits = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed),
+                             device="cuda").mul(3).to(dtype)
+        g1 = torch.Generator("cuda").manual_seed(seed + 100)
+        g2 = torch.Generator("cuda").manual_seed(seed + 100)
+        want = torch.multinomial(torch.softmax(logits, -1), 1, generator=g1)[:, 0]
+        got = categorical(g2, logits)
+        case = {"seed": seed, "shape": list(shape), "dtype": str(dtype),
+                "draws_equal": torch.equal(got, want),
+                "generator_equal": torch.equal(g1.get_state(), g2.get_state())}
+        cases.append(case)
+        if not (case["draws_equal"] and case["generator_equal"]):
+            raise AssertionError(f"categorical on CUDA is not multinomial's draw: {case}")
+    record["phase14_categorical"] = cases
+    print(f"categorical on CUDA: {len(cases)} seeds x shapes x dtypes (float32, bf16) draw "
+          f"what multinomial draws")
+
+
+def check_mp3_voice(record: dict) -> None:
+    """Phase 14: the mp3-only voice tim_reynolds loads through ffmpeg where
+    the machine has it; without it the loader raises the error that names
+    ffmpeg. Which of the two the machine showed goes into the record."""
+    import shutil
+
+    from tortoise_tpu_torch.utils.audio import load_voices
+
+    res = {"ffmpeg": shutil.which("ffmpeg")}
+    if res["ffmpeg"]:
+        clips, latents = load_voices(["tim_reynolds"])
+        res["clip_samples"] = [int(c.shape[-1]) for c in clips]
+        if latents is not None or len(clips) != 4 or min(res["clip_samples"]) <= 0:
+            raise AssertionError(f"tim_reynolds did not load its four mp3 clips: {res}")
+    else:
+        try:
+            load_voices(["tim_reynolds"])
+        except RuntimeError as e:
+            res["error"] = str(e)
+        if "requires ffmpeg" not in res.get("error", ""):
+            raise AssertionError(f"without ffmpeg, tim_reynolds must raise the error that "
+                                 f"names it: {res}")
+    record["phase14_mp3_voice"] = res
+    print("mp3 voice tim_reynolds", json.dumps(res))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_step_logits(mesh, dtype) -> list[float]:
+    """Phase 14c: one teacher-forced decode step (a prefilled prompt, then a
+    given token a row; the step's attention is K1) through UnifiedVoice
+    split over the tp=2 ``mesh`` and unsplit, from the same seeded weights
+    in ``dtype``: for each seed of MESH_LOGIT_SEEDS (the prompt, the
+    conditioning and the tokens), the largest row-relative error of the mel
+    logits."""
+    import torch
+
+    from tortoise_tpu_torch.api import load_autoregressive
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
+    from tortoise_tpu_torch.models.gpt2 import init_kv_cache
+    from tortoise_tpu_torch.parallel.sharding import KVCacheSharding
+
+    cfg = UnifiedVoiceConfig()
+    split, _, _ = load_autoregressive(cfg, "bf16", "cuda", dtype, None, True, False, mesh,
+                                      split=True)
+    whole, _, _ = load_autoregressive(cfg, "bf16", "cuda", dtype, None, True, False)
+    b = MESH_LOGIT_ROWS
+
+    @torch.inference_mode()
+    def logits(model, sharding, cond, text, tokens):
+        prompt = model.compute_prompt(cond, text).expand(b, -1, -1)
+        cache = init_kv_cache(cfg.gpt_config, b, 768, torch.float32, "cuda", sharding)
+        model.gpt(prompt, cache=cache, cache_index=0)
+        h, _ = model.gpt(model.decode_embed(tokens[:, None], 0), cache=cache,
+                         cache_index=prompt.shape[1])
+        return model.hidden_to_mel_logits(h[:, 0]).float()
+
+    errs = []
+    for seed in MESH_LOGIT_SEEDS:
+        g = torch.Generator("cuda").manual_seed(seed)
+        cond = torch.randn((1, cfg.model_dim), generator=g, device="cuda")
+        text = torch.randint(3, 250, (1, MESH_LOGIT_PROMPT), generator=g, device="cuda")
+        tokens = torch.randint(0, 8192, (b,), generator=g, device="cuda")
+        errs.append(_row_rel_err(logits(split, KVCacheSharding(mesh), cond, text, tokens),
+                                 logits(whole, None, cond, text, tokens)))
+    del split, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _mesh_train(mesh) -> dict:
+    """Phase 14d: one UnifiedVoice train step at full width over
+    MESH_TRAIN_BATCH x 1011 positions, unsplit and over the tp=2 mesh, from
+    the same seeded weights and batch."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
+    from tortoise_tpu_torch.training import train_step as ts
+    from tortoise_tpu_torch.utils.profiling import train_batch
+
+    cfg = UnifiedVoiceConfig()
+    batch = train_batch(cfg, MESH_TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL, "cuda", seed=5)
+    res = {"batch": [MESH_TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL]}
+    for name in ("whole", "tp2"):
+        model = UnifiedVoice(cfg).cuda()
+        weights.init_random(model, 0)
+        opt = ts.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+        if name == "tp2":
+            state = ts.init_sharded_train_state(model, opt, mesh)
+            step = ts.make_train_step(model, opt, mesh=mesh)
+        else:
+            state, step = ts.init_train_state(model, opt), ts.make_train_step(model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "first_step_ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        del model, state, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["rel_err"] = max(abs(res["tp2"][k] - res["whole"][k]) / abs(res["whole"][k])
+                         for k in ("loss", "grad_norm"))
+    if res["rel_err"] > TRAIN_CPU_REL_BOUND:
+        raise AssertionError(f"the tp=2 train step's loss or grad_norm is not the unsplit "
+                             f"step's: {res}")
+    return res
+
+
+def mesh_worker() -> int:
+    """Phase 14c and 14d: one rank of the world of two over gloo on the one
+    card (``chip_smoke.py --mesh-worker``; RANK and MASTER_PORT from the
+    environment). Each request of MESH_REQUESTS: its init, its wall, peak
+    memory and launches, K1, K3 and K4 launched; with tp=2 one decode
+    step's logits against the unsplit model's; the rows of its codes equal
+    to the unsplit request's, reported. Then the tp=2 train step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.parallel.mesh import make_mesh, rank_device
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(rank_device())
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            world_size=2, rank=rank)
+    weights.float32_device("cuda")
+    t_start = time.perf_counter()
+    refs = np.load(os.path.join(ROOT, "build", "phase14_ref.npz"))
+    clips, _ = load_voice("train_dotrice")
+    launches = Launches()
+    meshes = {(1, 2): make_mesh(1, 2), (2, 1): make_mesh(2, 1)}
+    out = {"rank": rank, "device": str(rank_device()), "logits_row_rel_err": {}}
+    for dtype, bound in ((torch.float32, MESH_LOGITS_F32_BOUND),
+                         (torch.bfloat16, MESH_LOGITS_BF16_BOUND)):
+        errs = _mesh_step_logits(meshes[(1, 2)], dtype)
+        out["logits_row_rel_err"][str(dtype)] = errs
+        print(f"rank {rank} tp=2 {dtype}: decode step logits row rel err at seeds "
+              f"{MESH_LOGIT_SEEDS}: {errs} (bound {bound})")
+        if max(errs) > bound:
+            raise AssertionError(f"tp=2 {dtype}: the split step's logits are not the unsplit "
+                                 f"step's: {errs} > {bound}")
+    preset, text, seed = REQUESTS[0]
+    for name, dp, tp, half in MESH_REQUESTS:
+        t0 = time.perf_counter()
+        tts = TextToSpeech(device="cuda", enable_redaction=False, half=half,
+                           kv_cache_dtype="f32", mesh=meshes[(dp, tp)])
+        init_s = time.perf_counter() - t0
+        launches.reset()
+        res, _ = _quality_request(tts, clips, preset, text, seed, launches)
+        counts = launches.read()
+        if min(counts[K1_NAME], counts[K3_NAME], counts[K4_NAME]) <= 0:
+            raise AssertionError(f"{name}: K1, K3 and K4 must launch on every rank: {counts}")
+        ref = refs["bf16" if half else "f32"]
+        codes = tts.last_candidates
+        differ = codes != ref
+        res.update(dp=dp, tp=tp, half=half, init_s=init_s, candidate_rows=len(codes),
+                   rows_equal_unsplit=int((~differ).all(axis=1).sum()),
+                   first_differing_step=[int(d.argmax()) if d.any() else None for d in differ])
+        out[name] = res
+        print(f"rank {rank} {name}: wall {res['wall_s']:.2f} s, peak "
+              f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, codes equal to the unsplit request's "
+              f"in {res['rows_equal_unsplit']} of {len(codes)} rows (first differing steps "
+              f"{res['first_differing_step']})")
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train"] = _mesh_train(meshes[(1, 2)])
+    out["s"] = time.perf_counter() - t_start
+    print(f"rank {rank} tp=2 train step", json.dumps(out["train"]))
+    with open(os.path.join(ROOT, "build", f"phase14_rank{rank}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_mesh_world() -> list[dict]:
+    """The world of two: both ranks started at once, each writing its log
+    to build/; the phase fails when a rank fails or outlasts
+    MESH_WORLD_TIMEOUT, and then the other is killed."""
+    import subprocess
+
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2"}
+    logs = [os.path.join(ROOT, "build", f"phase14_rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker"], cwd=ROOT,
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "a timeout"
+            if rc != 0:
+                with open(logs[r]) as f:
+                    tail = f.read()[-6000:]
+                raise AssertionError(f"phase 14: rank {r} of the world of two ended with "
+                                     f"{rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in range(2):
+        with open(logs[r]) as f:
+            print(f"--- phase 14 rank {r} ---\n" + "".join(
+                ln for ln in f if ln.startswith(f"rank {r}")), end="")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(ROOT, "build", f"phase14_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def run_mesh(clips, bf16_ref_codes, record: dict, launches: Launches) -> dict:
+    """Phase 14, the mesh path on the one card, after phase 13 and before
+    phase 11. The mp3 voice; (a) K1 at a tp=2 rank's width; categorical on
+    CUDA. (b) A
+    world of one over NCCL: TextToSpeech(mesh=make_mesh(1, 1)) answers the
+    f32-cache float32 request with the codes of the same request unsplit.
+    (c), (d) the world of two over gloo (``mesh_worker``). Returns K1's
+    row at the tp=2 width."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.parallel import multihost
+    from tortoise_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    check_mp3_voice(record)
+    k1_row = check_decode_attention_merged(record, C=512, H=8, batches=(8, 16), key="k1_tp2")
+    check_categorical_cuda(record)
+    preset, text, seed = REQUESTS[0]
+    kw = dict(device="cuda", enable_redaction=False, half=False, kv_cache_dtype="f32")
+    res = {}
+    for name in ("unsplit", "mesh_1x1"):
+        mesh = None
+        if name == "mesh_1x1":
+            multihost.initialize(f"localhost:{_free_port()}", 1, 0)
+            mesh = make_mesh(1, 1)
+        t0 = time.perf_counter()
+        tts = TextToSpeech(gpt_fused_step=False, mesh=mesh, **kw)
+        init_s = time.perf_counter() - t0
+        launches.reset()
+        res[name], _ = _quality_request(tts, clips, preset, text, seed, launches)
+        counts = launches.read()
+        launches.add(counts)
+        res[name].update(init_s=init_s, codes=tts.last_candidates)
+        if min(counts[K1_NAME], counts[K3_NAME], counts[K4_NAME]) <= 0 or \
+                any(counts[_k2_row_name(v)] for v in K2_VARIANTS):
+            raise AssertionError(f"phase 14 {name}: K1, K3 and K4 must launch, K2 never: "
+                                 f"{counts}")
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+        if mesh is not None:
+            dist.destroy_process_group()
+    ref = res["unsplit"].pop("codes")
+    if not np.array_equal(res["mesh_1x1"].pop("codes"), ref):
+        raise AssertionError("phase 14: the world of one's codes are not the unsplit request's")
+    np.savez(os.path.join(ROOT, "build", "phase14_ref.npz"), f32=ref, bf16=bf16_ref_codes)
+    ranks = _run_mesh_world()
+    record["phase14"] = {"world_of_one": res, "world_of_two": ranks,
+                         "s": time.perf_counter() - t_phase}
+    print(f"phase 14 in {record['phase14']['s']:.1f} s")
+    return k1_row
+
+
+def serving_walls() -> int:
+    """``--serving-walls [--root DIR]``: phases 7-10's requests alone, on
+    the package at PACKAGE_ROOT; one JSON line of their walls."""
+    import torch
+
+    import tortoise_tpu_torch
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.ops import _build
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    package = os.path.dirname(os.path.abspath(tortoise_tpu_torch.__file__))
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    if os.path.dirname(package) != PACKAGE_ROOT:
+        raise AssertionError(f"imported {package}, not the package under {PACKAGE_ROOT}")
+    record = {"package": package, "nvidia_smi": _nvidia_smi()}
+    sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    launches = Launches()
+    clips, _ = load_voice("train_dotrice")
+    tts = TextToSpeech(device="cuda", enable_redaction=False)
+    record["warmup_s"] = _quality_request(tts, clips, *REQUESTS[0], launches)[0]["wall_s"]
+    run_pipeline(tts, clips, record, launches)
+    del tts
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_fast_path(clips, record, launches)
+    run_quality_int8(clips, record, launches)
+    tts = TextToSpeech(device="cuda", enable_redaction=False, kv_cache_dtype="f32",
+                       gpt_fused_step=False)
+    f32 = _quality_request(tts, clips, *REQUESTS[0], launches)[0]
+    del tts
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cli(record, launches)
+    fast = record["fast_path"]
+    walls = {"package": package, "nvidia_smi": record["nvidia_smi"],
+             "warmup_s": record["warmup_s"],
+             "quality_s": [r["wall_s"] for r in record["requests"]],
+             "fast_tts_s": [r["tts"]["wall_s"] for r in fast],
+             "fast_first_chunk_s": [r["stream"]["first_chunk_s"] for r in fast],
+             "fast_stream_s": [r["stream"]["total_s"] for r in fast],
+             "fast_tts_batch_s": fast[0]["tts_batch"]["wall_s"],
+             "int8_cache_s": [r["wall_s"] for r in record["quality_int8_cache"]],
+             "f32_cache_s": f32["wall_s"], "cli_with_init_s": record["cli"]["wall_s_with_init"]}
+    print(json.dumps({"serving_walls": walls}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2084,12 +2512,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_fast_path(clips, record, launches)
     run_quality_int8(clips, record, launches)
-    run_quality_f32_cache(clips, record, launches)
+    f32_cache_codes = run_quality_f32_cache(clips, record, launches)
     run_cli(record, launches)
     # phase 12 before phase 11: profile_ar_step's profiler passes come after
     # every timing of the process
     run_quality_api_rest(clips, record, launches)
     run_training(record, launches)
+    record["k1_tp2_row"] = run_mesh(clips, f32_cache_codes, record, launches)
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
 
@@ -2122,4 +2551,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--mesh-worker"]:
+        sys.exit(mesh_worker())
+    sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

@@ -82,14 +82,19 @@ def test_list_voices_matches_jax(capsys, monkeypatch):
     assert got == want and "train_dotrice" in got.split()
 
 
-def test_mesh_and_redaction_raise(tmp_path):
-    """--mesh still raises: the multi-device paths are not ported. A
-    bracketed request no longer does (redaction is ported; see
+def test_mesh_and_redaction_raise(tmp_path, monkeypatch):
+    """--mesh in one process with no torch.distributed world raises, naming
+    the launcher (tests/test_torch_parallel.py runs it in a world of two).
+    A bracketed request no longer does (redaction is ported; see
     test_main_bracketed_request_without_aligner_weights)."""
     from tortoise_tpu_torch.apps import main as port_main
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item g"):
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "MASTER_ADDR",
+                "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         port_main.main(["--device", "cpu", "--mesh", "4x2", "-o", str(tmp_path / "a.wav"), "Hi."])
+    assert not (tmp_path / "a.wav").exists()
 
 
 def _tiny_factory(monkeypatch, **fixed):

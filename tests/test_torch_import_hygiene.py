@@ -80,7 +80,9 @@ def test_the_walk_finds_the_port():
             "tortoise_tpu_torch.native", "chip_smoke", "tortoise_tpu_torch.models.wav2vec2",
             "tortoise_tpu_torch.utils.wav2vec_alignment", "tortoise_tpu_torch.models.cvvp",
             "tortoise_tpu_torch.models.classifier", "tortoise_tpu_torch.apps.eval",
-            "tortoise_tpu_torch.apps.is_this_from_tortoise"} <= set(MODULES)
+            "tortoise_tpu_torch.apps.is_this_from_tortoise", "tortoise_tpu_torch.parallel",
+            "tortoise_tpu_torch.parallel.mesh", "tortoise_tpu_torch.parallel.sharding",
+            "tortoise_tpu_torch.parallel.multihost"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -19,6 +19,15 @@ without a voice draws random voice latents; ``cvvp_amount`` mixes CVVP's
 scores into CLVP's. Module level: ``classify_audio_clip`` (the
 Tortoise-detect classifier), ``load_discrete_vocoder_diffuser`` and
 ``pad_or_truncate``, as in the reference's api.
+
+``mesh`` (``parallel.mesh.make_mesh``: every rank of a torch.distributed
+group constructs the pipeline and makes the same ``tts`` calls) splits the
+request as the JAX package's mesh does: the weights are broadcast from the
+first rank, and with tp > 1 UnifiedVoice's are split Megatron-style; each
+batch of candidates decodes over dp with the GPT's heads and cache over tp
+(K2 off, K1 in every layer); CLVP scores the candidates over dp; k > 1
+winners diffuse over dp when k divides by it. Codes, scores and mels are
+gathered, and every rank returns the same audio.
 """
 from __future__ import annotations
 
@@ -44,6 +53,10 @@ from tortoise_tpu_torch.models.random_latent import RandomLatentConverter, sampl
 from tortoise_tpu_torch.models.vocoder import UnivNetConfig, UnivNetGenerator
 from tortoise_tpu_torch.ops import mel as mel_ops
 from tortoise_tpu_torch.ops.decode_step import prepare_stacked_params, quantize_gpt_denses
+from tortoise_tpu_torch.parallel.mesh import (batch_sharding, draw_rows, replicate_tree,
+                                              replicated)
+from tortoise_tpu_torch.parallel.sharding import (KVCacheSharding, gather_rows,
+                                                  shard_unified_voice)
 from tortoise_tpu_torch.presets import QUALITY_PRESETS, resolve_preset
 from tortoise_tpu_torch.utils import audio as audio_utils
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
@@ -91,13 +104,16 @@ def pick_best_batch_size_for_device(device, config: UnifiedVoiceConfig = Unified
 
 
 def load_autoregressive(config: UnifiedVoiceConfig, gpt_weights: str, device, dtype,
-                        models_dir, allow_random: bool, fused: bool):
+                        models_dir, allow_random: bool, fused: bool, mesh=None,
+                        split: bool = False):
     """UnifiedVoice with its weights (seed 0 when random), cast to ``dtype``,
     and K2's weight stack when ``fused``. Returns (model, source, stack or
     None). ``gpt_weights``: "bf16"; "int8", QuantDense block denses
     throughout and an int8 stack; "int8_decode", a full-precision model
     whose stack alone is int8, quantized from the f32 weights before the
-    cast, as the JAX package's ``int8_decode`` does."""
+    cast, as the JAX package's ``int8_decode`` does. With ``mesh`` the
+    weights are broadcast from its first rank, and with ``split`` this
+    rank's tp part of them kept (``parallel.sharding``)."""
     cfg = weights_lib.resolve_gpt_quant(config, gpt_weights)
     with torch.device(device):
         model = UnifiedVoice(cfg)
@@ -105,15 +121,20 @@ def load_autoregressive(config: UnifiedVoiceConfig, gpt_weights: str, device, dt
     quantized = quantize_gpt_denses(model.gpt) if fused and gpt_weights == "int8_decode" \
         else None
     model = weights_lib.cast_for_inference(model, dtype).eval()
+    if mesh is not None:
+        replicate_tree(model, mesh)
+        if split:
+            shard_unified_voice(model, mesh)
     return model, source, (prepare_stacked_params(model.gpt, quantized) if fused else None)
 
 
 def load_random_latent_converter(name: str, channels: int, device, models_dir,
-                                 allow_random: bool, seed: int) -> RandomLatentConverter:
+                                 allow_random: bool, seed: int,
+                                 mesh=None) -> RandomLatentConverter:
     with torch.device(device):
         model = RandomLatentConverter(channels)
     weights_lib.load_weights(name, model, models_dir, allow_random, seed)
-    return model.eval()
+    return (model if mesh is None else replicate_tree(model, mesh)).eval()
 
 
 def fix_autoregressive_output(codes: np.ndarray, stop_token: int,
@@ -164,7 +185,7 @@ class TextToSpeech:
                  flash_attn: bool | None = None,
                  ar_config: UnifiedVoiceConfig | None = None,
                  diffusion_config: DiffusionTtsConfig | None = None,
-                 clvp_config: CLVPConfig | None = None):
+                 clvp_config: CLVPConfig | None = None, mesh=None):
         del kv_cache  # reference API compatibility: the cache is always on
         # UnivNet runs in float32 as in the JAX package: no TF32
         self.device = weights_lib.float32_device(device)
@@ -178,8 +199,13 @@ class TextToSpeech:
         # compute in bf16 and cast their inputs at the call boundary, as the
         # JAX fused step does, so half=False keeps them. The CPU takes their
         # plain versions only when asked to explicitly.
-        self.gpt_fused_step = is_cuda if gpt_fused_step is None else gpt_fused_step
+        # K2 decodes one device's whole stack: off under a mesh, as in the
+        # JAX package, whose fused kernel GSPMD cannot split
+        self.gpt_fused_step = (is_cuda if gpt_fused_step is None else gpt_fused_step) \
+            and mesh is None
         self.flash_attn = is_cuda if flash_attn is None else flash_attn
+        self.mesh = mesh
+        self._batch_sharding = batch_sharding(mesh) if mesh is not None else None
         if is_cuda and self.gpt_fused_step and self.kv_cache_dtype == torch.float32:
             raise ValueError("gpt_fused_step: kernel K2 reads a bf16 or int8 KV cache; with "
                              "kv_cache_dtype='f32' pass gpt_fused_step=False to decode "
@@ -191,6 +217,7 @@ class TextToSpeech:
         self._models_dir, self._allow_random = models_dir, allow_random_weights
         self.rlg_auto = self.rlg_diffusion = None
         self.cvvp = None
+        self.last_candidates = None     # the AR candidates' codes of the last tts call
         # Redaction is on by default, as in the reference (api.py:196). The
         # aligner loads its wav2vec2 at the first bracketed request; with no
         # checkpoint that request warns and returns unredacted audio.
@@ -203,11 +230,16 @@ class TextToSpeech:
                 model = ctor()
             source = weights_lib.load_weights(name, model, models_dir, allow_random_weights,
                                               seed)
-            return weights_lib.cast_for_inference(model, dtype).eval(), source
+            model = weights_lib.cast_for_inference(model, dtype).eval()
+            return (model if mesh is None else replicate_tree(model, mesh)), source
 
         self.autoregressive, self.ar_source, self._ar_stacked = load_autoregressive(
             ar_config or UnifiedVoiceConfig(), gpt_weights, self.device, self.dtype, models_dir,
-            allow_random_weights, self.gpt_fused_step)
+            allow_random_weights, self.gpt_fused_step, mesh, split=True)
+        # the cache splits over tp as the GPT stack did (whole when its heads
+        # do not divide by tp)
+        self._cache_sharding = KVCacheSharding(mesh) \
+            if self.autoregressive.gpt.tp is not None else None
         self.ar_cfg = self.autoregressive.config
         self.diff_cfg = diffusion_config or DiffusionTtsConfig(
             in_latent_channels=self.ar_cfg.model_dim)
@@ -229,6 +261,8 @@ class TextToSpeech:
             model = CVVP(CVVPConfig())
         weights_lib.load_weights("cvvp", model, self._models_dir, self._allow_random, 4)
         self.cvvp = weights_lib.cast_for_inference(model, self.dtype).eval()
+        if self.mesh is not None:
+            replicate_tree(self.cvvp, self.mesh)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -267,49 +301,60 @@ class TextToSpeech:
         if self.rlg_auto is None:
             d = self.ar_cfg.model_dim
             self.rlg_auto = load_random_latent_converter(
-                "rlg_auto", d, self.device, self._models_dir, self._allow_random, 5)
+                "rlg_auto", d, self.device, self._models_dir, self._allow_random, 5, self.mesh)
             self.rlg_diffusion = load_random_latent_converter(
-                "rlg_diffuser", 2 * d, self.device, self._models_dir, self._allow_random, 6)
+                "rlg_diffuser", 2 * d, self.device, self._models_dir, self._allow_random, 6,
+                self.mesh)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return (sample_random_latent(self.rlg_auto, gen),
                 sample_random_latent(self.rlg_diffusion, gen))
 
     def do_spectrogram_diffusion(self, latents, diffusion_conditioning, *,
                                  diffusion_iterations, cond_free, cond_free_k, temperature,
-                                 generator: torch.Generator, sampler="p"):
+                                 generator: torch.Generator, sampler="p", valid_latents=None,
+                                 shard=None):
         """Latents (1, n, D) -> denormalized mel (1, 100, out_len).
 
         Latents pad to a multiple of LATENT_BUCKET and the masked model keeps
         the valid region equal to an exact-length run, so the noise shape, the
         bias vectors and K3's masking follow the bucket. The initial noise is
-        the generator's next draw."""
+        the generator's next draw.
+
+        ``valid_latents`` (B,): the k-winner fan-out, latents (B, n, D) of
+        which row b holds valid_latents[b]; the return is then the untrimmed
+        (B, 100, out_bucket) mel, row b exact up to its own out_len. With
+        ``shard`` (``parallel.mesh.BatchShard``) the rows are this rank's of
+        a batch split over dp: every noise is drawn at the global batch's
+        shape and this rank's rows taken."""
         n = latents.shape[1]
         n_bucket = -(-n // self.LATENT_BUCKET) * self.LATENT_BUCKET
         out_bucket = n_bucket * 4 * 24000 // 22050
-        out_len = n * 4 * 24000 // 22050
         b = latents.shape[0]
         dev = self.device
+        n_vec = torch.tensor([n] if valid_latents is None else list(valid_latents), device=dev)
+        out_len = n_vec * 4 * 24000 // 22050
         lat_padded = F.pad(latents, (0, 0, 0, n_bucket - n))
-        noise = torch.randn((b, out_bucket, 100), generator=generator, device=dev) * temperature
+        noise = draw_rows(lambda g: torch.randn((g, out_bucket, 100), generator=generator,
+                                                device=dev), b, shard) * temperature
         pre = self.diffusion.timestep_independent_bucketed(
-            lat_padded, torch.tensor([n], device=dev), diffusion_conditioning,
-            torch.tensor([out_len], device=dev), out_bucket)
+            lat_padded, n_vec, diffusion_conditioning, out_len, out_bucket)
         if cond_free:
             uncond = self.diffusion.unconditioned_embedding.to(pre.dtype).expand(pre.shape)
-            mask = torch.arange(out_bucket, device=dev)[None, :, None] < out_len
+            mask = torch.arange(out_bucket, device=dev)[None, :, None] < out_len[:, None, None]
             pre = torch.cat([pre, uncond * mask.to(pre.dtype)], dim=0)
         rel_biases = self.diffusion.rel_bias_vectors(out_bucket)
 
         def model_fn(x, t):
-            valid = torch.full((x.shape[0],), out_len, device=dev)
+            valid = out_len.expand(b).repeat(x.shape[0] // b)
             return self.diffusion(x, t, pre, valid_len=valid, rel_biases=rel_biases,
                                   flash=self.flash_attn)
 
         loop = {"p": p_sample_loop, "ddim": ddim_sample_loop}[sampler]
         mel = loop(model_fn, spaced_schedule("linear", 4000, diffusion_iterations), noise,
-                   generator, SamplerConfig(cond_free=cond_free, cond_free_k=cond_free_k))
+                   generator, SamplerConfig(cond_free=cond_free, cond_free_k=cond_free_k),
+                   shard)
         mel = mel_ops.denormalize_tacotron_mel(mel).transpose(1, 2)
-        return mel[:, :, :out_len]
+        return mel if valid_latents is not None else mel[:, :, :n * 4 * 24000 // 22050]
 
     def _vocode_clip(self, mel_btc, generator: torch.Generator):
         """Mel (1, F, 100) -> wav (1, F*256, 1) in one exact-length decode.
@@ -341,6 +386,8 @@ class TextToSpeech:
         needs ``voice_samples``."""
         timer = StageTimer(enabled=True)
         det_seed = deterministic_state(use_deterministic_seed)
+        if self.mesh is not None:   # a seed from the clock differs between ranks
+            det_seed = replicated(det_seed, self.mesh)
         gen = torch.Generator(device=self.device).manual_seed(det_seed)
         dev = self.device
         cfg = self.ar_cfg
@@ -387,12 +434,17 @@ class TextToSpeech:
                 f"num_autoregressive_samples={num_autoregressive_samples} is not divisible "
                 f"by autoregressive_batch_size={self.autoregressive_batch_size}; sampling "
                 f"{num_batches * bs} candidates instead.", stacklevel=2)
+        shard = self._batch_sharding
         with timer.stage("autoregressive"):
             samples = [sample_speech(self.autoregressive, auto_latent, text_t, gen, bs,
                                      settings, cache_dtype=self.kv_cache_dtype,
-                                     stacked=self._ar_stacked)[0]
+                                     stacked=self._ar_stacked, batch_sharding=shard,
+                                     cache_sharding=self._cache_sharding)[0]
                        for _ in range(num_batches)]
+            if shard is not None:
+                samples = [gather_rows(c, shard) for c in samples]
             samples = torch.cat(samples).cpu().numpy()
+        self.last_candidates = samples
 
         if verbose:
             print("Computing best candidates using CLVP" +
@@ -411,7 +463,12 @@ class TextToSpeech:
         fixed_t = torch.as_tensor(fixed, device=dev)
         if cvvp_amount != 1:
             with timer.stage("clvp_rerank"):
-                scores = self.clvp.score_candidates(text_unbucketed, fixed_t).float().cpu().numpy()
+                if shard is not None and len(fixed) % shard.size == 0:
+                    scores = gather_rows(self.clvp.score_candidates(
+                        text_unbucketed, fixed_t[shard.rows(len(fixed))]), shard)
+                else:
+                    scores = self.clvp.score_candidates(text_unbucketed, fixed_t)
+                scores = scores.float().cpu().numpy()
         if auto_conds is not None and cvvp_amount > 0:
             if self.cvvp is None:
                 self.load_cvvp()
@@ -435,19 +492,33 @@ class TextToSpeech:
 
         if verbose:
             print("Transforming autoregressive outputs into audio..")
+        diffusion = dict(diffusion_iterations=diffusion_iterations, cond_free=cond_free,
+                         cond_free_k=cond_free_k, temperature=diffusion_temperature,
+                         generator=gen, sampler=diffusion_sampler)
+        trims = [calm_token_trim_length(c) for c in best]
         wavs = []
-        for i in range(len(best)):
-            n = calm_token_trim_length(best[i])
-            with timer.stage("diffusion"):
-                mel = self.do_spectrogram_diffusion(
-                    best_latents[i:i + 1, :n].float(), diff_latent,
-                    diffusion_iterations=diffusion_iterations, cond_free=cond_free,
-                    cond_free_k=cond_free_k, temperature=diffusion_temperature,
-                    generator=gen, sampler=diffusion_sampler)
-                self._sync()
+
+        def vocode(mel):
             with timer.stage("vocoder"):
                 wav = self._vocode_clip(mel.transpose(1, 2), gen)
                 wavs.append(wav[:, :, 0][:, None, :].float().cpu())
+
+        if shard is not None and len(best) > 1 and len(best) % shard.size == 0:
+            # the winners in one batch over dp, as the JAX package's fan-out
+            rows = shard.rows(len(best))
+            with timer.stage("diffusion"):
+                mels = gather_rows(self.do_spectrogram_diffusion(
+                    best_latents[rows, :max(trims)].float(), diff_latent,
+                    valid_latents=trims[rows], shard=shard, **diffusion), shard)
+            for i, n in enumerate(trims):
+                vocode(mels[i:i + 1, :, :n * 4 * 24000 // 22050])
+        else:
+            for i, n in enumerate(trims):
+                with timer.stage("diffusion"):
+                    mel = self.do_spectrogram_diffusion(
+                        best_latents[i:i + 1, :n].float(), diff_latent, **diffusion)
+                    self._sync()
+                vocode(mel)
         with timer.stage("redact_finalize"):
             wavs = [self._potentially_redact(w, text) for w in wavs]
         if verbose:

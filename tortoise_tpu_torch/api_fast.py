@@ -13,6 +13,12 @@ the exact length (its own tests show the padded and exact decodes equal on
 the valid region). ``gpt_weights``: "bf16"; "int8", int8 block denses
 throughout; "int8_decode", a bf16 model whose decode kernel streams int8
 weights (half the bytes of each B=1 step, which the weight stream bounds).
+
+``mesh`` (``parallel.mesh.make_mesh``, every rank of the group making the
+same calls): the weights are broadcast from the first rank and
+``tts_batch``'s utterances decode over dp when their number divides by it,
+each rank vocoding its own; the single-utterance paths ignore the mesh, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
 from tortoise_tpu_torch.models.hifigan import HifiganConfig, HifiganGenerator
 from tortoise_tpu_torch.models.random_latent import sample_random_latent
 from tortoise_tpu_torch.ops import mel as mel_ops
+from tortoise_tpu_torch.parallel.mesh import batch_sharding, replicate_tree, replicated
+from tortoise_tpu_torch.parallel.sharding import gather_rows
 from tortoise_tpu_torch.presets import FAST_PRESETS, resolve_preset
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
@@ -92,7 +100,8 @@ class TextToSpeechFast:
     def __init__(self, models_dir=None, tokenizer_vocab_file=None, tokenizer_basic=False,
                  dtype=torch.bfloat16, allow_random_weights=True,
                  ar_config: UnifiedVoiceConfig | None = None, text_bucket: int = 32,
-                 gpt_weights="bf16", gpt_fused_step: bool | None = None, device="cuda"):
+                 gpt_weights="bf16", gpt_fused_step: bool | None = None, device="cuda",
+                 mesh=None):
         # HiFi-GAN runs in float32 as in the JAX package: no TF32
         self.device = weights_lib.float32_device(device)
         is_cuda = self.device.type == "cuda"
@@ -105,10 +114,12 @@ class TextToSpeechFast:
                                            use_basic_cleaners=tokenizer_basic)
         self.mel_norms = mel_ops.load_mel_norms().to(self.device)
         self._models_dir, self._allow_random = models_dir, allow_random_weights
+        self.mesh = mesh
+        self._batch_sharding = batch_sharding(mesh) if mesh is not None else None
 
         self.autoregressive, self.ar_source, self._ar_stacked = load_autoregressive(
             ar_config or UnifiedVoiceConfig(), gpt_weights, self.device, dtype, models_dir,
-            allow_random_weights, self.gpt_fused_step)
+            allow_random_weights, self.gpt_fused_step, mesh)
         cfg = self.autoregressive.config
         with torch.device(self.device):
             self.hifi_decoder = HifiganGenerator(HifiganConfig(in_channels=cfg.model_dim,
@@ -116,6 +127,8 @@ class TextToSpeechFast:
         self.hifi_source = weights_lib.load_weights("hifidecoder", self.hifi_decoder, models_dir,
                                                     allow_random_weights, 1)
         self.hifi_decoder.eval()
+        if mesh is not None:
+            replicate_tree(self.hifi_decoder, mesh)
         self.rlg_auto = None
         self.last_codes = None  # natural-length codes of the last tts / tts_stream call
 
@@ -136,7 +149,7 @@ class TextToSpeechFast:
         if self.rlg_auto is None:
             self.rlg_auto = load_random_latent_converter(
                 "rlg_auto", self.autoregressive.config.model_dim, self.device,
-                self._models_dir, self._allow_random, 2)
+                self._models_dir, self._allow_random, 2, self.mesh)
         return sample_random_latent(self.rlg_auto,
                                     torch.Generator(device=self.device).manual_seed(seed))
 
@@ -246,8 +259,10 @@ class TextToSpeechFast:
         """N utterances decoded as one candidate batch. texts: N strings;
         conditioning_latents (N, D), (1, D), (D,) or None (one random voice).
         Texts pad to ``text_bucket`` multiples with the stop token. Returns a
-        list of N float32 (1, 1, S_i) CPU tensors."""
+        list of N float32 (1, 1, S_i) CPU tensors, on every rank of a mesh."""
         det_seed = deterministic_state(use_deterministic_seed)
+        if self.mesh is not None:   # a seed from the clock differs between ranks
+            det_seed = replicated(det_seed, self.mesh)
         cfg = self.autoregressive.config
         n = len(texts)
         ids = [self.tokenizer.encode(t) for t in texts]
@@ -272,12 +287,27 @@ class TextToSpeechFast:
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   repetition_penalty=repetition_penalty)
         gen = torch.Generator(device=self.device).manual_seed(det_seed)
+        shard = self._batch_sharding
+        if shard is not None and n % shard.size:
+            shard = None            # unsplit on every rank, as the JAX package falls back
         codes, _ = sample_speech(self.autoregressive, cond, toks, gen, n, settings,
-                                 stacked=self._ar_stacked)
+                                 stacked=self._ar_stacked, batch_sharding=shard)
+        if shard is None:
+            latents = self._relatent(cond, toks, codes)
+            codes = codes.cpu().numpy()
+            return [self._decode(latents[r:r + 1], self._trim_codes(codes[r]), cond[r:r + 1])
+                    for r in range(n)]
+        # this rank's utterances, vocoded into a zeroed (n / dp, S_max) block
+        rows = shard.rows(n)
+        cond, toks = cond[rows], toks[rows]
         latents = self._relatent(cond, toks, codes)
-        codes = codes.cpu().numpy()
-        return [self._decode(latents[r:r + 1], self._trim_codes(codes[r]), cond[r:r + 1])
-                for r in range(n)]
+        lengths = [self._trim_codes(c) for c in gather_rows(codes, shard).cpu().numpy()]
+        sizes = [_expected_samples(m) for m in lengths]
+        block = torch.zeros((codes.shape[0], max(sizes)), device=self.device)
+        for j, r in enumerate(range(n)[rows]):
+            block[j, :sizes[r]] = self._decode(latents[j:j + 1], lengths[r], cond[j:j + 1])[0, 0]
+        wavs = gather_rows(block, shard).cpu()
+        return [wavs[r:r + 1, None, :sizes[r]] for r in range(n)]
 
     # ------------------------------------------------------------------
     @torch.inference_mode()

@@ -5,11 +5,15 @@ stdin; --list-voices / --play / --output / --output-dir output modes;
 multi-voice, voice blending and 'all'; chunked long-form with
 --regenerate/--skip-existing; the complete tuning-knob passthrough group.
 It runs on the card unless ``--device cpu`` asks for the CPU (the JAX CLI
-parses --device and ignores it). ``--mesh`` is accepted and raises: the
-multi-device paths are not ported yet (ROADMAP.md, Queue 1 item g).
+parses --device and ignores it). ``--mesh DP[xTP]`` splits each request over
+a torch.distributed world of DP x TP processes, one a GPU, which the
+launcher starts (``parallel.multihost.initialize`` reads torchrun's
+variables); rank 0 alone prints and writes the audio.
 
     python3 -m tortoise_tpu_torch.apps.main --voice train_dotrice --preset ultra_fast \\
         -o out.wav "Hello there."
+    torchrun --nproc-per-node 2 -m tortoise_tpu_torch.apps.main --mesh 1x2 \\
+        --voice train_dotrice --preset ultra_fast -o out.wav "Hello there."
 """
 from __future__ import annotations
 
@@ -69,8 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "cache; default: on for CUDA); off, each layer's "
                              "decode attention is kernel K1")
     parser.add_argument("--mesh", type=str, default=None, metavar="DP[xTP]",
-                        help="shard over a device mesh, e.g. --mesh 8 (dp=8) or --mesh 4x2 "
-                             "(dp=4, tp=2): not ported to PyTorch yet, raises")
+                        help="shard over a device mesh of torch.distributed ranks (start "
+                             "them with torchrun), e.g. --mesh 8 (dp=8) or --mesh 4x2 (dp=4, "
+                             "tp=2): candidate batch, CLVP scoring and diffusion fan-out over "
+                             "dp, Megatron tensor-parallel GPT over tp")
     for flag, typ in [("--num-autoregressive-samples", int), ("--temperature", float),
                       ("--length-penalty", float), ("--repetition-penalty", float),
                       ("--top-p", float), ("--max-mel-tokens", int),
@@ -91,10 +97,6 @@ def main(argv=None):
         for v in sorted(get_voices(extra_dirs)):
             print(v)
         return 0
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharding over a device mesh (parallel/*) is not "
-                                  "ported to tortoise_tpu_torch yet (ROADMAP.md, Queue 1 item g)")
-
     from tortoise_tpu_torch.api import TextToSpeech
     from tortoise_tpu_torch.utils.text import split_and_recombine_text
 
@@ -124,13 +126,29 @@ def main(argv=None):
         "diffusion_temperature": args.diffusion_temperature,
     }.items() if v is not None}
 
+    mesh, lead = None, True
+    if args.mesh:
+        import torch.distributed as dist
+
+        from tortoise_tpu_torch.parallel import multihost
+        from tortoise_tpu_torch.parallel.mesh import make_mesh
+
+        device_type = "cpu" if args.device == "cpu" else "cuda"
+        multihost.initialize(device_type=device_type)
+        if not dist.is_initialized():
+            raise RuntimeError(f"--mesh {args.mesh}: no torch.distributed world; start one "
+                               "process a device with torchrun")
+        dp, _, tp = args.mesh.lower().partition("x")
+        mesh = make_mesh(dp=int(dp), tp=int(tp) if tp else 1, device_type=device_type)
+        lead = dist.get_rank() == 0
+
     tts = TextToSpeech(models_dir=args.models_dir,
                        autoregressive_batch_size=args.batch_size,
                        kv_cache_dtype=args.kv_cache_dtype,
                        gpt_weights=args.gpt_weights,
                        gpt_fused_step=args.gpt_fused_step,
                        enable_redaction=not args.disable_redaction and "[" in text,
-                       device=args.device)
+                       device=args.device, mesh=mesh)
 
     regenerate = [int(x) for x in args.regenerate.split(",")] if args.regenerate else None
     all_audio = []
@@ -149,10 +167,10 @@ def main(argv=None):
             gen = tts.tts_with_preset(chunk, preset=args.preset, k=args.candidates,
                                       conditioning_latents=conditioning_latents,
                                       use_deterministic_seed=args.seed,
-                                      verbose=not args.quiet, **tuning)
+                                      verbose=not args.quiet and lead, **tuning)
             first = np.asarray(gen[0] if isinstance(gen, list) else gen).squeeze()
             parts.append(first)
-            if clip_path:
+            if clip_path and lead:
                 os.makedirs(os.path.dirname(clip_path), exist_ok=True)
                 save_wav(clip_path, first, 24000)
                 if isinstance(gen, list):
@@ -161,9 +179,13 @@ def main(argv=None):
                                  np.asarray(g).squeeze(), 24000)
         combined = np.concatenate(parts)
         all_audio.append(combined)
-        if args.output_dir:
+        if args.output_dir and lead:
             save_wav(os.path.join(args.output_dir, voice, "combined.wav"), combined, 24000)
 
+    if mesh is not None:
+        dist.destroy_process_group()
+    if not lead:
+        return 0
     if args.output:
         save_wav(args.output, all_audio[0], 24000)
     elif args.play:

@@ -5,7 +5,9 @@ tortoise/utils/diffusion.py:312-780): a Python loop over the spaced
 schedule from ``diffusion/schedule.py``. Conditioning-free
 guidance runs the cond and uncond halves in ONE model call on a doubled
 batch, with the ramped strength cfk = k (1 - t/T). Step noise comes from an
-explicit ``torch.Generator``.
+explicit ``torch.Generator``; for a batch split over dp (``shard``, a
+``parallel.mesh.BatchShard``) it is drawn at the global batch's shape and
+this rank's rows taken, so each row gets the noise it gets unsplit.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from tortoise_tpu_torch.diffusion.schedule import DiffusionSchedule
+from tortoise_tpu_torch.parallel.mesh import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +70,11 @@ def _p_mean_variance(tab, x, t: int, eps, var_values, clip_denoised: bool):
     return mean, model_log_variance, pred_xstart
 
 
+def _step_noise(x, generator: torch.Generator, shard):
+    return draw_rows(lambda n: torch.randn((n, *x.shape[1:]), generator=generator,
+                                           device=x.device, dtype=x.dtype), x.shape[0], shard)
+
+
 def _loop(step, schedule: DiffusionSchedule, cfg: SamplerConfig, model_fn: Callable,
           noise, generator):
     tab = _tables(schedule)
@@ -81,21 +89,23 @@ def _loop(step, schedule: DiffusionSchedule, cfg: SamplerConfig, model_fn: Calla
 
 
 def p_sample_loop(model_fn: Callable, schedule: DiffusionSchedule, noise,
-                  generator: torch.Generator, cfg: SamplerConfig = SamplerConfig()):
+                  generator: torch.Generator, cfg: SamplerConfig = SamplerConfig(),
+                  shard=None):
     """Ancestral sampling from ``noise`` (B, T, C). ``model_fn(x, t_orig)``
     returns (B, T, 2C); with ``cfg.cond_free`` it gets the doubled batch."""
     def step(tab, x, t, eps, var_values, gen):
         mean, logvar, _ = _p_mean_variance(tab, x, t, eps, var_values, cfg.clip_denoised)
         if t == 0 or cfg.noise_scale == 0:
             return mean
-        z = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        z = _step_noise(x, gen, shard)
         return mean + cfg.noise_scale * torch.exp(0.5 * logvar) * z
 
     return _loop(step, schedule, cfg, model_fn, noise, generator)
 
 
 def ddim_sample_loop(model_fn: Callable, schedule: DiffusionSchedule, noise,
-                     generator: torch.Generator, cfg: SamplerConfig = SamplerConfig()):
+                     generator: torch.Generator, cfg: SamplerConfig = SamplerConfig(),
+                     shard=None):
     """DDIM (reference diffusion.py:624-780); deterministic at eta=0."""
     def step(tab, x, t, eps_m, var_values, gen):
         _, _, pred_xstart = _p_mean_variance(tab, x, t, eps_m, var_values, cfg.clip_denoised)
@@ -107,7 +117,7 @@ def ddim_sample_loop(model_fn: Callable, schedule: DiffusionSchedule, noise,
             + float(np.sqrt(1 - ab_prev - sigma ** 2)) * eps
         if t == 0 or sigma == 0:
             return mean_pred
-        z = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        z = _step_noise(x, gen, shard)
         return mean_pred + sigma * z
 
     return _loop(step, schedule, cfg, model_fn, noise, generator)

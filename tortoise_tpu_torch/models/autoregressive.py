@@ -6,6 +6,11 @@ tortoise/models/autoregressive.py:293-574): a GPT-2 over
 embeddings. Shipped config: 30 layers, d=1024, 16 heads, 402 text / 604 mel
 positions, 255 text tokens (start 255, stop 0), 8194 mel codes (start 8192,
 stop 8193).
+
+On a tp split (``parallel.sharding.shard_unified_voice``) the GPT stack
+holds one rank's heads and ``mel_head`` and ``text_head`` one rank's part of
+the vocabulary, whose logits are gathered over tp before any loss or
+sampling; the conditioning encoder and the embeddings stay whole.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from torch import nn
 from tortoise_tpu_torch.models.blocks import ConditioningEncoder
 from tortoise_tpu_torch.models.gpt2 import GPT2Config, GPT2Stack
 from tortoise_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from tortoise_tpu_torch.parallel.sharding import copy_to_tp, gather_from_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +63,9 @@ class UnifiedVoiceConfig:
 
 
 class UnifiedVoice(nn.Module):
+    # parallel.sharding.TensorParallel once the parameters are split over tp
+    tp = None
+
     def __init__(self, config: UnifiedVoiceConfig = UnifiedVoiceConfig()):
         super().__init__()
         cfg = self.config = config
@@ -70,6 +79,14 @@ class UnifiedVoice(nn.Module):
         self.final_norm = LayerNorm(cfg.model_dim)
         self.text_head = Dense(cfg.model_dim, cfg.text_vocab)
         self.mel_head = Dense(cfg.model_dim, cfg.number_mel_codes)
+
+    def _head(self, name: str, x):
+        """Logits of ``mel_head`` or ``text_head``; of a vocab-split head,
+        this rank's part gathered over tp."""
+        head = getattr(self, name)
+        if self.tp is None or f"{name}.weight" not in self.tp.split:
+            return head(x)
+        return gather_from_tp(head(copy_to_tp(x, self.tp)), self.tp)
 
     def _positions(self, n: int):
         return torch.arange(n, device=self.text_embedding.weight.device)
@@ -110,8 +127,8 @@ class UnifiedVoice(nn.Module):
         t_text, t_mel = text_inp.shape[1], mel_inp.shape[1]
         if return_latent:
             return enc[:, t_text:t_text + t_mel][:, :-2]
-        text_logits = self.text_head(enc[:, :t_text])
-        mel_logits = self.mel_head(enc[:, -t_mel:])
+        text_logits = self._head("text_head", enc[:, :t_text])
+        mel_logits = self._head("mel_head", enc[:, -t_mel:])
         if return_logits:
             return text_logits, mel_logits
         return _xent(text_logits, text_tar), _xent(mel_logits, mel_tar), mel_logits
@@ -137,7 +154,7 @@ class UnifiedVoice(nn.Module):
         return self.mel_embedding(tokens) + self.mel_pos_embedding(pos)
 
     def hidden_to_mel_logits(self, hidden):
-        return self.mel_head(self.final_norm(hidden).to(hidden.dtype))
+        return self._head("mel_head", self.final_norm(hidden).to(hidden.dtype))
 
     def hidden_to_latent(self, hidden):
         """final_norm'd hidden state (float32)."""

@@ -14,6 +14,12 @@ writes the new rows into the given cache tensors IN PLACE. A one-row decode
 step over a bf16 or f32 cache attends through K1
 (``ops/attn.py::decode_attention_merged``), which also writes the row; the
 int8 cache keeps the plain chunked attention, as in the JAX package.
+
+On a tp split (``parallel.sharding.shard_unified_voice``) the stack holds
+this rank's H/tp heads: c_attn and mlp_fc give its C/tp and 4C/tp output
+channels, c_proj and mlp_proj its float32 partial sums, which are
+all-reduced before their bias is added once; the cache holds the rank's
+C/tp channels.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from torch import nn
 from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm, QuantDense
 from tortoise_tpu_torch.ops.attention import chunked_decode_attention_merged
 from tortoise_tpu_torch.ops.attn import decode_attention_merged
+from tortoise_tpu_torch.parallel.sharding import copy_to_tp, reduce_from_tp
 
 NEG_INF = -1e9
 
@@ -73,14 +80,18 @@ class _Block(nn.Module):
 
 
 def init_kv_cache(config: GPT2Config, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device=None) -> dict[str, torch.Tensor]:
+                  device=None, sharding=None) -> dict[str, torch.Tensor]:
     """Zeroed (L, B, T_max, C) k and v buffers; ``dtype=torch.int8`` adds the
-    zeroed f32 scale slabs (L, B, H, T_max)."""
+    zeroed f32 scale slabs (L, B, H, T_max). With ``sharding``
+    (``parallel.sharding.KVCacheSharding``) each buffer is this rank's part
+    of those global shapes."""
     shape = (config.n_layer, batch, max_len, config.n_embd)
+    sshape = (config.n_layer, batch, config.n_head, max_len)
+    if sharding is not None:
+        shape, sshape = sharding.local_shape("k", shape), sharding.local_shape("k_scale", sshape)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
-        sshape = (config.n_layer, batch, config.n_head, max_len)
         cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
         cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
     return cache
@@ -97,6 +108,9 @@ def quantize_kv_rows(x: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.T
 
 
 class GPT2Stack(nn.Module):
+    # parallel.sharding.TensorParallel while the stack holds one rank's heads
+    tp = None
+
     def __init__(self, cfg: GPT2Config):
         super().__init__()
         self.config = cfg
@@ -108,9 +122,27 @@ class GPT2Stack(nn.Module):
         w, b = norm.params(l)
         return F.layer_norm(x.float(), (x.shape[-1],), w, b, self.config.ln_eps)
 
+    @property
+    def local_heads(self) -> int:
+        return self.config.n_head // (self.tp.size if self.tp else 1)
+
+    def _column(self, dense, x, l):
+        """A product split on its output: on a tp split, identity forward
+        and its input's gradient all-reduced backward."""
+        return dense(x if self.tp is None else copy_to_tp(x, self.tp), l)
+
+    def _row(self, dense, x, l):
+        """A product split on its input: on a tp split, each rank's float32
+        partial product all-reduced, then the bias added once and the sum
+        rounded once to the compute dtype."""
+        if self.tp is None:
+            return dense(x, l)
+        y = reduce_from_tp(dense(x, l, bias=False), self.tp)
+        return (y + dense.bias[l].float()).to(x.dtype)
+
     def _attend(self, q, k, v, cache, l, cache_index):
         b, t, c = q.shape
-        h = self.config.n_head
+        h = self.local_heads
         dh = c // h
         dtype = q.dtype
         if cache is not None:
@@ -161,12 +193,12 @@ class GPT2Stack(nn.Module):
         (ln_f(x) in the compute dtype, cache)."""
         blk = self.h_scan.block
         dtype = blk.attn.c_attn.bias.dtype    # the weight may be int8 (QuantDense)
-        c = self.config.n_embd
+        c = blk.attn.c_attn.bias.shape[-1] // 3     # C, or C / tp on a tp split
         x = emb.to(dtype)
         for l in range(self.config.n_layer):
             h = self._ln(blk.ln_1, x, l).to(dtype)
-            q, k, v = blk.attn.c_attn(h, l).split(c, dim=-1)
-            x = x + blk.attn.c_proj(self._attend(q, k, v, cache, l, cache_index), l)
+            q, k, v = self._column(blk.attn.c_attn, h, l).split(c, dim=-1)
+            x = x + self._row(blk.attn.c_proj, self._attend(q, k, v, cache, l, cache_index), l)
             h = self._ln(blk.ln_2, x, l).to(dtype)
-            x = x + blk.mlp_proj(gelu_new(blk.mlp_fc(h, l)), l)
+            x = x + self._row(blk.mlp_proj, gelu_new(self._column(blk.mlp_fc, h, l)), l)
         return self.ln_f(x).to(dtype), cache

@@ -30,8 +30,14 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(*lead, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(*lead, out_features)) if bias else None
 
-    def forward(self, x, l: int | None = None):
+    def forward(self, x, l: int | None = None, bias: bool = True):
+        """``bias=False``: the product alone, in float32, a row-split
+        product's partial sum, all-reduced before its bias is added once
+        (``models/gpt2.py``): the sum rounds to the compute dtype once, as
+        the unsplit product does."""
         w = _pick(self.weight, l)
+        if not bias:
+            return F.linear(x.to(w.dtype).float(), w.float())
         return F.linear(x.to(w.dtype), w, _pick(self.bias, l))
 
 
@@ -59,10 +65,11 @@ class QuantDense(nn.Module):
         self.qscale = nn.Parameter(torch.ones(*lead, out_features))
         self.bias = nn.Parameter(torch.zeros(*lead, out_features))
 
-    def forward(self, x, l: int | None = None):
+    def forward(self, x, l: int | None = None, bias: bool = True):
+        """``bias=False``: the float32 ``acc * qscale`` alone, as ``Dense``."""
         w, s, b = _pick(self.weight, l), _pick(self.qscale, l), _pick(self.bias, l)
-        acc = F.linear(x.float(), w.float())
-        return (acc * s.float() + b.float()).to(x.dtype)
+        acc = F.linear(x.float(), w.float()) * s.float()
+        return (acc + b.float()).to(x.dtype) if bias else acc
 
 
 class Conv1d(nn.Module):

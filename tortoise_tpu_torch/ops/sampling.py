@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from tortoise_tpu_torch.parallel.mesh import draw_rows
+
 NEG_INF = -float("inf")
 
 
@@ -70,15 +72,24 @@ def process_logits(logits, seen, *, repetition_penalty: float = 2.0,
     return apply_top_p(logits, top_p)
 
 
-def categorical(generator: torch.Generator, logits):
-    """One draw per row from softmax(logits)."""
+def categorical(generator: torch.Generator, logits, shard=None):
+    """One draw per row of (B, V) ``logits`` from their softmax, the draw
+    ``torch.multinomial(probs, 1, generator=generator)`` makes: argmax(probs
+    / q) with q ~ Exp(1) over the whole (B, V), without multinomial's host
+    sync. With ``shard`` (``parallel.mesh.BatchShard``) the rows are this
+    rank's part of a batch split over dp: q is drawn at the global batch's
+    shape from the generator every rank holds alike, and this rank's rows
+    are taken, so each row draws what it draws unsplit."""
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    q = draw_rows(lambda n: torch.empty((n, probs.shape[1]), dtype=probs.dtype,
+                                        device=probs.device).exponential_(1, generator=generator),
+                  probs.shape[0], shard)
+    return (probs / q).argmax(dim=-1)
 
 
 def sample_topk_topp(generator: torch.Generator, logits, seen, *,
                      repetition_penalty: float = 2.0, temperature: float = 0.8,
-                     top_k: int = 50, top_p: float = 0.8):
+                     top_k: int = 50, top_p: float = 0.8, shard=None):
     """Same distribution as ``process_logits`` + a categorical draw, with the
     sort and cumsum done on the (B, top_k) subset: top-k precedes top-p in
     HF's order, so nucleus filtering inside the top-k values is exact."""
@@ -90,5 +101,5 @@ def sample_topk_topp(generator: torch.Generator, logits, seen, *,
         probs = torch.softmax(vals, dim=-1)
         cum_before = probs.cumsum(dim=-1) - probs
         vals = vals.masked_fill(cum_before >= top_p, NEG_INF)
-    r = categorical(generator, vals)
+    r = categorical(generator, vals, shard)
     return idx.gather(-1, r[..., None])[..., 0]

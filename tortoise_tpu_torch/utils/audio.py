@@ -1,15 +1,21 @@
 """Audio loading, resampling, the voice registry and conditioning helpers.
 
 Port of ``tortoise_tpu/utils/audio.py`` plus ``format_conditioning`` and
-``deterministic_state`` from ``tortoise_tpu/api_fast.py``. Wav files only
-(scipy); resampling goes through the port's ``native`` library when it
-builds and scipy's polyphase resampler otherwise, exactly as in the JAX
-package. Voices come from ``BUILTIN_VOICES_DIR`` and the directories given.
+``deterministic_state`` from ``tortoise_tpu/api_fast.py``. Wav clips are read
+with scipy and mp3 clips decoded by ffmpeg in a subprocess; resampling goes
+through the port's ``native`` library when it builds and scipy's polyphase
+resampler otherwise, exactly as in the JAX package. Voices come from
+``BUILTIN_VOICES_DIR``, the library named by ``TORTOISE_EXTRA_VOICES_DIR``
+and the directories given: clips (wav, mp3), latent files (``.npz``, the
+reference's ``.pth``) and the decoded-clip cache ``<voice>.clips.npz``.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import random
+import subprocess
+import tempfile
 import time
 from glob import glob
 
@@ -27,6 +33,9 @@ from tortoise_tpu_torch.ops import mel as mel_ops
 # copy would only double the tree.
 BUILTIN_VOICES_DIR = os.path.join(os.path.dirname(os.path.realpath(__file__)), "..", "..",
                                   "tortoise_tpu", "voices")
+# an optional voice library (for example the reference's voice folders); the
+# decoded-clip cache is never written under it
+EXTRA_VOICES_DIR = os.environ.get("TORTOISE_EXTRA_VOICES_DIR")
 
 
 def load_wav(path: str) -> tuple[np.ndarray, int]:
@@ -43,6 +52,18 @@ def load_wav(path: str) -> tuple[np.ndarray, int]:
     return data.astype(np.float32) / norm, sr
 
 
+def _load_mp3(path: str, sampling_rate: int) -> np.ndarray:
+    """Decode an mp3 to mono at ``sampling_rate`` with ffmpeg."""
+    with tempfile.NamedTemporaryFile(suffix=".wav") as tmp:
+        try:
+            subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-i", path,
+                            "-ar", str(sampling_rate), "-ac", "1", tmp.name], check=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"decoding {path} requires ffmpeg; convert the clip to wav") \
+                from e
+        return load_wav(tmp.name)[0]
+
+
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return audio
@@ -55,10 +76,14 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_audio(path: str, sampling_rate: int) -> np.ndarray:
-    """A wav clip -> float32 (1, T) in [-1, 1] at ``sampling_rate``."""
-    if os.path.splitext(path)[1].casefold() != ".wav":
-        raise ValueError(f"only wav clips are supported: {path}")
-    audio, sr = load_wav(path)
+    """A wav or mp3 clip -> float32 (1, T) in [-1, 1] at ``sampling_rate``."""
+    ext = os.path.splitext(path)[1].casefold()
+    if ext == ".wav":
+        audio, sr = load_wav(path)
+    elif ext == ".mp3":
+        audio, sr = _load_mp3(path, sampling_rate), sampling_rate
+    else:
+        raise ValueError(f"unsupported audio format (wav or mp3): {path}")
     if audio.ndim > 1:
         audio = audio[0] if audio.shape[0] < 5 else audio[:, 0]
     return np.clip(resample(audio, sr, sampling_rate), -1, 1)[None, :]
@@ -87,28 +112,63 @@ def pad_or_truncate(t: np.ndarray, length: int) -> np.ndarray:
 
 def get_voices(extra_voice_dirs: list[str] = ()) -> dict[str, list[str]]:
     voices: dict[str, list[str]] = {}
-    for d in [BUILTIN_VOICES_DIR, *extra_voice_dirs]:
-        if not os.path.isdir(d):
+    for d in [BUILTIN_VOICES_DIR, EXTRA_VOICES_DIR, *extra_voice_dirs]:
+        if not d or not os.path.isdir(d):
             continue
         for sub in sorted(os.listdir(d)):
             subj = os.path.join(d, sub)
             if os.path.isdir(subj):
-                voices[sub] = sorted(glob(f"{subj}/*.wav")) + sorted(glob(f"{subj}/*.npz"))
+                voices[sub] = [p for ext in ("wav", "mp3", "npz", "pth")
+                               for p in sorted(glob(f"{subj}/*.{ext}"))]
     return voices
+
+
+def _load_latents_file(path: str):
+    """A latent voice file -> (auto, diffusion or None): the port's ``.npz``
+    or the reference's ``.pth`` (a tensor or an (auto, diffusion) pair)."""
+    if path.endswith(".npz"):
+        z = np.load(path)
+        return np.asarray(z["auto"]), np.asarray(z["diffusion"]) if "diffusion" in z else None
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(data, (tuple, list)):
+        if len(data) >= 2 and data[1] is not None:
+            return np.asarray(data[0]), np.asarray(data[1])
+        return np.asarray(data[0]), None
+    return np.asarray(data), None
 
 
 def load_voice(voice: str, extra_voice_dirs: list[str] = ()):
     """-> (clips, latents): a list of (1, T) clips at 22.05 kHz, or an
-    (auto, diffusion) latent pair from a voice that holds only a latent .npz."""
+    (auto, diffusion) latent pair from a voice that holds only a latent file.
+
+    A clip voice's first load writes its decoded clips to
+    ``<voice>.clips.npz`` beside them (never under ``EXTRA_VOICES_DIR``), and
+    later loads read that cache; a write that fails is ignored."""
     if voice == "random":
         return None, None
     paths = get_voices(extra_voice_dirs)[voice]
-    wavs = [p for p in paths if p.endswith(".wav")]
-    latents = [p for p in paths if p.endswith(".npz") and not p.endswith(".clips.npz")]
-    if latents and not wavs:
-        z = np.load(latents[0])
-        return None, (z["auto"], z["diffusion"] if "diffusion" in z else None)
-    return [load_audio(p, 22050) for p in wavs], None
+    clip_caches = [p for p in paths if p.endswith(".clips.npz")]
+    latent_files = [p for p in paths
+                    if p.endswith((".npz", ".pth")) and not p.endswith(".clips.npz")]
+    audio_files = [p for p in paths if p.endswith((".wav", ".mp3"))]
+    if latent_files and not audio_files:
+        return None, _load_latents_file(latent_files[0])
+    if clip_caches:
+        z = np.load(clip_caches[0])
+        return [z[k] for k in sorted(z.files)], None
+    clips = [load_audio(p, 22050) for p in audio_files]
+    if clips and not (EXTRA_VOICES_DIR and os.path.realpath(audio_files[0]).startswith(
+            os.path.realpath(EXTRA_VOICES_DIR))):
+        cache = os.path.join(os.path.dirname(audio_files[0]), f"{voice}.clips.npz")
+        part = f"{cache}.{os.getpid()}.part"   # renamed whole: no reader sees half a file
+        try:
+            with open(part, "wb") as f:
+                np.savez(f, **{f"clip_{i:03d}": c for i, c in enumerate(clips)})
+            os.replace(part, cache)
+        except OSError:
+            with contextlib.suppress(OSError):
+                os.remove(part)
+    return clips, None
 
 
 def load_voices(voices: list[str], extra_voice_dirs: list[str] = ()):
