@@ -51,13 +51,21 @@ Phases, each of which raises on failure (nothing falls back):
      and b, B=128, T=768, pos=300, ck=64), K7 (seven data-movement probes)
      and K8 (four contraction orientations) against their plain versions
      at the tools' reference shapes, timed with and without the host's
-     launch time; then, counted, the five tools' main() in this process:
+     launch time; then, counted, the tools' main() in this process:
      probe_ops (with the host's launch costs), decode_attn_kv128 (B=16,
      L=30), bench_attn_body, bench_decode_attn_merged (its defaults: B=16,
-     T=768, L=30, nvalid=600, 32 steps) and, last, profile_ar_step (B=16, 8
-     tokens a section; its per-layer decode runs K1), whose torch.profiler
-     passes come after every timing of the process, each tool checking its
-     kernels again;
+     T=768, L=30, nvalid=600, 32 steps), bench_lvc (K4 against its plain
+     version beside the gather and shifted forms, F=937), bench_fused_decode_step
+     (K2 against the layer stack, one step and 32 chained ones at B=128,
+     over the int8 and the bf16 cache), check_fused_exactness (full width, 16
+     steps: decisive agreement 1.0 over both caches), bench_fused_ab (whole
+     requests with K2 on and off: K2 launched in the "on" ones only),
+     measure_first_audio and, last, profile_ar_step (B=16, 8 tokens a
+     section; its per-layer decode runs K1), whose torch.profiler passes
+     come after every timing of the process, each tool checking its
+     kernels again (TOOL_RUNS lists each one's arguments and cuts); then
+     profile_diffusion_step in a process of its own (K3 and the dense
+     form at B=1 and 2, T=896 and 2229: host, event and busy ms a step);
  12. the quality API's remaining paths, at full width with seeded random
      weights, on a TextToSpeech whose redaction is left on by default: a
      bracketed ultra_fast request with no wav2vec2 checkpoint (it warns,
@@ -104,9 +112,19 @@ Phases, each of which raises on failure (nothing falls back):
      request's reported, those of phase 9 for bf16); then one UnifiedVoice
      train step at full width over tp=2 (B=2 x 1011 positions) whose loss
      and grad_norm are held to the unsplit step's.
-Before each path of phases 7-14 every launch counter is set to 0, and read
-after it: the "launches" of the kernels line sum the runs of phases 7-12 and
-of phase 14's world of one. Every UnivNet forward of those paths launches K4
+ 15. between phases 14 and 11: the socket server (apps.socket_server over a
+     full-width bf16 TextToSpeechFast on 127.0.0.1, one connection, two
+     utterances of train_dotrice: float32 framing, END_OF_AUDIO, finite
+     non-empty audio, K2 launched; time to the first bytes and total);
+     CLVP with use_xformers=False at the shipped widths, the card against
+     the CPU module in float32 with TF32 off; a full-width UnivNet's tree
+     through weights.save_params and load_weights ("native", the same
+     forward as the tree loaded directly); istft(stft(x)) against x; the
+     native crossfade against its formula.
+Before each path of phases 7-15 every launch counter is set to 0, and read
+after it: the "launches" of the kernels line sum the runs of phases 7-12, of
+phase 14's world of one, phase 15 and phase 11's tools. Every UnivNet
+forward of those paths launches K4
 12 times, and K4's plain version never runs on the card there.
 
     python3 chip_smoke.py --serving-walls [--root DIR]
@@ -236,9 +254,40 @@ TOOL_RUNS = (
     ("bench_attn_body", ["--batch", "128", "--t", "768", "--fill", "300", "--ck", "64",
                          "--reps", "5"]),
     ("bench_decode_attn_merged", []),
+    # the path measurement tools, each cut where its defaults would not fit:
+    # bench_lvc and bench_fused_decode_step at their defaults (F=937; B=128,
+    # T=768, fill 256, 32 steps, int8 cache), the latter again over the
+    # bf16 cache (K1 in the stack); check_fused_exactness at full width, 16
+    # of its 32 steps; bench_fused_ab at 1 run (1 quality run) after its
+    # warm-up, 40 of its 200 tokens, tts_batch of 8 of its 64 utterances;
+    # measure_first_audio at 3 of its 5 runs
+    ("bench_lvc", []),
+    ("bench_fused_decode_step", []),
+    ("bench_fused_decode_step", ["--cache", "bf16"]),
+    ("check_fused_exactness", ["--steps", "16"]),
+    ("bench_fused_ab", ["--runs", "1", "--quality-runs", "1", "--tokens", "40", "--batch", "8"]),
+    ("measure_first_audio", ["--runs", "3"]),
     # last: its busy passes run torch.profiler, which slows every launch after it
     ("profile_ar_step", ["--batch", "16", "--tokens", "8"]),
 )
+# and profile_diffusion_step in a process of its own, after them (its
+# profiler passes would slow this process's launches): B=1 and 2 at its
+# default 896 frames and at 2229 (a 500-token clip), 4 of its 16 steps
+DIFFUSION_PROFILE_ARGS = ["--tout", "896", "2229", "--steps", "4", "--batch", "1", "2"]
+# phase 15. CLVP's plain-Transformer variant at the shipped widths (768, 20
+# + 20 layers, 12 heads, text table 350), float32 with TF32 off on the card
+# against the CPU module: sums in other orders over 20 layers, a similarity
+# within +-e
+CLVP_PLAIN_ABS_BOUND = 1e-4
+CLVP_PLAIN_SHAPES = (2, 350, 604)
+# the socket server: two utterances of voice train_dotrice over one
+# connection to a full-width bf16 TextToSpeechFast
+SOCKET_VOICE = "train_dotrice"
+SOCKET_TEXTS = ("The quick brown fox jumps over the lazy dog.",
+                "A second utterance on the same connection.")
+SOCKET_TIMEOUT = 300
+# istft(stft(x)) against x on the card: float32 FFTs, relative to max|x|
+STFT_REL_BOUND = 1e-5
 # phase 13, training in float32 with TF32 off. UnifiedVoice: TRAIN_STEPS
 # steps at B=4 over the full 402 text and 604 mel tokens (1011 positions a
 # row), the JAX package's lr and a warmup of 2 (the first step changes
@@ -1123,9 +1172,14 @@ def check_tool_kernels(record: dict) -> list[dict]:
 
 def run_tools(record: dict, launches: Launches) -> None:
     """Phase 11, the tools path: each tool's main() in this process, as a
-    user runs it on the card, counted apart. Each checks its own kernels
-    against their plain versions and raises on a mismatch (probe_ops
-    returns ok=False); profile_ar_step's sections must all be timed."""
+    user runs it on the card, counted apart, each checked: its kernels
+    against their plain versions (probe_ops returns ok=False on a
+    mismatch; bench_lvc's K4), K2 against the layer stack
+    (bench_fused_decode_step's first step, check_fused_exactness's
+    decisive agreement 1.0 over both caches), K2
+    in bench_fused_ab's "on" requests only, finite audio, every section of
+    profile_ar_step timed; then profile_diffusion_step in a process of its
+    own."""
     import importlib
     import math
 
@@ -1137,9 +1191,38 @@ def run_tools(record: dict, launches: Launches) -> None:
         print(f"--- python3 -m tortoise_tpu_torch.tools.{name} {' '.join(argv)}")
         res = tool.main(argv)
         res["wall_s"] = time.perf_counter() - t0
-        record["tools"][name] = res
+        record["tools"][name if name not in record["tools"] else f"{name} {' '.join(argv)}"] = res
+        print(f"{name}: {res['wall_s']:.1f} s")
         if name == "probe_ops" and not res["ok"]:
             raise AssertionError("probe_ops: a probe failed")
+        if name == "bench_lvc":
+            # it holds every form to K4's plain version, run on the card
+            launches.lvc_plain_on_cuda = 0
+            for hop, row in res["hops"].items():
+                if row["forms"]["k4"]["rel_err"] > K4_REL_BOUND or not all(
+                        math.isfinite(r["device_ms"]) for r in row["forms"].values()):
+                    raise AssertionError(f"bench_lvc hop={hop}: {row}")
+        # K2 against the layer stack after one step from the same input and
+        # cache (later steps part further, whatever the kernel: the tool's
+        # docstring); every time finite
+        if name == "bench_fused_decode_step" and (
+                res["rel_err_by_step"][0] > K2_REL_BOUND
+                or not all(math.isfinite(r["device_ms"]) for r in res["paths"].values())):
+            raise AssertionError(f"bench_fused_decode_step: K2 against the layer stack: {res}")
+        if name == "check_fused_exactness" and not all(
+                r["decisive_agreement"] == 1.0 and r["decisive_steps"] > 0
+                and r["stack_replay_self_consistency"] == 1.0 for r in res["rows"].values()):
+            raise AssertionError(f"check_fused_exactness: {res['rows']}")
+        if name == "bench_fused_ab":
+            rows = {f"{row} {key}": r for row, v in res.items() if isinstance(v, dict)
+                    for key, r in v.items()}
+            if not all(r["finite"] and (r["k2_launches"] > 0) == key.endswith("fused_on")
+                       for key, r in rows.items()):
+                raise AssertionError(f"bench_fused_ab: K2 must launch in the 'on' runs only, "
+                                     f"every wav finite: {rows}")
+        if name == "measure_first_audio" and not (
+                res["finite"] and 0 < res["first_audio_s_median"] < res["stream_audio_s"]):
+            raise AssertionError(f"measure_first_audio: {res}")
         if name == "profile_ar_step":
             secs = res["sections"]
             timed = [secs["a"], secs["b"], secs["c"], *secs["b2"].values(),
@@ -1150,6 +1233,42 @@ def run_tools(record: dict, launches: Launches) -> None:
     launches.add(counts)
     record["tools_launches"] = counts
     print("tools path launches", json.dumps(counts))
+    _profile_diffusion_step(record)
+
+
+# profile_diffusion_step's main in a process of its own, its result on the last line
+DIFFUSION_PROFILE = """import json, sys
+from tortoise_tpu_torch.tools import profile_diffusion_step as tool
+print(json.dumps(tool.main(sys.argv[1:])))
+"""
+
+
+def _profile_diffusion_step(record: dict) -> None:
+    """profile_diffusion_step in a process of its own, after this process's
+    last timing: every row timed, its busy share positive."""
+    import math
+    import subprocess
+
+    argv = DIFFUSION_PROFILE_ARGS
+    print(f"--- python3 -m tortoise_tpu_torch.tools.profile_diffusion_step {' '.join(argv)}")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", DIFFUSION_PROFILE, *argv], cwd=PACKAGE_ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(run.stdout[-4000:])
+    if run.returncode:
+        raise AssertionError(f"profile_diffusion_step exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    res["wall_s"] = wall
+    record["tools"]["profile_diffusion_step"] = res
+    print(f"profile_diffusion_step: {wall:.1f} s")
+    # busy comes from a profiled pass, event from an earlier one: a
+    # device-bound step may read a little over 1
+    if len(res["rows"]) != 8 or not all(
+            math.isfinite(r["event_ms"]) and 0 < r["busy_share"] <= 1.1
+            for r in res["rows"].values()):
+        raise AssertionError(f"profile_diffusion_step: {res['rows']}")
 
 
 def _wav_ok(wav, whole: bool = True) -> bool:
@@ -2415,6 +2534,187 @@ def run_mesh(clips, bf16_ref_codes, record: dict, launches: Launches) -> dict:
     return k1_row
 
 
+def _check_socket_server(record: dict, launches: Launches) -> None:
+    """Phase 15a: apps.socket_server over a full-width bf16 TextToSpeechFast
+    on 127.0.0.1 at a port the system picks; one connection sends two
+    utterances of SOCKET_VOICE. Each must come back as float32 samples (a
+    whole number of them), finite, non-empty, ended by END_OF_AUDIO, and
+    grow K2's bf16 count. Prints the time to the first bytes and the total."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from tortoise_tpu_torch.api_fast import TextToSpeechFast
+    from tortoise_tpu_torch.apps.socket_server import END_OF_AUDIO, TTSServer
+
+    t0 = time.perf_counter()
+    server = TTSServer(host="127.0.0.1", port=0, tts=TextToSpeechFast(device="cuda"))
+    port = server.bind()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    init_s = time.perf_counter() - t0
+    k2 = _k2_row_name("bf16")
+    rows = []
+    launches.reset()
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=SOCKET_TIMEOUT) as sock:
+            for text in SOCKET_TEXTS:
+                before = launches.read()[k2]
+                t0 = time.perf_counter()
+                sock.sendall(f"{SOCKET_VOICE}|{text}".encode("utf-8"))
+                buf, first = b"", None
+                while not buf.endswith(END_OF_AUDIO):
+                    data = sock.recv(1 << 16)
+                    if not data:
+                        raise AssertionError(f"socket server closed the connection on {text!r}")
+                    first = first or time.perf_counter() - t0
+                    buf += data
+                total = time.perf_counter() - t0
+                pcm = buf[:-len(END_OF_AUDIO)]
+                audio = np.frombuffer(pcm, dtype="<f4")
+                row = {"text": text, "first_bytes_s": first, "total_s": total,
+                       "audio_s": len(audio) / 24000.0, "bytes": len(pcm),
+                       "k2_launches": launches.read()[k2] - before,
+                       "finite": bool(np.isfinite(audio).all())}
+                rows.append(row)
+                print("socket utterance", json.dumps(row))
+                if len(pcm) % 4 or not len(audio) or not row["finite"] or not row["k2_launches"]:
+                    raise AssertionError(f"socket server: a bad utterance: {row}")
+    finally:
+        server.close()
+        thread.join(timeout=SOCKET_TIMEOUT)
+    launches.add(launches.read())
+    if thread.is_alive():
+        raise AssertionError("socket server: serve_forever did not return after close")
+    record["phase15_socket"] = {"init_s": init_s, "utterances": rows}
+
+
+def _check_clvp_plain(record: dict) -> None:
+    """Phase 15b: CLVP with use_xformers=False at the shipped widths (768,
+    20 + 20 layers, 12 heads, text table 350), seeded random weights,
+    float32: its similarities on the card against the CPU module's, TF32
+    off, and its forward timed on the card."""
+    import torch
+
+    from tortoise_tpu_torch import weights as weights_lib
+    from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
+
+    cfg = CLVPConfig(use_xformers=False)
+    cpu = CLVP(cfg)
+    weights_lib.init_random(cpu, 9)
+    dev = weights_lib.float32_device("cuda")
+    card = CLVP(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    b, t_text, t_speech = CLVP_PLAIN_SHAPES
+    g = torch.Generator().manual_seed(9)
+    text = torch.randint(0, cfg.num_text_tokens, (b, t_text), generator=g)
+    speech = torch.randint(0, cfg.num_speech_tokens, (b, t_speech), generator=g)
+    with torch.inference_mode():
+        want = cpu.eval()(text, speech)
+        text_c, speech_c = text.to(dev), speech.to(dev)
+        got = card.eval()(text_c, speech_c).cpu()
+        ms = _time_ms(lambda: card(text_c, speech_c), 5)
+    err = (got - want).abs().max().item()
+    res = {"shapes": CLVP_PLAIN_SHAPES, "max_abs_err": err, "bound": CLVP_PLAIN_ABS_BOUND,
+           "similarities": got.tolist(), "forward_ms": ms}
+    record["phase15_clvp_plain"] = res
+    print(f"CLVP use_xformers=False, 768 x (20 + 20), B={b} x ({t_text}, {t_speech}) tokens: "
+          f"card vs CPU max|err| {err:.3g} (bound {CLVP_PLAIN_ABS_BOUND}); forward {ms:.2f} ms")
+    if not torch.isfinite(got).all() or err > CLVP_PLAIN_ABS_BOUND:
+        raise AssertionError(f"CLVP use_xformers=False: card against CPU: {res}")
+
+
+def _check_npz_round_trip(record: dict, launches: Launches) -> None:
+    """Phase 15c: a full-width UnivNet's tree (convert.from_jax.to_jax)
+    through weights.save_params; load_weights from that directory must
+    report "native", and its forward equal the forward of the tree loaded
+    directly (from_jax), sample for sample."""
+    import torch
+
+    from tortoise_tpu_torch import weights as weights_lib
+    from tortoise_tpu_torch.convert.from_jax import from_jax, to_jax
+    from tortoise_tpu_torch.models.vocoder import UnivNetConfig, UnivNetGenerator
+
+    dev = weights_lib.float32_device("cuda")
+    build = lambda: UnivNetGenerator(UnivNetConfig(use_kernel=True)).to(dev).eval()
+    model = build()
+    weights_lib.init_random(model, 3)
+    tree = to_jax(model)
+    models_dir = os.path.join(ROOT, "build", "npz_models")
+    t0 = time.perf_counter()
+    weights_lib.save_params(os.path.join(models_dir, "vocoder.npz"), tree)
+    save_s = time.perf_counter() - t0
+    loaded, direct = build(), build()
+    t0 = time.perf_counter()
+    source = weights_lib.load_weights("vocoder", loaded, models_dir, False, 0)
+    load_s = time.perf_counter() - t0
+    direct.load_state_dict(from_jax(direct, tree))
+    g = torch.Generator(device=dev).manual_seed(15)
+    mel = torch.randn((1, 200, 100), generator=g, device=dev)
+    z = torch.randn((1, 210, 64), generator=g, device=dev)
+    launches.reset()
+    with torch.inference_mode():
+        got, want = loaded.inference(mel, z), direct.inference(mel, z)
+    counts = launches.read()
+    launches.add(counts)
+    res = {"source": source, "save_s": save_s,
+           "load_s": load_s, "bytes": os.path.getsize(os.path.join(models_dir, "vocoder.npz")),
+           "equal": bool(torch.equal(got, want)), "launches": counts}
+    record["phase15_npz"] = res
+    print("npz round trip", json.dumps(res))
+    if source != "native" or not res["equal"] or counts[K4_NAME] != 2 * LVC_CALLS_PER_FORWARD:
+        raise AssertionError(f"the .npz round trip: {res}")
+
+
+def _check_stft_and_crossfade(record: dict) -> None:
+    """Phase 15d: istft(stft(x)) on the card against x (23.2 s at 24 kHz,
+    n_fft 1024, hop 256), and native.crossfade against its formula."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch import native
+    from tortoise_tpu_torch.ops import mel
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((1, 557056), generator=g, device="cuda").clamp(-4, 4) / 4
+    spec = mel.stft(x, 1024, 256, 1024)
+    back = mel.istft(spec, 1024, 256, 1024, length=x.shape[-1])
+    torch.cuda.synchronize()
+    err = (back - x[:, :back.shape[-1]]).abs().max().item() / x.abs().max().item()
+    rng = np.random.default_rng(16)
+    chunk, overlap = rng.standard_normal(4096).astype(np.float32), \
+        rng.standard_normal(1024).astype(np.float32)
+    faded = native.crossfade(chunk, overlap)
+    if faded is None:
+        raise AssertionError("native.crossfade: the native library did not build or load")
+    t = np.arange(1024, dtype=np.float32) / np.float32(1023)
+    want = chunk.copy()
+    want[:1024] = overlap * (1 - t) + chunk[:1024] * t
+    cf_err = float(np.abs(faded - want).max())
+    res = {"stft_shape": list(spec.shape), "istft_rel_err": err, "bound": STFT_REL_BOUND,
+           "crossfade_max_abs_err": cf_err}
+    record["phase15_stft_crossfade"] = res
+    print("stft/istft and crossfade", json.dumps(res))
+    if back.shape != x.shape or err > STFT_REL_BOUND or cf_err > 1e-6:
+        raise AssertionError(f"istft(stft(x)) or crossfade: {res}")
+
+
+def run_serving_and_rest(record: dict, launches: Launches) -> None:
+    """Phase 15, after phase 14 and before phase 11: the socket server, CLVP's
+    plain-Transformer variant, the .npz round trip, stft/istft and the
+    crossfade; each part's wall printed."""
+    record["phase15_s"] = {}
+    for part, fn in (("socket_server", lambda: _check_socket_server(record, launches)),
+                     ("clvp_plain", lambda: _check_clvp_plain(record)),
+                     ("npz", lambda: _check_npz_round_trip(record, launches)),
+                     ("stft_crossfade", lambda: _check_stft_and_crossfade(record))):
+        t0 = time.perf_counter()
+        fn()
+        record["phase15_s"][part] = time.perf_counter() - t0
+        print(f"phase 15 {part}: {record['phase15_s'][part]:.1f} s")
+
+
 def serving_walls() -> int:
     """``--serving-walls [--root DIR]``: phases 7-10's requests alone, on
     the package at PACKAGE_ROOT; one JSON line of their walls."""
@@ -2519,6 +2819,7 @@ def main() -> int:
     run_quality_api_rest(clips, record, launches)
     run_training(record, launches)
     record["k1_tp2_row"] = run_mesh(clips, f32_cache_codes, record, launches)
+    run_serving_and_rest(record, launches)
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
 

@@ -74,7 +74,8 @@ def test_spaced_schedule_matches_jax(name, steps):
 PORT_CONVERTERS = {
     "autoregressive": lambda s: port_ti.unified_voice_params(s, layers=LAYERS),
     "diffusion_decoder": lambda s: port_ti.diffusion_tts_params(s, num_layers=LAYERS),
-    "clvp": port_ti.clvp_params, "vocoder": port_ti.univnet_params,
+    "clvp": port_ti.clvp_params, "clvp_plain": port_ti.clvp_params,
+    "vocoder": port_ti.univnet_params,
     "hifidecoder": port_ti.hifigan_params, "rlg_auto": port_ti.rlg_params,
     "rlg_diffuser": port_ti.rlg_params,
     "cvvp": lambda s: port_ti.cvvp_params(s, cond_depth=LAYERS, speech_depth=LAYERS),

@@ -82,7 +82,15 @@ def test_the_walk_finds_the_port():
             "tortoise_tpu_torch.models.classifier", "tortoise_tpu_torch.apps.eval",
             "tortoise_tpu_torch.apps.is_this_from_tortoise", "tortoise_tpu_torch.parallel",
             "tortoise_tpu_torch.parallel.mesh", "tortoise_tpu_torch.parallel.sharding",
-            "tortoise_tpu_torch.parallel.multihost"} <= set(MODULES)
+            "tortoise_tpu_torch.parallel.multihost", "tortoise_tpu_torch.apps.socket_server",
+            "tortoise_tpu_torch.apps.socket_client",
+            "tortoise_tpu_torch.models.simple_transformer",
+            "tortoise_tpu_torch.tools.convert_checkpoints", "tortoise_tpu_torch.tools.bench_lvc",
+            "tortoise_tpu_torch.tools.bench_fused_decode_step",
+            "tortoise_tpu_torch.tools.check_fused_exactness",
+            "tortoise_tpu_torch.tools.bench_fused_ab",
+            "tortoise_tpu_torch.tools.measure_first_audio",
+            "tortoise_tpu_torch.tools.profile_diffusion_step"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)

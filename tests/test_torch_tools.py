@@ -1,8 +1,10 @@
 """The port's tools (tortoise_tpu_torch/tools) against the JAX tools (tools/,
 loaded by file path: it is no package): K5-K8's plain versions against the
 Pallas kernels in interpret mode, the per-head and merged decode attention
-forms against the JAX ones, and each tool's main() on the CPU at a tiny
-size. Same numpy inputs on both sides."""
+forms and the three LVC forms against the JAX ones, each tool's flags
+against its JAX tool's, and each tool's main() on the CPU at a tiny size
+(check_fused_exactness at agreement 1.0). Same numpy inputs on both
+sides."""
 import importlib
 import importlib.util
 import warnings
@@ -24,7 +26,11 @@ from tortoise_tpu_torch.tools.decode_attn_kv128 import (decode_attention_kv128,
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 TOOLS = ["probe_ops", "decode_attn_kv128", "bench_attn_body", "profile_ar_step",
-         "bench_decode_attn_merged"]
+         "bench_decode_attn_merged", "bench_lvc", "bench_fused_decode_step",
+         "check_fused_exactness", "bench_fused_ab", "measure_first_audio",
+         "profile_diffusion_step"]
+# the tools that time the card and print "not measured" on the CPU
+TIMING_TOOLS = set(TOOLS) - {"check_fused_exactness", "bench_fused_ab", "measure_first_audio"}
 
 
 def _jax_tool(name: str):
@@ -264,7 +270,16 @@ TINY_ARGS = {
     "profile_ar_step": ["--batch", "2", "--tokens", "2"],
     "bench_decode_attn_merged": ["--batch", "2", "--tmax", "64", "--layers", "3", "--steps",
                                  "2", "--nvalid", "40"],
+    "bench_lvc": ["--frames", "20", "--steps", "1"],
+    "bench_fused_decode_step": ["--batch", "2", "--t", "64", "--fill", "20", "--steps", "3",
+                                "--cache", "bf16"],
+    "check_fused_exactness": ["--tiny", "--steps", "10"],
+    "bench_fused_ab": ["--runs", "1", "--quality-runs", "1", "--tokens", "6", "--batch", "2"],
+    "measure_first_audio": ["--runs", "1", "--first", "4", "--chunk", "8"],
+    "profile_diffusion_step": ["--tout", "48", "--steps", "2"],
 }
+# tiny configs for the tools that build full-width models
+TINY_AR = dict(layers=2, model_dim=128, heads=4, max_text_tokens=160, max_mel_tokens=24)
 
 
 def _tiny_unified_voice(monkeypatch):
@@ -277,18 +292,63 @@ def _tiny_unified_voice(monkeypatch):
     monkeypatch.setattr(profile_ar_step, "UnifiedVoiceConfig", lambda: tiny)
 
 
+def _tiny(name, monkeypatch):
+    """Shrink what tool ``name`` builds at full width to a tiny config."""
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
+
+    if name == "profile_ar_step":
+        _tiny_unified_voice(monkeypatch)
+    elif name == "bench_fused_decode_step":
+        from tortoise_tpu_torch.models.gpt2 import GPT2Config
+        from tortoise_tpu_torch.tools import bench_fused_decode_step as tool
+
+        monkeypatch.setattr(tool, "GPT2Config", lambda **kw: GPT2Config(
+            n_layer=2, n_embd=256, n_head=4, **kw))
+    elif name == "profile_diffusion_step":
+        from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig
+        from tortoise_tpu_torch.tools import profile_diffusion_step as tool
+
+        monkeypatch.setattr(tool, "DiffusionTtsConfig", lambda: DiffusionTtsConfig(
+            model_channels=64, num_layers=2, in_latent_channels=64, num_heads=1))
+    elif name in ("bench_fused_ab", "measure_first_audio"):
+        from tortoise_tpu_torch.api_fast import TextToSpeechFast
+
+        tool = importlib.import_module(f"tortoise_tpu_torch.tools.{name}")
+        monkeypatch.setattr(tool, "TextToSpeechFast", lambda **kw: TextToSpeechFast(
+            ar_config=UnifiedVoiceConfig(**TINY_AR), **kw))
+        if name == "bench_fused_ab":
+            monkeypatch.setattr(tool, "TextToSpeech", _tiny_quality)
+
+
+def _tiny_quality(**kwargs):
+    """The quality TextToSpeech at the tiny configs of the GPU tests (its
+    AR text table widened for the tool's sentence); any preset's request is
+    2 candidates and 2 diffusion steps."""
+    import dataclasses
+
+    from test_torch_kernels_gpu import TINY
+    from tortoise_tpu_torch.api import TextToSpeech
+
+    tiny = dict(TINY, ar_config=dataclasses.replace(TINY["ar_config"], max_text_tokens=160))
+    tts = TextToSpeech(enable_redaction=False, autoregressive_batch_size=2, **kwargs, **tiny)
+    quick = tts.tts_with_preset
+    tts.tts_with_preset = lambda text, **kw: quick(
+        text, **{**kw, "num_autoregressive_samples": 2, "diffusion_iterations": 2})
+    return tts
+
+
 @pytest.mark.parametrize("name", TOOLS)
 def test_tool_main_on_the_cpu(name, monkeypatch, capsys):
     """--device cpu at a tiny size (profile_ar_step with a 2-layer, 128-wide
     UnifiedVoice): the result dict, every device time "not measured"."""
     tool = importlib.import_module(f"tortoise_tpu_torch.tools.{name}")
-    _tiny_unified_voice(monkeypatch)
+    _tiny(name, monkeypatch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res = tool.main(["--device", "cpu", *TINY_ARGS[name]])
     assert res["device"] == "cpu"
     out = capsys.readouterr().out
-    assert "not measured" in out
+    assert ("not measured" in out) == (name in TIMING_TOOLS)
     if name == "probe_ops":
         assert res["ok"] and out.count("OK ") == 7 and len(res["orientations"]) == 4
     elif name == "decode_attn_kv128":
@@ -301,9 +361,35 @@ def test_tool_main_on_the_cpu(name, monkeypatch, capsys):
                                                         "k1", "full"}
         assert all(r["host_ms"] > 0 and r["device_ms"] is None
                    for r in res["sections"]["d"]["pos=1000"].values())
-    else:
+    elif name == "bench_decode_attn_merged":
         assert set(res["variants"]) == {"chunked-bf16", "chunked-int8", "merged-bf16",
                                         "merged-int8", "k1-merged"}
+    elif name == "bench_lvc":
+        assert set(res["hops"]) == {8, 64, 256}
+        assert all(r["rel_err"] <= 1e-5 and r["ms"] is None
+                   for h in res["hops"].values() for r in h["forms"].values())
+    elif name == "bench_fused_decode_step":
+        # K2's plain version against the layer stack, one bf16 step of 2
+        # layers: one-ulp flips of their roundings (K2's bound at full
+        # width, chip_smoke's K2_REL_BOUND)
+        assert len(res["rel_err_by_step"]) == 3 and res["rel_err_by_step"][0] <= 0.05
+        assert all(r["host_ms"] > 0 and r["event_ms"] is None and r["device_ms"] is None
+                   for r in res["paths"].values())
+    elif name == "check_fused_exactness":
+        assert res["ok"] and set(res["rows"]) == {"bf16_cache", "int8_cache"}
+        assert all(r["decisive_agreement"] == 1.0 and r["decisive_steps"] > 0
+                   for r in res["rows"].values())
+    elif name == "bench_fused_ab":
+        assert set(res) == {"device", "ar_tokens", "fast_b1", "fast_b1_int8w", "fast_batch2",
+                            "quality_standard", "quality_standard_int8kv"}
+        rows = [r for k, v in res.items() if isinstance(v, dict) for r in v.values()]
+        assert len(rows) == 10 and all(r["finite"] and r["p50_s"] > 0 for r in rows)
+    elif name == "measure_first_audio":
+        assert res["finite"] and 0 < res["first_audio_s_min"] <= res["first_audio_s_median"]
+        assert 0 < res["first_chunk_audio_s"] <= res["stream_audio_s"]
+    else:
+        assert set(res["rows"]) == {f"{f} B={b} T=48" for f in ("k3", "dense") for b in (1, 2)}
+        assert all(r["host_ms"] > 0 and r["busy_ms"] is None for r in res["rows"].values())
 
 
 def test_profile_ar_step_profiles_after_every_timing(monkeypatch, capsys):
@@ -347,3 +433,141 @@ def test_tool_main_without_cuda_raises(name, monkeypatch):
     tool = importlib.import_module(f"tortoise_tpu_torch.tools.{name}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main([])
+
+
+# --- the measurement tools of tools/ that time whole paths ---------------------------
+
+# flags of a port tool that differ from its JAX tool's, each for a reason
+# its docstring gives: every tool adds --device; profile_diffusion_step
+# takes several lengths and batches in one process, so that its profiler
+# passes come after all of its timings (B=1 and 2 by default: the quality
+# path's two batches)
+FLAG_CHANGES = {"profile_diffusion_step": {"tout", "batch"}}
+
+
+@pytest.mark.parametrize("name", ["bench_lvc", "bench_fused_decode_step",
+                                  "check_fused_exactness", "bench_fused_ab",
+                                  "measure_first_audio", "profile_diffusion_step",
+                                  "convert_checkpoints"])
+def test_tool_keeps_the_jax_tools_flags(name, monkeypatch):
+    """Every option of the JAX tool, with its option strings, default,
+    choices, type and action, and no other but --device."""
+    from test_torch_apps import _options
+
+    jtool = _jax_tool(name)
+
+    class Parsed(Exception):
+        pass
+
+    captured = {}
+
+    def capture(self, *args, **kwargs):
+        captured["parser"] = self
+        raise Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(__import__("argparse").ArgumentParser, "parse_args", capture)
+        with pytest.raises(Parsed):
+            jtool.main()
+    want = _options(captured["parser"])
+    got = _options(importlib.import_module(f"tortoise_tpu_torch.tools.{name}").build_parser())
+    if name != "convert_checkpoints":
+        assert got.pop("device")["default"] == "cuda"
+    assert set(got) == set(want)
+    for dest in set(want) - FLAG_CHANGES.get(name, set()):
+        assert got[dest] == want[dest], dest
+    for dest in FLAG_CHANGES.get(name, set()):
+        assert got[dest]["option_strings"] == want[dest]["option_strings"]
+        assert want[dest]["default"] in got[dest]["default"]
+
+
+@pytest.mark.parametrize("hop", [8, 64, 256])
+def test_lvc_forms_match_jax(hop):
+    """bench_lvc's three forms (K4 by its plain version on the CPU) on the
+    kernel predictor's frames-innermost layout against the JAX package's
+    location_variable_convolution and the JAX tool's gather form, at F=12,
+    Ci=32, Co=64, K=3: 1e-5 of max|JAX| (float32 sums in other orders)."""
+    from tortoise_tpu.models.vocoder import location_variable_convolution as jax_lvc
+    from tortoise_tpu_torch.models.vocoder import predictor_layout
+    from tortoise_tpu_torch.tools import bench_lvc
+
+    f, ci, co, k = 12, 32, 64, 3
+    rng = np.random.default_rng(hop)
+    x = rng.standard_normal((1, f * hop, ci)).astype(np.float32)
+    kern = (rng.standard_normal((1, f, ci, co, k)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((1, f, co)) * 0.1).astype(np.float32)
+    want = np.asarray(jax_lvc(jnp.asarray(x), jnp.asarray(kern), jnp.asarray(bias), hop))
+    jax_gather = np.asarray(_jax_tool("bench_lvc").lvc_gather(
+        jnp.asarray(x), jnp.asarray(kern), jnp.asarray(bias), hop))
+    # the predictor's layout: the same values, frames innermost
+    kp, bp = predictor_layout(_t(kern).reshape(1, f, -1).transpose(1, 2).contiguous()
+                              .transpose(1, 2), _t(bias).transpose(1, 2).contiguous()
+                              .transpose(1, 2), 1, ci, co, k)
+    assert kp[:, 0].stride(1) == 1
+    scale = np.abs(want).max()
+    for name, form in bench_lvc.FORMS.items():
+        got = form(_t(x), kp[:, 0], bp[:, 0], hop).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * scale, name
+    assert np.abs(bench_lvc.lvc_gather(_t(x), _t(kern), _t(bias), hop).numpy()
+                  - jax_gather).max() <= 1e-5 * scale
+
+
+def test_fused_decode_step_refuses_another_chunk():
+    """--ck is the Pallas kernel's TPU tiling: K2 has none, so only the
+    JAX tool's default is accepted, never silently ignored."""
+    from tortoise_tpu_torch.tools import bench_fused_decode_step
+
+    with pytest.raises(NotImplementedError, match="--ck 64"):
+        bench_fused_decode_step.main(["--device", "cpu", "--ck", "64"])
+
+
+def test_fused_ab_runs_k2_only_when_on(monkeypatch):
+    """bench_fused_ab's "on" rows decode with K2 and its "off" rows never
+    do: on the CPU K2's plain version stands in for the kernel, counted as
+    its launch."""
+    from tortoise_tpu_torch.ops import decode_step
+    from tortoise_tpu_torch.tools import bench_fused_ab
+
+    plain = decode_step.fused_decode_step_plain
+
+    def counted(*args, **kwargs):
+        decode_step.fused_decode_step.launches += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(decode_step, "fused_decode_step_plain", counted)
+    _tiny("bench_fused_ab", monkeypatch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = bench_fused_ab.main(["--device", "cpu", *TINY_ARGS["bench_fused_ab"],
+                                   "--skip-batch", "--skip-quality"])
+    for row in ("fast_b1", "fast_b1_int8w"):
+        assert res[row]["fused_off"]["k2_launches"] == 0
+        assert res[row]["fused_on"]["k2_launches"] > 0
+
+
+def test_profile_diffusion_step_profiles_after_every_timing(monkeypatch):
+    """The busy passes (a torch.profiler session each, stood in for by a
+    recorder) come after every timing of the process, one per row, each
+    on the run its row was timed with."""
+    from tortoise_tpu_torch.tools import profile_diffusion_step
+    from tortoise_tpu_torch.utils import measure
+
+    _tiny("profile_diffusion_step", monkeypatch)
+    calls = []
+    time_steps = measure.time_steps
+
+    def timing(run, steps, dev):
+        calls.append("time")
+        return time_steps(run, steps, dev)
+
+    def profiled(run, steps, dev):
+        calls.append("busy")
+        run(steps)
+        return 2.0
+
+    monkeypatch.setattr(measure, "time_steps", timing)
+    monkeypatch.setattr(profile_diffusion_step, "_busy", profiled)
+    res = profile_diffusion_step.main(["--device", "cpu", "--tout", "32", "48", "--steps", "1",
+                                       "--batch", "1"])
+    assert calls == ["time"] * 4 + ["busy"] * 4
+    assert all(r["busy_ms"] == 2.0 for r in res["rows"].values())

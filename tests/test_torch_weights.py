@@ -56,6 +56,18 @@ def _jax_clvp():
                     jnp.zeros((1, 4), jnp.int32))["params"], P(PC(**_clvp_kw())))
 
 
+def _jax_clvp_plain():
+    """CLVP's plain-Transformer variant (use_xformers=False)."""
+    from tortoise_tpu.models.clvp import CLVP, CLVPConfig
+    from tortoise_tpu_torch.models.clvp import CLVP as P
+    from tortoise_tpu_torch.models.clvp import CLVPConfig as PC
+
+    kw = dict(_clvp_kw(), use_xformers=False, text_seq_len=40)
+    jm = CLVP(CLVPConfig(**kw))
+    return (jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32),
+                    jnp.zeros((1, 4), jnp.int32))["params"], P(PC(**kw)))
+
+
 def _jax_vocoder():
     from tortoise_tpu.models.vocoder import UnivNetConfig, UnivNetGenerator
     from tortoise_tpu_torch.models.vocoder import UnivNetGenerator as P
@@ -145,6 +157,7 @@ def _jax_wav2vec2():
 
 
 MODELS = {"autoregressive": _jax_ar, "diffusion_decoder": _jax_diffusion, "clvp": _jax_clvp,
+          "clvp_plain": _jax_clvp_plain,
           "vocoder": _jax_vocoder, "autoregressive_int8": _jax_ar_int8,
           "hifidecoder": _jax_hifigan, "rlg_auto": _jax_rlg(D), "rlg_diffuser": _jax_rlg(2 * D),
           "cvvp": _jax_cvvp, "classifier": _jax_classifier, "wav2vec2": _jax_wav2vec2}
@@ -252,6 +265,30 @@ def _ref_clvp():
                        f"{f}.1.wrap.net.0.proj.weight": _r(2 * ff, D),
                        f"{f}.1.wrap.net.0.proj.bias": _r(2 * ff),
                        f"{f}.1.wrap.net.3.weight": _r(D, ff), f"{f}.1.wrap.net.3.bias": _r(D)})
+    return sd, ti.clvp_params
+
+
+def _ref_clvp_plain():
+    """The reference's use_xformers=False layout (transformer.py:182-219):
+    LayerScale(PreNorm(fn)) pairs under layers.layers.{i}.{0,1}, learned
+    position tables."""
+    inner, ff = HEADS * 64, 4 * D
+    sd = {"text_emb.weight": _r(256, D), "speech_emb.weight": _r(8192, D),
+          "text_pos_emb.weight": _r(40, D), "speech_pos_emb.weight": _r(8192, D),
+          "to_text_latent.weight": _r(D, D), "to_speech_latent.weight": _r(D, D),
+          "temperature": torch.tensor(1.0)}
+    for enc in ("text_transformer", "speech_transformer"):
+        for i in range(LAYERS):
+            a, f = f"{enc}.layers.layers.{i}.0", f"{enc}.layers.layers.{i}.1"
+            sd.update({f"{a}.scale": _r(1, 1, D), f"{f}.scale": _r(1, 1, D),
+                       f"{a}.fn.norm.weight": _r(D), f"{a}.fn.norm.bias": _r(D),
+                       f"{f}.fn.norm.weight": _r(D), f"{f}.fn.norm.bias": _r(D),
+                       f"{a}.fn.fn.to_qkv.weight": _r(3 * inner, D),
+                       f"{a}.fn.fn.to_out.0.weight": _r(D, inner),
+                       f"{a}.fn.fn.to_out.0.bias": _r(D),
+                       f"{f}.fn.fn.net.0.weight": _r(2 * ff, D),
+                       f"{f}.fn.fn.net.0.bias": _r(2 * ff),
+                       f"{f}.fn.fn.net.3.weight": _r(D, ff), f"{f}.fn.fn.net.3.bias": _r(D)})
     return sd, ti.clvp_params
 
 
@@ -419,7 +456,7 @@ def _ref_wav2vec2(naming="weight_g"):
 
 
 REFERENCE = {"autoregressive": _ref_autoregressive, "diffusion_decoder": _ref_diffusion,
-             "clvp": _ref_clvp, "vocoder": _ref_vocoder, "hifidecoder": _ref_hifigan,
+             "clvp": _ref_clvp, "clvp_plain": _ref_clvp_plain, "vocoder": _ref_vocoder, "hifidecoder": _ref_hifigan,
              "rlg_auto": _ref_rlg(D), "rlg_diffuser": _ref_rlg(2 * D), "cvvp": _ref_cvvp,
              "classifier": _ref_classifier, "wav2vec2": _ref_wav2vec2}
 

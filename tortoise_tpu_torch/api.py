@@ -47,6 +47,7 @@ from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, sample_speech
 from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
 from tortoise_tpu_torch.models.classifier import ClassifierConfig
 from tortoise_tpu_torch.models.clvp import CLVP, CLVPConfig
+from tortoise_tpu_torch.models.clvp import config_for_tree as clvp_config_for_tree
 from tortoise_tpu_torch.models.cvvp import CVVP, CVVPConfig
 from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts, DiffusionTtsConfig
 from tortoise_tpu_torch.models.random_latent import RandomLatentConverter, sample_random_latent
@@ -225,11 +226,11 @@ class TextToSpeech:
         self.aligner = (Wav2VecAlignment(models_dir=models_dir, device=self.device)
                         if enable_redaction else None)
 
-        def build(name, ctor, seed, dtype):
+        def build(name, ctor, seed, dtype, found=None):
             with torch.device(self.device):
                 model = ctor()
             source = weights_lib.load_weights(name, model, models_dir, allow_random_weights,
-                                              seed)
+                                              seed, found)
             model = weights_lib.cast_for_inference(model, dtype).eval()
             return (model if mesh is None else replicate_tree(model, mesh)), source
 
@@ -245,8 +246,13 @@ class TextToSpeech:
             in_latent_channels=self.ar_cfg.model_dim)
         self.diffusion, self.diffusion_source = build(
             "diffusion_decoder", lambda: DiffusionTts(self.diff_cfg), 1, self.dtype)
-        self.clvp, self.clvp_source = build(
-            "clvp", lambda: CLVP(clvp_config or CLVPConfig()), 2, self.dtype)
+        # CLVP's encoder variant is the one its checkpoint holds
+        clvp_found = weights_lib.find_params("clvp", models_dir)
+        clvp_cfg = clvp_config or CLVPConfig()
+        if clvp_found[0] is not None:
+            clvp_cfg = clvp_config_for_tree(clvp_cfg, clvp_found[0])
+        self.clvp, self.clvp_source = build("clvp", lambda: CLVP(clvp_cfg), 2, self.dtype,
+                                            clvp_found)
         self.vocoder, self.vocoder_source = build(
             "vocoder", lambda: UnivNetGenerator(UnivNetConfig(use_kernel=is_cuda)), 3,
             torch.float32)

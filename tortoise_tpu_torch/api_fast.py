@@ -174,7 +174,7 @@ class TextToSpeechFast:
         if voice_samples is not None:
             cond = self.get_conditioning_latents(voice_samples, crop_rng=random.Random(det_seed))
         elif conditioning_latents is not None:
-            cond = torch.as_tensor(np.asarray(conditioning_latents), device=self.device)
+            cond = torch.as_tensor(conditioning_latents, device=self.device)
             cond = cond[None] if cond.ndim == 1 else cond
         else:
             cond = self.get_random_conditioning_latents(det_seed)
@@ -280,7 +280,7 @@ class TextToSpeechFast:
         if conditioning_latents is None:
             cond = self.get_random_conditioning_latents(det_seed)
         else:
-            cond = torch.as_tensor(np.asarray(conditioning_latents), device=self.device)
+            cond = torch.as_tensor(conditioning_latents, device=self.device)
             cond = cond[None] if cond.ndim == 1 else cond
         cond = cond.expand(n, -1) if cond.shape[0] == 1 else cond
         settings = self._settings(max_mel_tokens, self._fused(gpt_fused_step), False,

@@ -16,7 +16,8 @@ counterpart, changing layout by module type:
   JAX layout is torch's) is copied under its own name.
 
 ``…`` is the leading layer axis of the scan-stacked layers, kept as is.
-The same walk maps a JAX gradient tree onto the port's parameters. A
+The same walk maps a JAX gradient tree onto the port's parameters;
+``to_jax`` walks it backwards, from a model to its JAX-layout tree. A
 reference ``.pth`` reaches this through the port's
 numpy converters (``convert/torch_import.py``); see ``weights.py``.
 """
@@ -77,3 +78,32 @@ def from_jax(model: nn.Module, params: Mapping) -> dict[str, torch.Tensor]:
                 raise ValueError(f"{key}: JAX shape {arr.shape} != port shape {tuple(p.shape)}")
             out[key] = torch.from_numpy(arr)
     return out
+
+
+def to_jax(model: nn.Module) -> dict:
+    """The inverse of ``from_jax``: the JAX-layout numpy tree (float32 for
+    float parameters, int8 QuantDense weights as they are) of ``model``'s
+    parameters, which ``weights.save_params`` writes as the JAX package's
+    ``.npz``."""
+    tree: dict = {}
+    for mname, module in model.named_modules():
+        path = mname.split(".") if mname else []
+        for pname, p in module.named_parameters(recurse=False):
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            a = p.detach().cpu()
+            a = (a if a.dtype == torch.int8 else a.float()).numpy()
+            if isinstance(module, (Dense, QuantDense)) and pname == "weight":
+                node["kernel"] = np.swapaxes(a, -1, -2)
+            elif isinstance(module, Conv1d) and pname == "weight":
+                node["kernel"] = np.swapaxes(a, -1, -3)
+            elif isinstance(module, ConvTranspose1d) and pname == "weight":
+                node["kernel"] = a.transpose(2, 0, 1)[::-1]
+            elif isinstance(module, Norm):
+                node["scale" if pname == "weight" else "bias"] = a
+            elif isinstance(module, Embed):
+                node["embedding"] = a
+            else:
+                node[pname] = a
+    return tree

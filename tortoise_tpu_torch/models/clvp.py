@@ -1,15 +1,20 @@
-"""CLVP: contrastive text <-> speech re-ranker, the default x-transformers
-variant (port of ``tortoise_tpu/models/clvp.py``; reference
-tortoise/models/clvp.py). Shipped config: 768-d, 20 + 20 layers, 12 heads.
+"""CLVP: contrastive text <-> speech re-ranker (port of
+``tortoise_tpu/models/clvp.py``; reference tortoise/models/clvp.py).
+Shipped config: 768-d, 20 + 20 layers, 12 heads, the x-transformers
+encoders. ``use_xformers=False`` builds the reference's plain-Transformer
+variant (``models/simple_transformer.py``) with learned absolute position
+tables (reference clvp.py:84-97).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from tortoise_tpu_torch.models.layers import Dense, Embed
+from tortoise_tpu_torch.models.simple_transformer import SimpleTransformer
 from tortoise_tpu_torch.models.xtransformer import XTransformerEncoder
 
 
@@ -24,6 +29,10 @@ class CLVPConfig:
     num_speech_tokens: int = 8192
     speech_enc_depth: int = 20
     speech_heads: int = 12
+    # the plain-Transformer variant; text_seq_len sizes its text position
+    # table only (reference api.py:230 passes 350)
+    use_xformers: bool = True
+    text_seq_len: int = 350
 
 
 def masked_mean(t, mask):
@@ -40,10 +49,20 @@ class CLVP(nn.Module):
         cfg = self.config = config
         self.text_emb = Embed(cfg.num_text_tokens, cfg.dim_text)
         self.speech_emb = Embed(cfg.num_speech_tokens, cfg.dim_speech)
-        self.text_transformer = XTransformerEncoder(cfg.dim_text, cfg.text_enc_depth,
-                                                    cfg.text_heads)
-        self.speech_transformer = XTransformerEncoder(cfg.dim_speech, cfg.speech_enc_depth,
-                                                      cfg.speech_heads)
+        if cfg.use_xformers:
+            self.text_transformer = XTransformerEncoder(cfg.dim_text, cfg.text_enc_depth,
+                                                        cfg.text_heads)
+            self.speech_transformer = XTransformerEncoder(cfg.dim_speech, cfg.speech_enc_depth,
+                                                          cfg.speech_heads)
+        else:
+            self.text_transformer = SimpleTransformer(cfg.dim_text, cfg.text_enc_depth,
+                                                      cfg.text_heads)
+            self.speech_transformer = SimpleTransformer(cfg.dim_speech, cfg.speech_enc_depth,
+                                                        cfg.speech_heads)
+            # the speech table is sized by the token vocabulary: a reference
+            # quirk kept for its checkpoints (reference clvp.py:96-97)
+            self.text_pos_emb = Embed(cfg.text_seq_len, cfg.dim_text)
+            self.speech_pos_emb = Embed(cfg.num_speech_tokens, cfg.dim_speech)
         self.to_text_latent = Dense(cfg.dim_text, cfg.dim_latent, bias=False)
         self.to_speech_latent = Dense(cfg.dim_speech, cfg.dim_latent, bias=False)
         self.temperature = nn.Parameter(torch.ones(()))
@@ -53,12 +72,21 @@ class CLVP(nn.Module):
         lat = proj(masked_mean(transformer(emb, mask=mask), mask))
         return lat / torch.linalg.vector_norm(lat.float(), dim=-1, keepdim=True)
 
+    def _embed(self, tokens, side: str):
+        """``{side}_emb`` of the tokens; in the plain variant plus
+        ``{side}_pos_emb`` of their positions (reference clvp.py:116-118)."""
+        x = getattr(self, f"{side}_emb")(tokens)
+        if not self.config.use_xformers:
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            x = x + getattr(self, f"{side}_pos_emb")(pos)
+        return x
+
     def text_latents(self, text, mask=None):
-        return self._latent(self.text_emb(text), self.text_transformer, self.to_text_latent,
-                            mask)
+        return self._latent(self._embed(text, "text"), self.text_transformer,
+                            self.to_text_latent, mask)
 
     def speech_latents(self, speech_tokens, mask=None):
-        return self._latent(self.speech_emb(speech_tokens), self.speech_transformer,
+        return self._latent(self._embed(speech_tokens, "speech"), self.speech_transformer,
                             self.to_speech_latent, mask)
 
     def forward(self, text, speech_tokens, return_loss: bool = False, text_mask=None,
@@ -86,6 +114,19 @@ class CLVP(nn.Module):
         sl = self.speech_latents(candidate_tokens.clamp(0, self.config.num_speech_tokens - 1))
         scores = (sl @ tl[0]) * self.temperature.float().exp()
         return scores.masked_fill(bad.any(dim=1), -float("inf"))
+
+
+def config_for_tree(config: CLVPConfig, tree) -> CLVPConfig:
+    """``config`` with the encoder variant, its depths and the text
+    position table's length that a JAX-layout param tree holds: the plain
+    variant's tree has position tables and ``block_{i}`` layers."""
+    if "text_pos_emb" not in tree:
+        return dataclasses.replace(config, use_xformers=True)
+    depth = lambda enc: sum(k.startswith("block_") for k in tree[enc])
+    return dataclasses.replace(
+        config, use_xformers=False, text_enc_depth=depth("text_transformer"),
+        speech_enc_depth=depth("speech_transformer"),
+        text_seq_len=int(np.shape(tree["text_pos_emb"]["embedding"])[0]))
 
 
 def _xent_rows(sim, labels):

@@ -2,13 +2,14 @@
 
 A copy of ``tortoise_tpu/native`` with two changes: the library is built
 with ``make`` at first use into ``build/native/`` beside the package (a
-directory git ignores), never into the package, and only the resampler and
-the redaction aligner's DP are bound (the crossfade serves the socket
-server, which is not ported yet). Each binding returns None when the
-library cannot be built or loaded, and its caller then takes scipy's
-polyphase resampler or the Python DP, so the native library is an
-accelerator, never a hard dependency. This is host code, not a device
-kernel.
+directory git ignores), never into the package. It binds the resampler,
+the redaction aligner's DP and the streaming crossfade. Each binding
+returns None when the library cannot be built or loaded, and its caller
+then takes scipy's polyphase resampler or the Python DP, so the native
+library is an accelerator, never a hard dependency. (No path of the package
+crossfades: ``tts_stream`` yields exact slices of the full decode; the
+binding is kept for callers that stitch overlapping chunks.) This is host
+code, not a device kernel.
 """
 from __future__ import annotations
 
@@ -56,6 +57,9 @@ def _load():
         lib.align_dp.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
             ctypes.c_char_p, ctypes.c_char]
+        lib.crossfade_f32.restype = None
+        lib.crossfade_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -91,3 +95,18 @@ def align_dp(s1: str, s2: str, skip: str = "~") -> str | None:
     out = ctypes.create_string_buffer(len(b1) + 1)
     lib.align_dp(b1, len(b1), b2, len(b2), out, skip.encode()[0])
     return out.value.decode("utf-8")
+
+
+def crossfade(chunk: np.ndarray, overlap: np.ndarray) -> np.ndarray | None:
+    """A float32 copy of ``chunk`` whose first n = min(len(chunk),
+    len(overlap)) samples blend linearly from ``overlap`` into ``chunk``:
+    ``overlap[i] * (1 - t) + chunk[i] * t``, t = i / (n - 1) (t = 0 when
+    n = 1); None if the library is unavailable."""
+    lib = _load()
+    if not lib:
+        return None
+    c = np.array(chunk, dtype=np.float32).reshape(-1)
+    o = np.ascontiguousarray(overlap, dtype=np.float32).reshape(-1)
+    lib.crossfade_f32(c.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                      o.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), min(len(c), len(o)))
+    return c

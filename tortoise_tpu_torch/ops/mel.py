@@ -5,7 +5,9 @@ for AR conditioning (power 2, HTK scale, slaney norm, log-clamp 1e-5,
 divided by ``mel_norms``) and the 24 kHz / 100-bin "univnet" mel for the
 diffusion conditioning (magnitude, slaney scale and norm, log-clamp). The
 STFT is ``torch.stft`` with center=True, reflect padding and a periodic hann
-window, which is what ``stft_magnitude`` computes with an rFFT.
+window, which is what ``stft_magnitude`` computes with an rFFT. ``stft`` and
+``istft`` are the JAX package's complex transform pair (the reference's
+``utils/stft.py`` STFT class), framed by hand as there.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 TACOTRON_MEL_MAX = 2.3143386840820312
 TACOTRON_MEL_MIN = -11.512925148010254
@@ -73,6 +76,59 @@ def stft_magnitude(x, n_fft: int, hop: int, win_length: int, power: float = 1.0)
                       center=True, pad_mode="reflect", onesided=True, return_complex=True)
     mag = spec.abs()
     return mag if power == 1.0 else mag ** power
+
+
+@functools.lru_cache(maxsize=None)
+def _hann_window(win_length: int, n_fft: int) -> np.ndarray:
+    """A periodic Hann window of ``win_length`` centred in ``n_fft`` zeros."""
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
+    pad = (n_fft - win_length) // 2
+    return np.pad(w, (pad, n_fft - win_length - pad)).astype(np.float32)
+
+
+def stft(x, n_fft: int, hop: int, win_length: int, center: bool = True):
+    """Complex STFT of a real signal: (..., T) -> (..., n_fft // 2 + 1,
+    frames), reflect-padded by n_fft // 2 under ``center``, every frame times
+    the window (``tortoise_tpu/ops/mel.py::stft``)."""
+    if center:
+        pad = n_fft // 2
+        lead = x.shape[:-1]
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect").reshape(*lead, -1)
+    frames = x.unfold(-1, n_fft, hop)                       # (..., frames, n_fft)
+    win = torch.as_tensor(_hann_window(win_length, n_fft), device=x.device, dtype=x.dtype)
+    return torch.fft.rfft(frames * win, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_sumsquare(win_length: int, n_fft: int, hop: int, n_frames: int) -> np.ndarray:
+    """The squared window overlap-added over n_frames frames, in float64
+    and rounded once (the reference's ``window_sumsquare``)."""
+    w2 = _hann_window(win_length, n_fft).astype(np.float64) ** 2
+    out = np.zeros(n_fft + hop * (n_frames - 1), np.float64)
+    for f in range(n_frames):
+        out[f * hop:f * hop + n_fft] += w2
+    return out.astype(np.float32)
+
+
+def istft(spec, n_fft: int, hop: int, win_length: int, length: int | None = None,
+          center: bool = True):
+    """Inverse of ``stft``: complex (..., n_freqs, frames) -> real (..., T).
+    Each frame's inverse rFFT times the window, overlap-added, divided by
+    the window's sum of squares where that exceeds 1e-11, the centre's
+    padding trimmed, then cut to ``length`` (``tortoise_tpu/ops/mel.py::istft``)."""
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+    frames = frames * torch.as_tensor(_hann_window(win_length, n_fft), device=frames.device,
+                                      dtype=frames.dtype)
+    *lead, n_frames, _ = frames.shape
+    out_len = n_fft + hop * (n_frames - 1)
+    sig = F.fold(frames.reshape(-1, n_frames, n_fft).transpose(1, 2), (1, out_len),
+                 (1, n_fft), stride=(1, hop)).reshape(*lead, out_len)
+    wss = _window_sumsquare(win_length, n_fft, hop, n_frames)
+    sig = sig / torch.as_tensor(np.where(wss > 1e-11, wss, 1.0).astype(np.float32),
+                                device=sig.device, dtype=sig.dtype)
+    if center:
+        sig = sig[..., n_fft // 2:out_len - n_fft // 2]
+    return sig if length is None else sig[..., :length]
 
 
 def _apply_filterbank(fb: np.ndarray, spec):

@@ -23,6 +23,8 @@ SLEEP_CYCLES_PER_RUN = 500_000
 # the same for a whole K2 decode step, whose ~150 launches take the host
 # ~0.5 ms: ~2 ms of sleep a run
 STEP_SLEEP_CYCLES_PER_RUN = 4_000_000
+# the card's clock, about: cycles of sleep a millisecond
+CYCLES_PER_MS = 2_000_000
 
 
 def nvidia_smi() -> str:
@@ -76,6 +78,12 @@ def device_ms(fn, reps: int, cycles_per_run: int = SLEEP_CYCLES_PER_RUN) -> floa
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sleep_cycles_for(host_ms: float) -> int:
+    """``device_ms``'s head start a run for runs that take the host
+    ``host_ms`` each to enqueue: twice that, and at least a K2 step's."""
+    return max(STEP_SLEEP_CYCLES_PER_RUN, int(2 * host_ms * CYCLES_PER_MS))
 
 
 def time_steps(run, steps: int, dev: torch.device) -> dict:

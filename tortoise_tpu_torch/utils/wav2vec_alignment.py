@@ -10,7 +10,8 @@ native library's DP as its fast path, and ``logits_fn`` stays injectable.
 The default acoustic model is the port's ``models/wav2vec2.Wav2Vec2ForCTC``
 on the aligner's device, run at each clip's exact length
 (``wav2vec2_logits_fn``): the JAX package's 1 s length buckets only avoid
-XLA recompiles. Its weights come from ``<models_dir>/wav2vec2.pth`` (the HF
+XLA recompiles. Its weights are found as every model's are
+(``weights.find_params``): ``wav2vec2.npz``, or ``wav2vec2.pth`` (the HF
 checkpoint's state dict) through the port's converter. Unlike the JAX
 package, there is no fallback to the HF hub: the port imports no
 ``transformers`` and fetches nothing, so with no checkpoint the first use
@@ -19,7 +20,6 @@ and unredacted audio.
 """
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import numpy as np
@@ -149,8 +149,8 @@ class Wav2VecAlignment:
     """Audio <-> text alignment through a CTC model (reference :48-150).
 
     ``logits_fn(audio_16k) -> (frames, vocab)`` supplies the acoustic model;
-    by default the port's wav2vec2 is loaded on ``device`` from
-    ``<models_dir>/wav2vec2.pth`` at the first call that needs it.
+    by default the port's wav2vec2 is loaded on ``device`` at the first call
+    that needs it, from where ``weights.find_params`` finds it.
     """
 
     def __init__(self, logits_fn: Callable | None = None, tokenizer=None,
@@ -164,13 +164,17 @@ class Wav2VecAlignment:
         from tortoise_tpu_torch import weights as weights_lib
         from tortoise_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
 
-        # fail before allocating the 315M-parameter model
-        name = weights_lib.REFERENCE_CHECKPOINTS["wav2vec2"]
-        if not (self._models_dir and os.path.exists(os.path.join(self._models_dir, name))):
-            raise FileNotFoundError(f"no wav2vec2 checkpoint ({name}) in {self._models_dir!r}")
+        # found before the 315M-parameter model is allocated, or fail
+        config = Wav2Vec2Config(vocab_size=len(self.tokenizer.symbols))
+        found = weights_lib.find_params("wav2vec2", self._models_dir, config)
+        if found[0] is None:
+            raise FileNotFoundError(
+                f"no wav2vec2 checkpoint (wav2vec2.npz or "
+                f"{weights_lib.REFERENCE_CHECKPOINTS['wav2vec2']}) in {self._models_dir!r}, "
+                f"{weights_lib.MODELS_DIR} or {weights_lib.TORCH_MODELS_DIR}")
         with torch.device(self.device):
-            model = Wav2Vec2ForCTC(Wav2Vec2Config(vocab_size=len(self.tokenizer.symbols)))
-        weights_lib.load_weights("wav2vec2", model, self._models_dir, False, 0)
+            model = Wav2Vec2ForCTC(config)
+        weights_lib.load_weights("wav2vec2", model, self._models_dir, False, 0, found)
         return wav2vec2_logits_fn(model.eval(), self.device)
 
     def _logits(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:

@@ -1,9 +1,22 @@
 """Model weights: seeded random initialization, checkpoint loading, casting.
 
-A model's weights come from the reference's ``<models_dir>/<reference
-name>.pth`` (through the numpy converters of ``convert/torch_import.py`` and
-then ``convert/from_jax.py``) or, when allowed, from a seeded
-``torch.Generator`` at full width.
+``load_weights`` searches where the JAX package's ``get_params`` does
+(``tortoise_tpu/weights.py``), in this order:
+
+1. ``{models_dir or MODELS_DIR}/{name}.npz``: a flat ``np.savez`` of the JAX
+   package's param tree, keys joined with "/" (``save_params``; the JAX
+   package and ``tools/convert_checkpoints.py`` write them);
+2. the reference's ``{models_dir}/{reference name}.pth``;
+3. the same ``.pth`` in ``TORCH_MODELS_DIR``, whose converted tree is then
+   cached as step 1's ``.npz`` (a write that fails is ignored);
+4. when allowed, a seeded ``torch.Generator`` at full width.
+
+``MODELS_DIR`` is ``$TORTOISE_TPU_MODELS_DIR`` (default
+``~/.cache/tortoise_tpu/models``) and ``TORCH_MODELS_DIR``
+``$TORTOISE_MODELS_DIR`` (default ``~/.cache/tortoise/models``, where the
+reference downloads its checkpoints). A ``.pth`` goes through the numpy
+converters of ``convert/torch_import.py``; every tree then reaches the model
+through ``convert/from_jax.py``.
 """
 from __future__ import annotations
 
@@ -21,6 +34,11 @@ from tortoise_tpu_torch.convert.from_jax import from_jax
 from tortoise_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Dense, Embed, Norm,
                                               QuantDense, quantize_rows)
 from tortoise_tpu_torch.models.random_latent import EqualLinear
+
+DEFAULT_MODELS_DIR = os.path.join(os.path.expanduser("~"), ".cache", "tortoise_tpu", "models")
+MODELS_DIR = os.environ.get("TORTOISE_TPU_MODELS_DIR", DEFAULT_MODELS_DIR)
+TORCH_MODELS_DIR = os.environ.get(
+    "TORTOISE_MODELS_DIR", os.path.join(os.path.expanduser("~"), ".cache", "tortoise", "models"))
 
 REFERENCE_CHECKPOINTS = {
     "autoregressive": "autoregressive.pth",
@@ -96,9 +114,10 @@ def init_random(model: nn.Module, seed: int) -> None:
     """Fill every parameter from a seeded generator on the model's device:
     dense/conv weights N(0, 1/fan_in), embeddings N(0, 0.02^2), the
     unconditioned embedding N(0, 1), EqualLinear weights N(0, 1/lr_mul^2),
-    biases 0, norm scales and the CLVP temperature 1. An int8 QuantDense
-    weight is uniform in [-127, 127] with qscale 1/(127 sqrt(in)), the JAX
-    package's random init of that layer."""
+    biases 0, norm scales and the CLVP temperature 1, LayerScale gains their
+    layer's CaiT epsilon. An int8 QuantDense weight is uniform in [-127,
+    127] with qscale 1/(127 sqrt(in)), the JAX package's random init of
+    that layer."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -126,6 +145,8 @@ def init_random(model: nn.Module, seed: int) -> None:
                 normal_(p, 0.02)
             elif isinstance(module, Norm):
                 p.fill_(1.0 if name == "weight" else 0.0)
+            elif name in ("attn_scale", "ff_scale"):     # SimpleTransformer's LayerScale
+                p.fill_(module.layerscale)
             elif name == "unconditioned_embedding":
                 normal_(p, 1.0)
             elif name == "bias":
@@ -144,48 +165,114 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def convert_reference_checkpoint(name: str, path: str, model: nn.Module) -> dict:
-    """A reference ``.pth`` -> the port's state_dict."""
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_params(path: str, tree: Mapping) -> None:
+    """A param tree as a flat ``np.savez``, keys joined with "/": the JAX
+    package's ``.npz`` format."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **_flatten(tree))
+
+
+def load_params(path: str) -> dict:
+    """The nested numpy tree of a ``save_params`` file (either package's)."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def find_checkpoint(name: str, models_dir: str | None = None) -> str | None:
+    """``{models_dir or MODELS_DIR}/{name}.npz`` if it exists, else None."""
+    path = os.path.join(models_dir or MODELS_DIR, f"{name}.npz")
+    return path if os.path.exists(path) else None
+
+
+def convert_from_torch(name: str, path: str, config=None) -> dict:
+    """A reference ``.pth`` -> the JAX-layout numpy param tree. ``config``
+    is the model's config where the layout needs its depths (None: the
+    shipped ones, as the JAX package's converter assumes)."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if name == "vocoder":
         sd = sd["model_g"]
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
+    c = config
+    # converter, and its layout arguments from the model's config
     converters = {
-        "autoregressive": lambda s: ti.unified_voice_params(s, layers=model.config.layers),
-        "diffusion_decoder": lambda s: ti.diffusion_tts_params(
-            s, num_layers=model.config.num_layers),
-        "clvp": ti.clvp_params,
-        "cvvp": lambda s: ti.cvvp_params(s, cond_depth=model.config.conditioning_enc_depth,
-                                         speech_depth=model.config.speech_enc_depth),
-        "classifier": lambda s: ti.classifier_params(
-            s, depth=model.config.depth, resnet_blocks=model.config.resnet_blocks,
-            attn_blocks=model.config.attn_blocks),
-        "wav2vec2": lambda s: ti.wav2vec2_params(s, num_layers=model.config.num_layers,
-                                                 num_convs=len(model.config.conv_dim)),
-        "vocoder": ti.univnet_params,
-        "hifidecoder": ti.hifigan_params,
-        "rlg_auto": ti.rlg_params,
-        "rlg_diffuser": ti.rlg_params,
+        "autoregressive": (ti.unified_voice_params, lambda: dict(layers=c.layers)),
+        "diffusion_decoder": (ti.diffusion_tts_params, lambda: dict(num_layers=c.num_layers)),
+        "clvp": (ti.clvp_params, dict),
+        "cvvp": (ti.cvvp_params, lambda: dict(cond_depth=c.conditioning_enc_depth,
+                                              speech_depth=c.speech_enc_depth)),
+        "classifier": (ti.classifier_params, lambda: dict(
+            depth=c.depth, resnet_blocks=c.resnet_blocks, attn_blocks=c.attn_blocks)),
+        "wav2vec2": (ti.wav2vec2_params, lambda: dict(num_layers=c.num_layers,
+                                                      num_convs=len(c.conv_dim))),
+        "vocoder": (ti.univnet_params, dict),
+        "hifidecoder": (ti.hifigan_params, dict),
+        "rlg_auto": (ti.rlg_params, dict),
+        "rlg_diffuser": (ti.rlg_params, dict),
     }
-    params = converters[name](sd)
-    if name == "autoregressive" and model.config.gpt_config.quant_weights:
-        params = quantize_gpt_weights(params)
-    return from_jax(model, params)
+    convert, layout = converters[name]
+    return convert(sd, **(layout() if c is not None else {}))
+
+
+def find_params(name: str, models_dir: str | None = None, config=None) -> tuple[dict | None, str]:
+    """The JAX-layout numpy tree of model ``name`` and where it came from,
+    by the module's search order: (tree, "native") from an ``.npz``, (tree,
+    "reference") from a ``.pth``, or (None, "random") when there is none.
+    A tree under a "params" root is returned without it."""
+    native = find_checkpoint(name, models_dir)
+    if native:
+        tree = load_params(native)
+        return tree.get("params", tree), "native"
+    ref_name = REFERENCE_CHECKPOINTS[name]
+    if models_dir and os.path.exists(os.path.join(models_dir, ref_name)):
+        return convert_from_torch(name, os.path.join(models_dir, ref_name), config), "reference"
+    ref_path = os.path.join(TORCH_MODELS_DIR, ref_name)
+    if os.path.exists(ref_path):
+        tree = convert_from_torch(name, ref_path, config)
+        try:    # cached for next time, as the JAX package's get_params does
+            save_params(os.path.join(models_dir or MODELS_DIR, f"{name}.npz"), tree)
+        except OSError:
+            pass
+        return tree, "reference"
+    return None, "random"
 
 
 def load_weights(name: str, model: nn.Module, models_dir: str | None, allow_random: bool,
-                 seed: int) -> str:
-    """Fill ``model`` in place; returns where the weights came from:
-    'reference' or 'random'."""
-    if models_dir:
-        ref_path = os.path.join(models_dir, REFERENCE_CHECKPOINTS[name])
-        if os.path.exists(ref_path):
-            model.load_state_dict(convert_reference_checkpoint(name, ref_path, model))
-            return "reference"
-    if not allow_random:
-        raise FileNotFoundError(f"no checkpoint for '{name}' in {models_dir!r}")
-    warnings.warn(f"no checkpoint for '{name}'; using random weights (seed {seed}): "
-                  "the audio will be noise", stacklevel=2)
-    init_random(model, seed)
-    return "random"
+                 seed: int, found: tuple[dict | None, str] | None = None) -> str:
+    """Fill ``model`` in place from ``find_params`` (or ``found``, what a
+    caller that chose the model's config from the tree already found);
+    returns where the weights came from: "native", "reference" or
+    "random". An UnifiedVoice with int8 block denses gets its tree
+    quantized, whatever its source."""
+    config = getattr(model, "config", None)
+    tree, source = found or find_params(name, models_dir, config)
+    if tree is None:
+        if not allow_random:
+            raise FileNotFoundError(f"no checkpoint for '{name}' in "
+                                    f"{models_dir or MODELS_DIR} or {TORCH_MODELS_DIR}")
+        warnings.warn(f"no checkpoint for '{name}'; using random weights (seed {seed}): "
+                      "the audio will be noise", stacklevel=2)
+        init_random(model, seed)
+        return "random"
+    if name == "autoregressive" and config.gpt_config.quant_weights:
+        tree = quantize_gpt_weights(tree)
+    model.load_state_dict(from_jax(model, tree))
+    return source
