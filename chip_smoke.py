@@ -91,10 +91,16 @@ Phases, each of which raises on failure (nothing falls back):
      the warmup's lr 0, then falls; step ms, tokens/s, TFLOP/s, peak
      memory); two steps of the same weights on the card and on the CPU over
      a short batch (loss, grad_norm and five leaves against each other);
-     one train step each of DiffusionTts (training_losses over 2229 frames
-     from 512 AR latents, B=2), CLVP (token-dropout masks) and CVVP. It
-     launches no kernel of the port: the training forward takes the plain
-     attention, as the JAX package's does.
+     train steps of DiffusionTts (training_losses over 2229 frames
+     from 512 AR latents, B=2), CLVP (token-dropout masks) and CVVP
+     (three steps each, the later ones timed). Then
+     mixed precision, the models built with dtype=torch.bfloat16 over
+     float32 parameters: UnifiedVoice's gradients on the card against the
+     CPU's from the same weights over the short batch; its five steps at
+     B=4 x 1011 (step ms, tokens/s, TFLOP/s against bf16's dense peak, peak
+     memory), and again with model.gpt.remat set; bf16 steps of
+     DiffusionTts, CLVP and CVVP. It launches no kernel of the port: the
+     training forward takes the plain attention, as the JAX package's does.
  14. the mesh path (tortoise_tpu_torch/parallel) on the one card, between
      phases 13 and 11: the mp3-only voice tim_reynolds loaded where the
      machine has ffmpeg (else the error that names it, checked); K1
@@ -111,7 +117,8 @@ Phases, each of which raises on failure (nothing falls back):
      launched on each rank; the rows of codes equal to the unsplit
      request's reported, those of phase 9 for bf16); then one UnifiedVoice
      train step at full width over tp=2 (B=2 x 1011 positions) whose loss
-     and grad_norm are held to the unsplit step's.
+     and grad_norm are held to the unsplit step's, in float32 and in bf16
+     (float32 parameters).
  15. between phases 14 and 11: the socket server (apps.socket_server over a
      full-width bf16 TextToSpeechFast on 127.0.0.1, one connection, two
      utterances of train_dotrice: float32 framing, END_OF_AUDIO, finite
@@ -120,7 +127,10 @@ Phases, each of which raises on failure (nothing falls back):
      the CPU module in float32 with TF32 off; a full-width UnivNet's tree
      through weights.save_params and load_weights ("native", the same
      forward as the tree loaded directly); istft(stft(x)) against x; the
-     native crossfade against its formula.
+     native crossfade against its formula; the repo tools without JAX:
+     fetch_weights --offline over a seeded reference-layout rlg_auto.pth
+     and make_demo_voices (its clips the repository's, byte for byte),
+     both into build/.
 Before each path of phases 7-15 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum the runs of phases 7-12, of
 phase 14's world of one, phase 15 and phase 11's tools. Every UnivNet
@@ -132,9 +142,10 @@ forward of those paths launches K4
 times phases 7-10's requests alone (a warm-up request, then phase 7's three,
 phase 8's fast path, phase 9's int8-cache and f32-cache requests, phase
 10's CLI; each with its checks) on the package of the checkout at DIR,
-this one by default, and prints one JSON line of their walls. Run on two
-checkouts in one call, in the order A, B, B, A, it compares their serving
-walls on one card.
+this one by default, and prints one JSON line of their walls, each
+request's wall beside a digest of its sampled codes and of its audio. Run
+on two checkouts in one call, in the order A, B, B, A, it compares their
+serving walls and outputs on one card.
 
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel and K2 variant, and {"ok": true, "device": {...}}. The full
@@ -149,6 +160,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -308,12 +320,27 @@ TRAIN_CPU_BATCH, TRAIN_CPU_TEXT, TRAIN_CPU_MEL = 2, 16, 24
 TRAIN_NEAR_FRAC, TRAIN_FAR_SHARE = 0.01, 1e-3
 TRAIN_LEAVES = ("mel_head.weight", "mel_head.bias", "text_embedding.weight",
                 "gpt.h_scan.block.mlp_fc.weight", "final_norm.weight")
-# one step each: DiffusionTts on the quality path's 2229 frames from 512 AR
-# latents (B=2), CLVP over 350 text and 604 speech tokens with token-dropout
-# masks (B=4), CVVP over 500 mel frames and 604 codes (B=4)
+# the other models' steps: DiffusionTts on the quality path's 2229 frames
+# from 512 AR latents (B=2), CLVP over 350 text and 604 speech tokens with
+# token-dropout masks (B=4), CVVP over 500 mel frames and 604 codes (B=4)
 DIFF_TRAIN = (2, 2229, 512)
 CLVP_TRAIN = (4, 350, 604)
 CVVP_TRAIN = (4, 500, 604)
+# their steps: the first pays the shapes' first calls, the others are timed
+OTHER_TRAIN_STEPS = 3
+# bf16 compute over float32 parameters: the card against the CPU at full
+# width over the short batch, each leaf's gradient relative to its max
+# |grad|, the bound the CPU tests hold bf16 gradients to against the JAX
+# model (tests/test_torch_training_bf16.py, DiffusionTts's) and phase 14
+# holds bf16 logits to; the loss relative, their LOSS_RTOL. cuBLAS and the
+# CPU's bf16 products round the same sums in other orders, and a flip of
+# a rounding carries through 30 layers
+TRAIN_CPU_BF16_GRAD_FRAC = 2.0 ** -5
+TRAIN_CPU_BF16_LOSS_RTOL = 5e-3
+# the tp=2 bf16 train step against the unsplit bf16 step: loss and
+# grad_norm relative, the bound of bf16 logits (the CPU world of two reads
+# up to 6.1e-5, tests/test_torch_parallel.py)
+MESH_TRAIN_BF16_REL_BOUND = 2.0 ** -5
 # phase 14, the mesh on the one card. The request is REQUESTS[0] with the
 # f32 cache (K2 is off under a mesh); a world of two runs over gloo, which
 # carries all_reduce and broadcast on CUDA tensors (NCCL refuses two ranks
@@ -338,8 +365,10 @@ MESH_LOGIT_ROWS, MESH_LOGIT_PROMPT, MESH_LOGIT_SEEDS = 16, 32, (3, 4, 5)
 MESH_REQUESTS = (("tp2_f32", 1, 2, False), ("dp2_f32", 2, 1, False), ("dp2_bf16", 2, 1, True))
 MESH_TRAIN_BATCH = 2
 MESH_WORLD_TIMEOUT = 900
-# f32 peak of the H100 SXM without tensor cores (the data sheet), TFLOP/s
+# f32 peak of the H100 SXM without tensor cores and its dense bf16 peak (the
+# data sheet), TFLOP/s
 F32_PEAK_TFLOPS = 67.0
+BF16_PEAK_TFLOPS = 989.0
 # UnivNet c32: three LVC blocks (hop 8, 64, 256), four LVC calls each
 LVC_HOPS = (8, 64, 256)
 LVC_CALLS_PER_FORWARD = 12
@@ -1271,6 +1300,16 @@ def _profile_diffusion_step(record: dict) -> None:
         raise AssertionError(f"profile_diffusion_step: {res['rows']}")
 
 
+def _digest(x) -> str:
+    """The first 16 hex digits of the SHA-256 of an array's (or a CPU or
+    CUDA tensor's) bytes."""
+    import numpy as np
+
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+
+
 def _wav_ok(wav, whole: bool = True) -> bool:
     """A (1, 1, S) float32 clip in [-1, 1]; ``whole`` (not redacted): S a
     multiple of UnivNet's 256 samples a frame."""
@@ -1303,7 +1342,8 @@ def _quality_request(tts, clips, preset, text, seed, launches: Launches, whole: 
     res = {"preset": preset, "text": text, "wall_s": wall, "audio_s": wav.shape[2] / 24000.0,
            "stages_s": tts.last_stage_timings, "launches": grew, "finite_wav": ok,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "batch": tts.autoregressive_batch_size}
+           "batch": tts.autoregressive_batch_size,
+           "codes_sha": _digest(tts.last_candidates), "wav_sha": _digest(wav)}
     print("request", json.dumps(res))
     if not ok:
         raise AssertionError(f"bad wav from {preset!r}: shape {tuple(wav.shape)}")
@@ -1391,7 +1431,8 @@ def run_fast_path(clips, record: dict, launches: Launches) -> dict:
             raise AssertionError(f"fast path ({gw}): bad tts wav {tuple(wav.shape)}")
         res["tts"] = {"wall_s": wall, "audio_s": wav.shape[2] / 24000.0,
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                      "codes": len(tts_codes), "launches": grew_by(before)}
+                      "codes": len(tts_codes), "launches": grew_by(before),
+                      "codes_sha": _digest(tts_codes), "wav_sha": _digest(wav)}
 
         before = launches.read()[name]
         torch.cuda.reset_peak_memory_stats()
@@ -1409,7 +1450,8 @@ def run_fast_path(clips, record: dict, launches: Launches) -> dict:
         res["stream"] = {"first_chunk_s": first_s, "total_s": total_s, "chunks": len(chunks),
                          "audio_s": stream.shape[0] / 24000.0,
                          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                         "codes_equal_tts": same_codes, "launches": grew_by(before)}
+                         "codes_equal_tts": same_codes, "launches": grew_by(before),
+                         "codes_sha": _digest(tts.last_codes), "wav_sha": _digest(stream)}
         if not same_codes or stream.shape[0] != wav.shape[2] or not torch.isfinite(stream).all():
             raise AssertionError(f"fast path ({gw}): the stream's codes or length differ from "
                                  f"tts's: {res['stream']}, tts {wav.shape[2]} samples")
@@ -1424,7 +1466,8 @@ def run_fast_path(clips, record: dict, launches: Launches) -> dict:
                 raise AssertionError("fast path: bad tts_batch wavs")
             res["tts_batch"] = {"wall_s": wall_b, "texts": len(wavs),
                                 "audio_s": [w.shape[2] / 24000.0 for w in wavs],
-                                "launches": grew_by(before)}
+                                "launches": grew_by(before),
+                                "wav_sha": [_digest(w) for w in wavs]}
         counts = launches.read()
         launches.add(counts)
         res["path_launches"] = counts
@@ -1556,7 +1599,7 @@ def run_cli(record: dict, launches: Launches) -> None:
     sr, wav = wav_read(out)
     res = {"argv": argv, "rc": rc, "wall_s_with_init": wall, "sample_rate": sr,
            "samples": int(wav.shape[0]), "dtype": str(wav.dtype), "launches": counts,
-           "max_abs": float(np.abs(wav).max()) if wav.size else None}
+           "max_abs": float(np.abs(wav).max()) if wav.size else None, "wav_sha": _digest(wav)}
     print("CLI", json.dumps(res))
     record["cli"] = res
     if rc != 0 or sr != 24000 or wav.dtype != np.float32 or wav.ndim != 1 or not wav.size \
@@ -2017,8 +2060,8 @@ def _train_steps(model, batch: dict, steps: int, loss_fn=None) -> tuple[list, li
 
 def _leaf_grad_errs(model, cpu_model, batch: dict) -> dict:
     """One loss and backward on each from the same weights: every leaf's
-    max |card - CPU| gradient over its max |CPU grad|, and the losses. A
-    leaf the loss does not reach has no gradient on either."""
+    max |card - CPU| gradient over its max |CPU grad|, the worst leaf, and
+    the losses. A leaf the loss does not reach has no gradient on either."""
     from tortoise_tpu_torch.training.train_step import unified_voice_loss
 
     losses = []
@@ -2034,7 +2077,8 @@ def _leaf_grad_errs(model, cpu_model, batch: dict) -> dict:
         if q.grad is not None:
             errs[name] = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max())
         p.grad = q.grad = None
-    return {"loss": losses, "leaf_rel_err": errs}
+    return {"loss": losses, "leaf_rel_err": errs,
+            "worst_leaf": max(errs.items(), key=lambda kv: kv[1])}
 
 
 def _leaves_close(got: dict, want: dict, lr: float) -> dict:
@@ -2064,7 +2108,6 @@ def _check_uv_against_cpu(model, record: dict) -> None:
                         seed=7)
     t0 = time.perf_counter()
     res = _leaf_grad_errs(model, cpu_model, batch)
-    res["worst_leaf"] = max(res["leaf_rel_err"].items(), key=lambda kv: kv[1])
     got, _ = _train_steps(model, {k: v.cuda() for k, v in batch.items()}, 2)
     want, _ = _train_steps(cpu_model, batch, 2)
     res.update({"s": time.perf_counter() - t0, "card": got, "cpu": want})
@@ -2088,9 +2131,81 @@ def _finite(metrics: list, what: str) -> None:
         raise AssertionError(f"{what}: a metric is not finite: {metrics}")
 
 
+def _check_uv_bf16_against_cpu(record: dict) -> None:
+    """Phase 13d: the full-width UnifiedVoice built with bf16 compute over
+    float32 parameters, from the same seeded weights on the card and on the
+    CPU, over the short batch: each leaf's float32 gradient and the loss."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
+    from tortoise_tpu_torch.utils.profiling import train_batch
+
+    cfg = UnifiedVoiceConfig()
+    model = UnifiedVoice(cfg, dtype=torch.bfloat16).cuda()
+    weights.init_random(model, 0)
+    cpu_model = UnifiedVoice(cfg, dtype=torch.bfloat16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = train_batch(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_TEXT, TRAIN_CPU_MEL, "cpu", seed=7)
+    t0 = time.perf_counter()
+    res = _leaf_grad_errs(model, cpu_model, batch)
+    res["s"] = time.perf_counter() - t0
+    res["loss_rel_err"] = abs(res["loss"][0] - res["loss"][1]) / abs(res["loss"][1])
+    print("UnifiedVoice bf16, card vs CPU", json.dumps(res))
+    record["train_uv_bf16_vs_cpu"] = res
+    if res["worst_leaf"][1] > TRAIN_CPU_BF16_GRAD_FRAC or \
+            res["loss_rel_err"] > TRAIN_CPU_BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 UnifiedVoice on the card vs the CPU: worst leaf "
+                             f"{res['worst_leaf']} (bound {TRAIN_CPU_BF16_GRAD_FRAC}), loss "
+                             f"{res['loss_rel_err']} (bound {TRAIN_CPU_BF16_LOSS_RTOL})")
+
+
+def _uv_steps(cfg, batch: dict, shape, dtype, remat: bool) -> dict:
+    """TRAIN_STEPS steps of a seeded full-width UnifiedVoice in ``dtype``
+    (None: float32), each block recomputed in the backward with ``remat``:
+    the steps' metrics and walls, the median step after the first, tokens/s,
+    TFLOP/s against the peak of the compute dtype, peak memory. The loss
+    must hold at the warmup's lr 0, then fall."""
+    import torch
+
+    from tortoise_tpu_torch import weights
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice
+
+    model = UnifiedVoice(cfg, dtype=dtype).cuda()
+    weights.init_random(model, 0)
+    model.gpt.remat = remat
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = _train_steps(model, batch, TRAIN_STEPS)
+    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
+    flops = _uv_train_flops(cfg, *shape)
+    b, t_text, t_mel = shape
+    peak = BF16_PEAK_TFLOPS if dtype == torch.bfloat16 else F32_PEAK_TFLOPS
+    res = {"batch": list(shape), "dtype": str(dtype or torch.float32), "remat": remat,
+           "steps": metrics, "walls_ms": walls, "step_ms": step_ms,
+           "tokens_per_s": b * (t_text + t_mel + 4) / step_ms * 1e3,
+           "tflop_per_step": flops / 1e12, "tflops": flops / step_ms / 1e9,
+           "peak_tflops": peak,
+           "trained_params": sum(p.numel() for p in model.parameters() if p.requires_grad),
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    res["peak_share"] = res["tflops"] / peak
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    what = f"UnifiedVoice {res['dtype']}{' remat' if remat else ''} steps"
+    print(what, json.dumps(res))
+    _finite(metrics, what)
+    losses = [m["loss"] for m in metrics]
+    if abs(losses[1] - losses[0]) > 1e-6 * losses[0] or not losses[-1] < losses[1]:
+        raise AssertionError(f"{what}: the loss did not hold at lr 0, then fall: {losses}")
+    if res["param_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{what}: parameters not float32: {res['param_dtypes']}")
+    return res
+
+
 def _train_uv(record: dict) -> None:
-    """Phase 13a and 13b: UnifiedVoice against the CPU, then its train
-    steps at full length."""
+    """Phase 13a, 13b and 13d: UnifiedVoice against the CPU, then its train
+    steps at full length in float32, in bf16, and in bf16 with remat."""
     import torch
 
     from tortoise_tpu_torch import weights
@@ -2101,43 +2216,41 @@ def _train_uv(record: dict) -> None:
     model = UnifiedVoice(cfg).cuda()
     weights.init_random(model, 0)
     _check_uv_against_cpu(model, record)
-    weights.init_random(model, 0)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_uv_bf16_against_cpu(record)
     shape = (TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL)
     batch = train_batch(cfg, *shape, "cuda", seed=5)
-    torch.cuda.reset_peak_memory_stats()
-    metrics, walls = _train_steps(model, batch, TRAIN_STEPS)
-    step_ms = sorted(walls[1:])[len(walls[1:]) // 2]
-    flops = _uv_train_flops(cfg, *shape)
-    b, t_text, t_mel = shape
-    res = {"batch": list(shape), "steps": metrics, "walls_ms": walls, "step_ms": step_ms,
-           "tokens_per_s": b * (t_text + t_mel + 4) / step_ms * 1e3,
-           "tflop_per_step": flops / 1e12, "tflops": flops / step_ms / 1e9,
-           "trained_params": sum(p.numel() for p in model.parameters() if p.requires_grad),
-           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    res["f32_peak_share"] = res["tflops"] / F32_PEAK_TFLOPS
-    print("UnifiedVoice train steps", json.dumps(res))
-    _finite(metrics, "UnifiedVoice steps")
-    losses = [m["loss"] for m in metrics]
-    if abs(losses[1] - losses[0]) > 1e-6 * losses[0] or not losses[-1] < losses[1]:
-        raise AssertionError(f"UnifiedVoice's loss did not hold at lr 0, then fall: {losses}")
-    record["train_uv"] = res
+    for key, dtype, remat in (("train_uv", None, False), ("train_uv_bf16", torch.bfloat16, False),
+                              ("train_uv_bf16_remat", torch.bfloat16, True)):
+        record[key] = _uv_steps(cfg, batch, shape, dtype, remat)
 
 
 def _train_one_step(name: str, model, batch: dict, loss_fn, shape, record: dict) -> None:
+    """OTHER_TRAIN_STEPS steps of ``model`` on one batch: the first one's
+    metrics and wall (it pays the shapes' first calls), the median later
+    step's wall, peak memory."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    metrics, walls = _train_steps(model, batch, 1, loss_fn=loss_fn)
+    metrics, walls = _train_steps(model, batch, OTHER_TRAIN_STEPS, loss_fn=loss_fn)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
     res = {"batch": list(shape), "metrics": metrics[0], "wall_ms": walls[0],
-           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+           "step_ms": sorted(walls[1:])[len(walls[1:]) // 2], "walls_ms": walls,
+           "param_dtypes": dtypes, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     print(f"{name} train step", json.dumps(res))
     _finite(metrics, name)
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"{name}: parameters not float32: {dtypes}")
     record[f"train_{name}"] = res
 
 
-def _train_others(record: dict) -> None:
-    """Phase 13c: one step each of DiffusionTts (training_losses, latent
-    conditioning), CLVP (token-dropout masks) and CVVP."""
+def _train_others(record: dict, dtype=None) -> None:
+    """Phase 13c (float32) and 13e (``dtype`` bf16 over float32
+    parameters): OTHER_TRAIN_STEPS steps each of DiffusionTts
+    (training_losses, latent conditioning), CLVP (token-dropout masks) and
+    CVVP."""
     import torch
 
     from tortoise_tpu_torch import weights
@@ -2152,8 +2265,9 @@ def _train_others(record: dict) -> None:
     ints = lambda hi, *shape: torch.randint(0, hi, shape, generator=g, device="cuda")
     keep = lambda *shape: torch.rand(shape, generator=g, device="cuda") > 0.2
 
+    sfx = "" if dtype is None else "_bf16"
     cfg = DiffusionTtsConfig()
-    model = DiffusionTts(cfg).cuda()
+    model = DiffusionTts(cfg, dtype=dtype).cuda()
     weights.init_random(model, 1)
     schedule = spaced_schedule("linear", 4000, 4000)
     b, frames, n_lat = DIFF_TRAIN
@@ -2168,33 +2282,34 @@ def _train_others(record: dict) -> None:
         terms = training_losses(fn, schedule, bt["x"], bt["t"], generator=g)
         return terms["loss"].mean(), {"mse": terms["mse"].mean(), "vb": terms["vb"].mean()}
 
-    _train_one_step("diffusion", model, batch, diffusion_loss, DIFF_TRAIN, record)
+    _train_one_step(f"diffusion{sfx}", model, batch, diffusion_loss, DIFF_TRAIN, record)
     del model
     cfg = CLVPConfig()
-    model = CLVP(cfg).cuda()
+    model = CLVP(cfg, dtype=dtype).cuda()
     weights.init_random(model, 2)
     b, t_text, t_speech = CLVP_TRAIN
     batch = {"text": ints(cfg.num_text_tokens, b, t_text),
              "speech": ints(cfg.num_speech_tokens, b, t_speech),
              "text_mask": keep(b, t_text), "voice_mask": keep(b, t_speech)}
-    _train_one_step("clvp", model, batch, lambda m, bt: (m(
+    _train_one_step(f"clvp{sfx}", model, batch, lambda m, bt: (m(
         bt["text"], bt["speech"], return_loss=True, text_mask=bt["text_mask"],
         voice_mask=bt["voice_mask"]), {}), CLVP_TRAIN, record)
     del model
     cfg = CVVPConfig()
-    model = CVVP(cfg).cuda()
+    model = CVVP(cfg, dtype=dtype).cuda()
     weights.init_random(model, 3)
     b, frames, n_codes = CVVP_TRAIN
     batch = {"mel": rand(b, frames, cfg.mel_channels), "codes": ints(cfg.mel_codes, b, n_codes)}
-    _train_one_step("cvvp", model, batch,
+    _train_one_step(f"cvvp{sfx}", model, batch,
                     lambda m, bt: (m(bt["mel"], bt["codes"], return_loss=True), {}),
                     CVVP_TRAIN, record)
 
 
 def run_training(record: dict, launches: Launches) -> None:
     """Phase 13, the training path at full width with seeded random weights,
-    float32 with TF32 off. It launches no kernel of the port: the training
-    forward takes the plain attention, as the JAX package's does."""
+    float32 with TF32 off, then bf16 compute over float32 parameters. It
+    launches no kernel of the port: the training forward takes the plain
+    attention, as the JAX package's does."""
     import torch
 
     from tortoise_tpu_torch import weights
@@ -2206,6 +2321,9 @@ def run_training(record: dict, launches: Launches) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _train_others(record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_others(record, torch.bfloat16)
     counts = launches.read()
     record["phase13_launches"] = counts
     record["phase13_s"] = time.perf_counter() - t0
@@ -2325,7 +2443,8 @@ def _mesh_step_logits(mesh, dtype) -> list[float]:
 def _mesh_train(mesh) -> dict:
     """Phase 14d: one UnifiedVoice train step at full width over
     MESH_TRAIN_BATCH x 1011 positions, unsplit and over the tp=2 mesh, from
-    the same seeded weights and batch."""
+    the same seeded weights and batch, in float32 and in bf16 (float32
+    parameters)."""
     import torch
 
     from tortoise_tpu_torch import weights
@@ -2335,33 +2454,38 @@ def _mesh_train(mesh) -> dict:
 
     cfg = UnifiedVoiceConfig()
     batch = train_batch(cfg, MESH_TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL, "cuda", seed=5)
-    res = {"batch": [MESH_TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL]}
-    for name in ("whole", "tp2"):
-        model = UnifiedVoice(cfg).cuda()
-        weights.init_random(model, 0)
-        opt = ts.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
-        if name == "tp2":
-            state = ts.init_sharded_train_state(model, opt, mesh)
-            step = ts.make_train_step(model, opt, mesh=mesh)
-        else:
-            state, step = ts.init_train_state(model, opt), ts.make_train_step(model, opt)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "first_step_ms": (time.perf_counter() - t0) * 1e3,
-                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        del model, state, step, opt
-        gc.collect()
-        torch.cuda.empty_cache()
-    res["rel_err"] = max(abs(res["tp2"][k] - res["whole"][k]) / abs(res["whole"][k])
-                         for k in ("loss", "grad_norm"))
-    if res["rel_err"] > TRAIN_CPU_REL_BOUND:
-        raise AssertionError(f"the tp=2 train step's loss or grad_norm is not the unsplit "
-                             f"step's: {res}")
-    return res
+    out = {"batch": [MESH_TRAIN_BATCH, TRAIN_TEXT, TRAIN_MEL]}
+    for key, dtype, bound in (("f32", None, TRAIN_CPU_REL_BOUND),
+                              ("bf16", torch.bfloat16, MESH_TRAIN_BF16_REL_BOUND)):
+        res = {}
+        for name in ("whole", "tp2"):
+            model = UnifiedVoice(cfg, dtype=dtype).cuda()
+            weights.init_random(model, 0)
+            opt = ts.make_optimizer(lr=TRAIN_LR, warmup=TRAIN_WARMUP)
+            if name == "tp2":
+                state = ts.init_sharded_train_state(model, opt, mesh)
+                step = ts.make_train_step(model, opt, mesh=mesh)
+            else:
+                state, step = ts.init_train_state(model, opt), ts.make_train_step(model, opt)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "first_step_ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "param_dtypes": sorted({str(p.dtype) for p in model.parameters()})}
+            del model, state, step, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["rel_err"] = max(abs(res["tp2"][k] - res["whole"][k]) / abs(res["whole"][k])
+                             for k in ("loss", "grad_norm"))
+        out[key] = res
+        if res["rel_err"] > bound or res["tp2"]["param_dtypes"] != ["torch.float32"]:
+            raise AssertionError(f"the {key} tp=2 train step's loss or grad_norm is not the "
+                                 f"unsplit step's (bound {bound}): {res}")
+    return out
 
 
 def mesh_worker() -> int:
@@ -2370,7 +2494,8 @@ def mesh_worker() -> int:
     environment). Each request of MESH_REQUESTS: its init, its wall, peak
     memory and launches, K1, K3 and K4 launched; with tp=2 one decode
     step's logits against the unsplit model's; the rows of its codes equal
-    to the unsplit request's, reported. Then the tp=2 train step."""
+    to the unsplit request's, reported. Then the tp=2 train steps, float32
+    and bf16."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2700,15 +2825,58 @@ def _check_stft_and_crossfade(record: dict) -> None:
         raise AssertionError(f"istft(stft(x)) or crossfade: {res}")
 
 
+def _check_repo_tools(record: dict) -> None:
+    """Phase 15e: two repo tools in this process, which imports no JAX:
+    fetch_weights --offline over a seeded reference-layout rlg_auto.pth
+    (converted, cached as its .npz and verified against the shipped model)
+    and make_demo_voices (its clips the repository's, byte for byte), both
+    into build/."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.tools import fetch_weights, make_demo_voices
+    from tortoise_tpu_torch.utils.audio import BUILTIN_VOICES_DIR
+
+    src, dst, voices = (os.path.join(ROOT, "build", d)
+                        for d in ("tools_ref", "tools_npz", "demo_voices"))
+    os.makedirs(src, exist_ok=True)
+    g = torch.Generator().manual_seed(13)
+    torch.save({f"layers.{i}.{k}": (torch.randn(1024, 1024, generator=g) / 32 if k == "weight"
+                                    else torch.zeros(1024))
+                for i in range(6) for k in ("weight", "bias")},
+               os.path.join(src, "rlg_auto.pth"))
+    if os.path.exists(os.path.join(dst, "rlg_auto.npz")):
+        os.unlink(os.path.join(dst, "rlg_auto.npz"))
+    t0 = time.perf_counter()
+    fetched = fetch_weights.main(["--offline", "--src", src, "--dst", dst, "rlg_auto"])
+    demo = make_demo_voices.main(["--dest", voices])
+    res = {"fetch_weights": fetched, "written": len(demo["written"]),
+           "s": time.perf_counter() - t0, "clips_equal": {}}
+    for name in ("demo_alto", "demo_bass"):
+        for clip in ("1.wav", "2.wav"):
+            with open(os.path.join(voices, name, clip), "rb") as a, \
+                    open(os.path.join(BUILTIN_VOICES_DIR, name, clip), "rb") as b:
+                res["clips_equal"][f"{name}/{clip}"] = a.read() == b.read()
+    with np.load(os.path.join(voices, "demo_latents", "demo_latents.npz")) as a, \
+            np.load(os.path.join(BUILTIN_VOICES_DIR, "demo_latents", "demo_latents.npz")) as b:
+        res["latents_equal"] = all(np.array_equal(a[k], b[k]) for k in ("auto", "diffusion"))
+    print("repo tools", json.dumps(res))
+    record["repo_tools"] = res
+    if fetched != {"rlg_auto": "ok"} or not all(res["clips_equal"].values()) \
+            or not res["latents_equal"]:
+        raise AssertionError(f"the repo tools: {res}")
+
+
 def run_serving_and_rest(record: dict, launches: Launches) -> None:
     """Phase 15, after phase 14 and before phase 11: the socket server, CLVP's
     plain-Transformer variant, the .npz round trip, stft/istft and the
-    crossfade; each part's wall printed."""
+    crossfade, the repo tools; each part's wall printed."""
     record["phase15_s"] = {}
     for part, fn in (("socket_server", lambda: _check_socket_server(record, launches)),
                      ("clvp_plain", lambda: _check_clvp_plain(record)),
                      ("npz", lambda: _check_npz_round_trip(record, launches)),
-                     ("stft_crossfade", lambda: _check_stft_and_crossfade(record))):
+                     ("stft_crossfade", lambda: _check_stft_and_crossfade(record)),
+                     ("repo_tools", lambda: _check_repo_tools(record))):
         t0 = time.perf_counter()
         fn()
         record["phase15_s"][part] = time.perf_counter() - t0
@@ -2761,6 +2929,14 @@ def serving_walls() -> int:
              "fast_tts_batch_s": fast[0]["tts_batch"]["wall_s"],
              "int8_cache_s": [r["wall_s"] for r in record["quality_int8_cache"]],
              "f32_cache_s": f32["wall_s"], "cli_with_init_s": record["cli"]["wall_s_with_init"]}
+    # each request's sampled codes and audio, in the order of the walls above
+    requests = [*record["requests"], *record["quality_int8_cache"], f32]
+    walls["codes_sha"] = {"quality": [r["codes_sha"] for r in requests],
+                          "fast": [r[k]["codes_sha"] for r in fast for k in ("tts", "stream")]}
+    walls["wav_sha"] = {"quality": [r["wav_sha"] for r in requests],
+                        "fast": [r[k]["wav_sha"] for r in fast for k in ("tts", "stream")],
+                        "fast_tts_batch": fast[0]["tts_batch"]["wav_sha"],
+                        "cli": record["cli"]["wav_sha"]}
     print(json.dumps({"serving_walls": walls}))
     return 0
 

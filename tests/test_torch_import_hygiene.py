@@ -90,7 +90,10 @@ def test_the_walk_finds_the_port():
             "tortoise_tpu_torch.tools.check_fused_exactness",
             "tortoise_tpu_torch.tools.bench_fused_ab",
             "tortoise_tpu_torch.tools.measure_first_audio",
-            "tortoise_tpu_torch.tools.profile_diffusion_step"} <= set(MODULES)
+            "tortoise_tpu_torch.tools.profile_diffusion_step",
+            "tortoise_tpu_torch.tools.fetch_weights", "tortoise_tpu_torch.tools.import_voice_pack",
+            "tortoise_tpu_torch.tools.make_demo_voices",
+            "tortoise_tpu_torch.tools.convert_tokenizer"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -7,7 +7,8 @@ Two worlds of torch.distributed ranks over gloo run this file's own
 greedy decodes over dp=4 and dp=2 x tp=2, CLVP scoring and a diffusion
 fan-out step over dp=4, one dp=2 x tp=2 train step) and one of two (the
 quality API, the fast API's ``tts_batch`` and the full-knob CLI over dp=2,
-and the multihost helpers in a real world). Both start once for the module,
+the multihost helpers in a real world, and the bf16 UnifiedVoice's train
+steps over tp=2 and over dp=2). Both start once for the module,
 on free localhost ports, each process with its own timeout and the world
 killed on a failure, and write their results to a temporary folder; the
 JAX side runs in this process on the conftest's 8 virtual devices
@@ -43,6 +44,10 @@ WORKER_TIMEOUT = 120
 # sums reordered), the diffusion fan-out step
 LATENT_TOL = 1e-4
 DIFF_TOL = 5e-4
+# the bf16 train step over the mesh against the unsplit bf16 step: loss and
+# grad_norm relative, one bf16 ulp (2^-8; chip_smoke holds bf16 logits to
+# 2^-5); read up to 6.1e-5 (tp=2's grad_norm) on the CPU
+BF16_TRAIN_RTOL = 2.0 ** -8
 # tests/test_torch_training.py's: losses and grad_norm, and the parameters
 LOSS_RTOL = 1e-5
 PARAM_NEAR_FRAC, PARAM_FAR_SHARE = 0.01, 1e-3
@@ -175,6 +180,38 @@ def world_decode_train(out: str) -> None:
     np.savez(os.path.join(out, f"decode_train_{rank}.npz"), **res)
 
 
+def _bf16_train_steps(out: str) -> dict:
+    """The bf16 UnifiedVoice's train steps over tp=2 and over dp=2 in the
+    world of two: each step's loss and grad_norm, and whether every
+    parameter (the split ones too), gradient and Adam moment stayed
+    float32."""
+    from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
+    from tortoise_tpu_torch.parallel.mesh import make_mesh
+    from tortoise_tpu_torch.training import train_step as ts
+
+    inp = dict(np.load(os.path.join(out, "inputs.npz")))
+    batch = {k[6:]: torch.from_numpy(v) for k, v in inp.items() if k.startswith("train_")}
+    res = {}
+    for name, (dp, tp) in (("tp2", (1, 2)), ("dp2", (2, 1))):
+        model = UnifiedVoice(UnifiedVoiceConfig(**UV), dtype=torch.bfloat16)
+        model.load_state_dict(torch.load(os.path.join(out, "uv.pt")))
+        mesh = make_mesh(dp, tp, "cpu")
+        opt = ts.make_optimizer(lr=LR, warmup=WARMUP)
+        state = ts.init_sharded_train_state(model, opt, mesh)
+        step = ts.make_train_step(model, opt, mesh=mesh)
+        for i in range(TRAIN_STEPS):
+            state, metrics = step(state, batch)
+            for k in ("loss", "grad_norm"):
+                res[f"bf16_{name}_train{i}_{k}"] = metrics[k].numpy()
+        loss, _ = ts.unified_voice_loss(model, {k: v[:2] for k, v in batch.items()})
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        tensors = [*model.parameters(), *grads, *state.opt_state["mu"], *state.opt_state["nu"]]
+        res[f"bf16_{name}_float32"] = np.array(all(t.dtype == torch.float32 for t in tensors))
+        res[f"bf16_{name}_split"] = np.array(sorted(getattr(model.tp, "split", ())))
+    return res
+
+
 def _tiny_quality(cls=None, **kwargs):
     import warnings
 
@@ -192,7 +229,8 @@ def _tiny_quality(cls=None, **kwargs):
 
 
 def world_api(out: str) -> None:
-    """World of two: the quality API, tts_batch, multihost, the CLI."""
+    """World of two: the quality API, tts_batch, multihost, the bf16 train
+    steps, the CLI."""
     import torch.distributed as dist
 
     from tortoise_tpu_torch import api
@@ -281,6 +319,7 @@ def world_api(out: str) -> None:
         res["hybrid_refused"] = np.array(False)
     except AssertionError:
         res["hybrid_refused"] = np.array(True)
+    res.update(_bf16_train_steps(out))
     np.savez(os.path.join(out, f"api_{rank}.npz"), **res)
 
     # the CLI last: it ends the world
@@ -704,6 +743,32 @@ def test_train_step_dp2_tp2_matches_jax(setup):
 
 
 # --- the world of two ---------------------------------------------------
+
+@pytest.mark.parametrize("split", ["tp2", "dp2"])
+def test_bf16_train_step_over_the_mesh_matches_unsplit(setup, split):
+    """The bf16 UnifiedVoice's train steps over tp=2 and over dp=2 against
+    the unsplit bf16 steps: loss and grad_norm at every step to
+    BF16_TRAIN_RTOL; the split parameters, the gradients and the moments
+    stay float32."""
+    from tortoise_tpu_torch.models import autoregressive as pa
+    from tortoise_tpu_torch.training import train_step as ts
+
+    model = pa.UnifiedVoice(pa.UnifiedVoiceConfig(**UV), dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(os.path.join(setup["out"], "uv.pt")))
+    opt = ts.make_optimizer(lr=LR, warmup=WARMUP)
+    state, step = ts.init_train_state(model, opt), ts.make_train_step(model, opt)
+    batch = {k[6:]: torch.from_numpy(v) for k, v in setup["inp"].items()
+             if k.startswith("train_")}
+    res = _results(setup, "api")
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, batch)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(res[f"bf16_{split}_train{i}_{k}"], float(metrics[k]),
+                                       rtol=BF16_TRAIN_RTOL, atol=0, err_msg=f"step {i} {k}")
+    assert bool(res[f"bf16_{split}_float32"])
+    split_names = set(res[f"bf16_{split}_split"].tolist())
+    assert ("gpt.h_scan.block.attn.c_attn.weight" in split_names) == (split == "tp2")
+
 
 @pytest.mark.parametrize("k", [1, 2])
 def test_tts_over_dp_matches_unsharded(setup, k):

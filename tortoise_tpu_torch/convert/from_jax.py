@@ -80,30 +80,47 @@ def from_jax(model: nn.Module, params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def _jax_leaf(module: nn.Module, pname: str, t: torch.Tensor) -> tuple[str, torch.Tensor]:
+    """(the JAX leaf name, ``t`` in the JAX layout) of ``module``'s
+    parameter ``pname``: ``from_jax``'s layouts, inverted."""
+    if isinstance(module, (Dense, QuantDense)) and pname == "weight":
+        return "kernel", t.swapaxes(-1, -2)
+    if isinstance(module, Conv1d) and pname == "weight":
+        return "kernel", t.swapaxes(-1, -3)
+    if isinstance(module, ConvTranspose1d) and pname == "weight":
+        return "kernel", t.permute(2, 0, 1).flip(0)
+    if isinstance(module, Norm):
+        return ("scale" if pname == "weight" else "bias"), t
+    if isinstance(module, Embed):
+        return "embedding", t
+    return pname, t
+
+
+def _jax_leaves(model: nn.Module):
+    """(the JAX path, the tensor in the JAX layout) of each parameter."""
+    for mname, module in model.named_modules():
+        path = mname.split(".") if mname else []
+        for pname, p in module.named_parameters(recurse=False):
+            name, t = _jax_leaf(module, pname, p.detach())
+            yield path + [name], t
+
+
+def jax_shapes(model: nn.Module) -> dict[str, tuple]:
+    """{"a/b/kernel": shape} of the JAX-layout tree ``model`` loads: a model
+    built on the ``meta`` device gives it without memory."""
+    return {"/".join(path): tuple(t.shape) for path, t in _jax_leaves(model)}
+
+
 def to_jax(model: nn.Module) -> dict:
     """The inverse of ``from_jax``: the JAX-layout numpy tree (float32 for
     float parameters, int8 QuantDense weights as they are) of ``model``'s
     parameters, which ``weights.save_params`` writes as the JAX package's
     ``.npz``."""
     tree: dict = {}
-    for mname, module in model.named_modules():
-        path = mname.split(".") if mname else []
-        for pname, p in module.named_parameters(recurse=False):
-            node = tree
-            for k in path:
-                node = node.setdefault(k, {})
-            a = p.detach().cpu()
-            a = (a if a.dtype == torch.int8 else a.float()).numpy()
-            if isinstance(module, (Dense, QuantDense)) and pname == "weight":
-                node["kernel"] = np.swapaxes(a, -1, -2)
-            elif isinstance(module, Conv1d) and pname == "weight":
-                node["kernel"] = np.swapaxes(a, -1, -3)
-            elif isinstance(module, ConvTranspose1d) and pname == "weight":
-                node["kernel"] = a.transpose(2, 0, 1)[::-1]
-            elif isinstance(module, Norm):
-                node["scale" if pname == "weight" else "bias"] = a
-            elif isinstance(module, Embed):
-                node["embedding"] = a
-            else:
-                node[pname] = a
+    for path, t in _jax_leaves(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        t = t.cpu()
+        node[path[-1]] = (t if t.dtype == torch.int8 else t.float()).numpy()
     return tree

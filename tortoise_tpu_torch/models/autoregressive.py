@@ -11,6 +11,12 @@ On a tp split (``parallel.sharding.shard_unified_voice``) the GPT stack
 holds one rank's heads and ``mel_head`` and ``text_head`` one rank's part of
 the vocabulary, whose logits are gathered over tp before any loss or
 sampling; the conditioning encoder and the embeddings stay whole.
+
+``dtype`` is the compute dtype of the conditioning encoder, the GPT stack
+and both heads, as the JAX model's ``dtype`` (None: each weight's, the
+serving models'). The embeddings give their table's dtype, so in training,
+over float32 tables, the embedding sums are float32 and the stack casts
+them once; ``final_norm`` and the cross-entropy are float32.
 """
 from __future__ import annotations
 
@@ -66,19 +72,20 @@ class UnifiedVoice(nn.Module):
     # parallel.sharding.TensorParallel once the parameters are split over tp
     tp = None
 
-    def __init__(self, config: UnifiedVoiceConfig = UnifiedVoiceConfig()):
+    def __init__(self, config: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
         self.conditioning_encoder = ConditioningEncoder(80, cfg.model_dim, attn_blocks=6,
-                                                        num_attn_heads=cfg.heads)
+                                                        num_attn_heads=cfg.heads, dtype=dtype)
         self.text_embedding = Embed(cfg.text_vocab, cfg.model_dim)
         self.mel_embedding = Embed(cfg.number_mel_codes, cfg.model_dim)
         self.text_pos_embedding = Embed(cfg.text_pos_len, cfg.model_dim)
         self.mel_pos_embedding = Embed(cfg.mel_pos_len, cfg.model_dim)
-        self.gpt = GPT2Stack(cfg.gpt_config)
+        self.gpt = GPT2Stack(cfg.gpt_config, dtype=dtype)
         self.final_norm = LayerNorm(cfg.model_dim)
-        self.text_head = Dense(cfg.model_dim, cfg.text_vocab)
-        self.mel_head = Dense(cfg.model_dim, cfg.number_mel_codes)
+        self.text_head = Dense(cfg.model_dim, cfg.text_vocab, dtype=dtype)
+        self.mel_head = Dense(cfg.model_dim, cfg.number_mel_codes, dtype=dtype)
 
     def _head(self, name: str, x):
         """Logits of ``mel_head`` or ``text_head``; of a vocab-split head,

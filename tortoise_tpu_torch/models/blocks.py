@@ -3,7 +3,9 @@ and the classifier's ResBlock, Downsample, Upsample and AudioMiniEncoder.
 
 Port of ``tortoise_tpu/models/blocks.py`` (itself the reference's
 arch_util.py). Activations are (batch, time, channels); normalizations run
-in float32 and return the input dtype.
+in float32 and return the input dtype. ``dtype`` is a block's compute dtype
+(``models/layers.py``); with None the attention weights and values take
+the input's dtype.
 """
 from __future__ import annotations
 
@@ -71,12 +73,13 @@ class AttentionBlock(nn.Module):
     """
 
     def __init__(self, channels: int, num_heads: int = 1,
-                 relative_pos_embeddings: bool = False, lead: tuple = ()):
+                 relative_pos_embeddings: bool = False, lead: tuple = (),
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.dtype = num_heads, dtype
         self.GroupNorm32_0 = GroupNorm32(channels, lead=lead)
-        self.qkv = Dense(channels, 3 * channels, lead=lead)
-        self.proj_out = Dense(channels, channels, lead=lead)
+        self.qkv = Dense(channels, 3 * channels, lead=lead, dtype=dtype)
+        self.proj_out = Dense(channels, channels, lead=lead, dtype=dtype)
         self.rel_pos = Embed(32, num_heads, lead=lead) if relative_pos_embeddings else None
 
     def forward(self, x, valid_mask=None, rel_bias=None, flash: bool = False,
@@ -101,14 +104,19 @@ class AttentionBlock(nn.Module):
             out = o.transpose(1, 2).reshape(b, t, c)
         else:
             scale = 1.0 / np.sqrt(np.sqrt(ch))
-            logits = torch.einsum("bthd,bshd->bhts", (q * scale).float(), (k * scale).float())
+            if self.dtype is None:      # the serving models: q and k scaled in their dtype
+                q, k = (q * scale).float(), (k * scale).float()
+            else:                       # the JAX block's numpy scale promotes them to float32
+                q, k = q.float() * scale, k.float() * scale
+            logits = torch.einsum("bthd,bshd->bhts", q, k)
             if rel_bias is not None:
                 logits = logits + attn_ops.expand_rel_bias(rel_bias.float(), t)[None]
             if valid_mask is not None:
                 logits = logits.masked_fill(~valid_mask[:, None, None, :],
                                             torch.finfo(torch.float32).min)
-            w = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = torch.einsum("bhts,bshd->bthd", w, v.to(x.dtype)).reshape(b, t, c)
+            dt = x.dtype if self.dtype is None else self.dtype
+            w = torch.softmax(logits, dim=-1).to(dt)
+            out = torch.einsum("bhts,bshd->bthd", w, v.to(dt)).reshape(b, t, c)
         out = x + self.proj_out(out, l=l)
         if valid_mask is not None:
             out = out * valid_mask[:, :, None].to(out.dtype)
@@ -120,12 +128,13 @@ class ConditioningEncoder(nn.Module):
     taking the t=0 vector (reference autoregressive.py:204-228)."""
 
     def __init__(self, spec_dim: int, embedding_dim: int, attn_blocks: int = 6,
-                 num_attn_heads: int = 4):
+                 num_attn_heads: int = 4, dtype: torch.dtype | None = None):
         super().__init__()
-        self.init = Dense(spec_dim, embedding_dim)
+        self.init = Dense(spec_dim, embedding_dim, dtype=dtype)
         self.n_blocks = attn_blocks
         for i in range(attn_blocks):
-            setattr(self, f"attn_{i}", AttentionBlock(embedding_dim, num_attn_heads))
+            setattr(self, f"attn_{i}", AttentionBlock(embedding_dim, num_attn_heads,
+                                                      dtype=dtype))
 
     def forward(self, mel_btc):
         h = self.init(mel_btc)

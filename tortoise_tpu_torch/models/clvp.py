@@ -3,7 +3,9 @@
 Shipped config: 768-d, 20 + 20 layers, 12 heads, the x-transformers
 encoders. ``use_xformers=False`` builds the reference's plain-Transformer
 variant (``models/simple_transformer.py``) with learned absolute position
-tables (reference clvp.py:84-97).
+tables (reference clvp.py:84-97). ``dtype``: the encoders' and the latent
+projections' compute dtype (None: the weights'); the embeddings give their
+table's dtype, the latents and the loss are float32.
 """
 from __future__ import annotations
 
@@ -44,27 +46,23 @@ def masked_mean(t, mask):
 
 
 class CLVP(nn.Module):
-    def __init__(self, config: CLVPConfig = CLVPConfig()):
+    def __init__(self, config: CLVPConfig = CLVPConfig(), dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
         self.text_emb = Embed(cfg.num_text_tokens, cfg.dim_text)
         self.speech_emb = Embed(cfg.num_speech_tokens, cfg.dim_speech)
-        if cfg.use_xformers:
-            self.text_transformer = XTransformerEncoder(cfg.dim_text, cfg.text_enc_depth,
-                                                        cfg.text_heads)
-            self.speech_transformer = XTransformerEncoder(cfg.dim_speech, cfg.speech_enc_depth,
-                                                          cfg.speech_heads)
-        else:
-            self.text_transformer = SimpleTransformer(cfg.dim_text, cfg.text_enc_depth,
-                                                      cfg.text_heads)
-            self.speech_transformer = SimpleTransformer(cfg.dim_speech, cfg.speech_enc_depth,
-                                                        cfg.speech_heads)
+        encoder = XTransformerEncoder if cfg.use_xformers else SimpleTransformer
+        self.text_transformer = encoder(cfg.dim_text, cfg.text_enc_depth, cfg.text_heads,
+                                        dtype=dtype)
+        self.speech_transformer = encoder(cfg.dim_speech, cfg.speech_enc_depth,
+                                          cfg.speech_heads, dtype=dtype)
+        if not cfg.use_xformers:
             # the speech table is sized by the token vocabulary: a reference
             # quirk kept for its checkpoints (reference clvp.py:96-97)
             self.text_pos_emb = Embed(cfg.text_seq_len, cfg.dim_text)
             self.speech_pos_emb = Embed(cfg.num_speech_tokens, cfg.dim_speech)
-        self.to_text_latent = Dense(cfg.dim_text, cfg.dim_latent, bias=False)
-        self.to_speech_latent = Dense(cfg.dim_speech, cfg.dim_latent, bias=False)
+        self.to_text_latent = Dense(cfg.dim_text, cfg.dim_latent, bias=False, dtype=dtype)
+        self.to_speech_latent = Dense(cfg.dim_speech, cfg.dim_latent, bias=False, dtype=dtype)
         self.temperature = nn.Parameter(torch.ones(()))
 
     @staticmethod

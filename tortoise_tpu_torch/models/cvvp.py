@@ -4,7 +4,8 @@
 Shipped config (reference api.py:254-255): 512 wide, 8 heads, depth 8 on
 both sides, mel_codes=8192 (the speech side reads discrete mel codes).
 ``forward(..., return_loss=True)`` gives the training's symmetric
-contrastive loss.
+contrastive loss. ``dtype``: the compute dtype of every product (None: the
+weights'); the latents and the loss are float32.
 """
 from __future__ import annotations
 
@@ -34,12 +35,13 @@ class CollapsingTransformer(nn.Module):
     """Encoder -> 1x1 convs around an AttentionBlock -> mean over time
     (reference cvvp.py:19-51)."""
 
-    def __init__(self, model_dim: int, output_dims: int, heads: int, depth: int):
+    def __init__(self, model_dim: int, output_dims: int, heads: int, depth: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.transformer = XTransformerEncoder(model_dim, depth, heads, ff_mult=1.0)
-        self.pre_conv = Dense(model_dim, output_dims)
-        self.pre_attn = AttentionBlock(output_dims, heads)
-        self.post_conv = Dense(output_dims, output_dims)
+        self.transformer = XTransformerEncoder(model_dim, depth, heads, ff_mult=1.0, dtype=dtype)
+        self.pre_conv = Dense(model_dim, output_dims, dtype=dtype)
+        self.pre_attn = AttentionBlock(output_dims, heads, dtype=dtype)
+        self.post_conv = Dense(output_dims, output_dims, dtype=dtype)
 
     def forward(self, x):
         h = self.pre_conv(self.transformer(x))
@@ -51,20 +53,23 @@ def _unit(lat):
 
 
 class CVVP(nn.Module):
-    def __init__(self, config: CVVPConfig = CVVPConfig()):
+    def __init__(self, config: CVVPConfig = CVVPConfig(), dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
         latent_dim = cfg.latent_multiplier * cfg.model_dim
         # no activation between the two conditioning convs, as in the reference
-        self.cond_conv1 = Conv1d(cfg.mel_channels, cfg.model_dim // 2, 5, stride=2, padding=2)
-        self.cond_conv2 = Conv1d(cfg.model_dim // 2, cfg.model_dim, 3, stride=2, padding=1)
+        self.cond_conv1 = Conv1d(cfg.mel_channels, cfg.model_dim // 2, 5, stride=2, padding=2,
+                                 dtype=dtype)
+        self.cond_conv2 = Conv1d(cfg.model_dim // 2, cfg.model_dim, 3, stride=2, padding=1,
+                                 dtype=dtype)
         self.conditioning_transformer = CollapsingTransformer(
-            cfg.model_dim, cfg.model_dim, cfg.transformer_heads, cfg.conditioning_enc_depth)
-        self.to_conditioning_latent = Dense(cfg.model_dim, latent_dim, bias=False)
+            cfg.model_dim, cfg.model_dim, cfg.transformer_heads, cfg.conditioning_enc_depth,
+            dtype)
+        self.to_conditioning_latent = Dense(cfg.model_dim, latent_dim, bias=False, dtype=dtype)
         self.speech_emb = Embed(cfg.mel_codes, cfg.model_dim)
         self.speech_transformer = CollapsingTransformer(
-            cfg.model_dim, latent_dim, cfg.transformer_heads, cfg.speech_enc_depth)
-        self.to_speech_latent = Dense(latent_dim, latent_dim, bias=False)
+            cfg.model_dim, latent_dim, cfg.transformer_heads, cfg.speech_enc_depth, dtype)
+        self.to_speech_latent = Dense(latent_dim, latent_dim, bias=False, dtype=dtype)
         self.temperature = nn.Parameter(torch.ones(()))
 
     def cond_latents(self, mel_cond):

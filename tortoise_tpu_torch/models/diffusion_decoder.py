@@ -11,6 +11,9 @@ The relative-position bias of the 13 attention blocks that run every
 diffusion step is a per-layer diagonal vector (L, H, 2T-1) built once per
 sampling call (``rel_bias_vectors``), in place of the JAX package's
 ``compute_rel_bias_blocks`` tile stacks.
+
+``dtype`` is the compute dtype of every product but ``out_conv``, which is
+float32, as in the JAX model (None: each weight's, the serving models').
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tortoise_tpu_torch.models.blocks import AttentionBlock, GroupNorm32
-from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed
+from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, silu
 from tortoise_tpu_torch.ops.attn import rel_bias_vector
 from tortoise_tpu_torch.ops.interpolate import nearest_interpolate
 
@@ -59,33 +62,37 @@ class TimestepResBlock(nn.Module):
     """Scale-shift-norm ResBlock: 1x1 in/skip convs, k3 out conv."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int | None = None,
-                 kernel_size: int = 3, lead: tuple = ()):
+                 kernel_size: int = 3, lead: tuple = (), dtype: torch.dtype | None = None):
         super().__init__()
         out_ch = out_channels or channels
         pad = {1: 0, 3: 1, 5: 2}[kernel_size]
+        self.dtype = dtype
         self.GroupNorm32_0 = GroupNorm32(channels, lead=lead)
-        self.in_conv = Dense(channels, out_ch, lead=lead)
-        self.emb_proj = Dense(emb_channels, 2 * out_ch, lead=lead)
+        self.in_conv = Dense(channels, out_ch, lead=lead, dtype=dtype)
+        self.emb_proj = Dense(emb_channels, 2 * out_ch, lead=lead, dtype=dtype)
         self.GroupNorm32_1 = GroupNorm32(out_ch, lead=lead)
-        self.out_conv = Conv1d(out_ch, out_ch, kernel_size, padding=pad, lead=lead)
-        self.skip_conv = Dense(channels, out_ch, lead=lead) if out_ch != channels else None
+        self.out_conv = Conv1d(out_ch, out_ch, kernel_size, padding=pad, lead=lead, dtype=dtype)
+        self.skip_conv = Dense(channels, out_ch, lead=lead, dtype=dtype) \
+            if out_ch != channels else None
 
     def forward(self, x, emb, valid_mask=None, l: int | None = None):
-        h = F.silu(self.GroupNorm32_0(x, mask=valid_mask, l=l))
+        h = silu(self.GroupNorm32_0(x, mask=valid_mask, l=l), self.dtype)
         h = self.in_conv(h, l)
-        scale, shift = self.emb_proj(F.silu(emb), l)[:, None, :].chunk(2, dim=-1)
+        scale, shift = self.emb_proj(silu(emb, self.dtype), l)[:, None, :].chunk(2, dim=-1)
         h = self.GroupNorm32_1(h, mask=valid_mask, l=l) * (1 + scale) + shift
-        h = _masked(F.silu(h), valid_mask)
+        h = _masked(silu(h, self.dtype), valid_mask)
         h = self.out_conv(h, l)
         skip = x if self.skip_conv is None else self.skip_conv(x, l)
         return _masked(skip + h, valid_mask)
 
 
 class DiffusionLayer(nn.Module):
-    def __init__(self, channels: int, num_heads: int, lead: tuple = ()):
+    def __init__(self, channels: int, num_heads: int, lead: tuple = (),
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.resblk = TimestepResBlock(channels, channels, lead=lead)
-        self.attn = AttentionBlock(channels, num_heads, relative_pos_embeddings=True, lead=lead)
+        self.resblk = TimestepResBlock(channels, channels, lead=lead, dtype=dtype)
+        self.attn = AttentionBlock(channels, num_heads, relative_pos_embeddings=True, lead=lead,
+                                   dtype=dtype)
 
     def forward(self, x, emb, valid_mask, rel_bias, flash: bool, l: int | None = None):
         h = self.resblk(x, emb, valid_mask=valid_mask, l=l)
@@ -102,43 +109,47 @@ class _Stacked(nn.Module):
 
 
 class DiffusionTts(nn.Module):
-    def __init__(self, config: DiffusionTtsConfig = DiffusionTtsConfig()):
+    def __init__(self, config: DiffusionTtsConfig = DiffusionTtsConfig(),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         cfg = self.config = config
         ch = cfg.model_channels
-        self.inp_block = Conv1d(cfg.in_channels, ch, 3, padding=1)
-        self.time_embed_1 = Dense(ch, ch)
-        self.time_embed_2 = Dense(ch, ch)
+        self.compute_dtype = dtype
+        attn = lambda c: AttentionBlock(c, cfg.num_heads, relative_pos_embeddings=True,
+                                        dtype=dtype)
+        self.inp_block = Conv1d(cfg.in_channels, ch, 3, padding=1, dtype=dtype)
+        self.time_embed_1 = Dense(ch, ch, dtype=dtype)
+        self.time_embed_2 = Dense(ch, ch, dtype=dtype)
         self.code_norm = GroupNorm32(ch)
-        self.latent_conv = Conv1d(cfg.in_latent_channels, ch, 3, padding=1)
+        self.latent_conv = Conv1d(cfg.in_latent_channels, ch, 3, padding=1, dtype=dtype)
         for i in range(4):
-            setattr(self, f"latent_attn_{i}",
-                    AttentionBlock(ch, cfg.num_heads, relative_pos_embeddings=True))
-        self.ctx_conv1 = Conv1d(cfg.in_channels, ch, 3, stride=2, padding=1)
-        self.ctx_conv2 = Conv1d(ch, 2 * ch, 3, stride=2, padding=1)
+            setattr(self, f"latent_attn_{i}", attn(ch))
+        self.ctx_conv1 = Conv1d(cfg.in_channels, ch, 3, stride=2, padding=1, dtype=dtype)
+        self.ctx_conv2 = Conv1d(ch, 2 * ch, 3, stride=2, padding=1, dtype=dtype)
         for i in range(5):
-            setattr(self, f"ctx_attn_{i}",
-                    AttentionBlock(2 * ch, cfg.num_heads, relative_pos_embeddings=True))
+            setattr(self, f"ctx_attn_{i}", attn(2 * ch))
         self.unconditioned_embedding = nn.Parameter(torch.empty(1, 1, ch))
-        self.cond_scan = _Stacked(DiffusionLayer(ch, cfg.num_heads, lead=(3,)), 3)
-        self.integrating_conv = Dense(2 * ch, ch)
+        self.cond_scan = _Stacked(DiffusionLayer(ch, cfg.num_heads, lead=(3,), dtype=dtype), 3)
+        self.integrating_conv = Dense(2 * ch, ch, dtype=dtype)
         self.layers_scan = _Stacked(
-            DiffusionLayer(ch, cfg.num_heads, lead=(cfg.num_layers,)), cfg.num_layers)
+            DiffusionLayer(ch, cfg.num_heads, lead=(cfg.num_layers,), dtype=dtype),
+            cfg.num_layers)
         for i in range(3):
-            setattr(self, f"tail_{i}", TimestepResBlock(ch, ch))
+            setattr(self, f"tail_{i}", TimestepResBlock(ch, ch, dtype=dtype))
         self.out_norm = GroupNorm32(ch)
         self.out_conv = Conv1d(ch, cfg.out_channels, 3, padding=1)
         # the code path, registered last so that weights.init_random draws
         # every other parameter as it did before the path existed
         self.code_embedding = Embed(cfg.in_tokens, ch)
         for i in range(3):
-            setattr(self, f"code_converter_{i}",
-                    AttentionBlock(ch, cfg.num_heads, relative_pos_embeddings=True))
-        self.mel_head = Conv1d(ch, cfg.in_channels, 3, padding=1)
+            setattr(self, f"code_converter_{i}", attn(ch))
+        self.mel_head = Conv1d(ch, cfg.in_channels, 3, padding=1, dtype=dtype)
 
     @property
     def dtype(self):
-        return self.time_embed_1.weight.dtype
+        """The compute dtype: ``dtype``, else the stored weights'."""
+        return self.time_embed_1.weight.dtype if self.compute_dtype is None \
+            else self.compute_dtype
 
     def get_conditioning(self, cond_mels):
         """(B, n_clips, T, 100) univnet mels -> (B, 2048) voice latent."""
@@ -229,8 +240,8 @@ class DiffusionTts(nn.Module):
         else:
             code_emb = self.timestep_independent(aligned_conditioning, conditioning_latent,
                                                  x.shape[1])
-        time_emb = self.time_embed_2(F.silu(self.time_embed_1(
-            timestep_embedding(timesteps, self.config.model_channels))))
+        time_emb = self.time_embed_2(silu(self.time_embed_1(
+            timestep_embedding(timesteps, self.config.model_channels)), self.compute_dtype))
         b_layers, b_cond = rel_biases if rel_biases is not None else (None, None)
         for l in range(self.cond_scan.n):
             code_emb = self.cond_scan.layer(code_emb, time_emb, valid_mask,
@@ -241,7 +252,8 @@ class DiffusionTts(nn.Module):
                                        None if b_layers is None else b_layers[l], flash, l)
         for i in range(3):
             h = getattr(self, f"tail_{i}")(h, time_emb, valid_mask=valid_mask)
-        h = _masked(F.silu(self.out_norm(h.float(), mask=valid_mask)), valid_mask)
+        h = _masked(silu(self.out_norm(h.float(), mask=valid_mask), self.compute_dtype),
+                    valid_mask)
         w = self.out_conv
         # float32 like the JAX out_conv (dtype=float32 over the stored weights)
         return F.conv1d(h.transpose(1, 2), w.weight.float(), w.bias.float(),

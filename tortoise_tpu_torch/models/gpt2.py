@@ -20,6 +20,13 @@ this rank's H/tp heads: c_attn and mlp_fc give its C/tp and 4C/tp output
 channels, c_proj and mlp_proj its float32 partial sums, which are
 all-reduced before their bias is added once; the cache holds the rank's
 C/tp channels.
+
+``dtype`` is the compute dtype (None: the stored c_attn bias's, as the
+serving models cast theirs), the residual stream's: the input is cast to
+it once, ln_1, ln_2 and ln_f run in float32 and round to it, the
+attention's logits and softmax are float32. ``remat`` recomputes each
+block in the backward pass when there is no cache (the JAX package's
+``nn.remat``, the reference's gradient checkpointing).
 """
 from __future__ import annotations
 
@@ -29,8 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm, QuantDense
+from tortoise_tpu_torch.models.layers import Dense, LayerNorm, Norm, QuantDense, cast
 from tortoise_tpu_torch.ops.attention import chunked_decode_attention_merged
 from tortoise_tpu_torch.ops.attn import decode_attention_merged
 from tortoise_tpu_torch.parallel.sharding import copy_to_tp, reduce_from_tp
@@ -48,35 +56,42 @@ class GPT2Config:
     quant_weights: bool = False
 
 
-def gelu_new(x):
-    """HF "gelu_new": the tanh approximation GPT-2 uses."""
-    return 0.5 * x * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x ** 3)))
+def gelu_new(x, dtype: torch.dtype | None = None):
+    """HF "gelu_new": the tanh approximation GPT-2 uses. With a compute
+    ``dtype`` as the JAX package's rounds it: x^3 as two products, the numpy
+    constant promoting the tanh's argument, and so the result, to float32;
+    None: the serving models', in x's dtype throughout."""
+    if dtype is None:
+        return 0.5 * x * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x ** 3)))
+    inner = np.sqrt(2.0 / np.pi) * (x + 0.044715 * (x * (x * x))).float()
+    return 0.5 * x * (1.0 + torch.tanh(inner))
 
 
-def _dense(cfg: GPT2Config, in_f: int, out_f: int, lead: tuple):
-    return QuantDense(in_f, out_f, lead) if cfg.quant_weights else Dense(in_f, out_f, lead=lead)
+def _dense(cfg: GPT2Config, in_f: int, out_f: int, lead: tuple, dtype):
+    return QuantDense(in_f, out_f, lead) if cfg.quant_weights else \
+        Dense(in_f, out_f, lead=lead, dtype=dtype)
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: GPT2Config, lead: tuple):
+    def __init__(self, cfg: GPT2Config, lead: tuple, dtype):
         super().__init__()
         c = cfg.n_embd
-        self.c_attn = _dense(cfg, c, 3 * c, lead)
-        self.c_proj = _dense(cfg, c, c, lead)
+        self.c_attn = _dense(cfg, c, 3 * c, lead, dtype)
+        self.c_proj = _dense(cfg, c, c, lead, dtype)
 
 
 class _Block(nn.Module):
     """All layers' parameters, stacked: (L, ...)."""
 
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, dtype):
         super().__init__()
         lead = (cfg.n_layer,)
         c = cfg.n_embd
         self.ln_1 = Norm(c, lead)
-        self.attn = _Attention(cfg, lead)
+        self.attn = _Attention(cfg, lead, dtype)
         self.ln_2 = Norm(c, lead)
-        self.mlp_fc = _dense(cfg, c, 4 * c, lead)
-        self.mlp_proj = _dense(cfg, 4 * c, c, lead)
+        self.mlp_fc = _dense(cfg, c, 4 * c, lead, dtype)
+        self.mlp_proj = _dense(cfg, 4 * c, c, lead, dtype)
 
 
 def init_kv_cache(config: GPT2Config, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -111,11 +126,12 @@ class GPT2Stack(nn.Module):
     # parallel.sharding.TensorParallel while the stack holds one rank's heads
     tp = None
 
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         self.config = cfg
+        self.dtype, self.remat = dtype, remat
         self.h_scan = nn.Module()
-        self.h_scan.block = _Block(cfg)
+        self.h_scan.block = _Block(cfg, dtype)
         self.ln_f = LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
 
     def _ln(self, norm: Norm, x, l):
@@ -131,14 +147,14 @@ class GPT2Stack(nn.Module):
         and its input's gradient all-reduced backward."""
         return dense(x if self.tp is None else copy_to_tp(x, self.tp), l)
 
-    def _row(self, dense, x, l):
+    def _row(self, dense, x, l, dtype):
         """A product split on its input: on a tp split, each rank's float32
         partial product all-reduced, then the bias added once and the sum
-        rounded once to the compute dtype."""
+        rounded once to the compute dtype ``dtype``."""
         if self.tp is None:
             return dense(x, l)
         y = reduce_from_tp(dense(x, l, bias=False), self.tp)
-        return (y + dense.bias[l].float()).to(x.dtype)
+        return (y + cast(dense.bias[l], dtype).float()).to(dtype)
 
     def _attend(self, q, k, v, cache, l, cache_index):
         b, t, c = q.shape
@@ -186,19 +202,33 @@ class GPT2Stack(nn.Module):
         w = torch.softmax(logits, dim=-1).to(dtype)
         return torch.einsum("bhts,bhsd->bhtd", w, vh).transpose(1, 2).reshape(b, t, c)
 
+    def _block(self, x, l: int, cache, cache_index: int, dtype, blk, c: int):
+        """Layer ``l`` of the stacked layers ``blk`` over the residual stream
+        ``x`` (compute dtype) of ``c`` channels."""
+        h = self._ln(blk.ln_1, x, l).to(dtype)
+        q, k, v = self._column(blk.attn.c_attn, h, l).split(c, dim=-1)
+        x = x + self._row(blk.attn.c_proj, self._attend(q, k, v, cache, l, cache_index), l,
+                          dtype)
+        h = self._ln(blk.ln_2, x, l).to(dtype)
+        return x + self._row(blk.mlp_proj, gelu_new(self._column(blk.mlp_fc, h, l), self.dtype),
+                             l, dtype)
+
     def forward(self, emb, cache=None, cache_index: int = 0):
         """emb: (B, T, C). With ``cache`` the new keys/values land at
         [cache_index, cache_index + T) (in place) and attention covers the
-        cached prefix; otherwise plain causal attention. Returns
-        (ln_f(x) in the compute dtype, cache)."""
+        cached prefix; otherwise plain causal attention, each block
+        recomputed in the backward pass with ``remat``. Returns (ln_f(x) in
+        the compute dtype, cache)."""
         blk = self.h_scan.block
-        dtype = blk.attn.c_attn.bias.dtype    # the weight may be int8 (QuantDense)
+        # the bias: the weight may be int8 (QuantDense)
+        dtype = blk.attn.c_attn.bias.dtype if self.dtype is None else self.dtype
         c = blk.attn.c_attn.bias.shape[-1] // 3     # C, or C / tp on a tp split
         x = emb.to(dtype)
         for l in range(self.config.n_layer):
-            h = self._ln(blk.ln_1, x, l).to(dtype)
-            q, k, v = self._column(blk.attn.c_attn, h, l).split(c, dim=-1)
-            x = x + self._row(blk.attn.c_proj, self._attend(q, k, v, cache, l, cache_index), l)
-            h = self._ln(blk.ln_2, x, l).to(dtype)
-            x = x + self._row(blk.mlp_proj, gelu_new(self._column(blk.mlp_fc, h, l)), l)
+            if self.remat and cache is None:
+                # a block draws no random numbers: no RNG state to stash
+                x = checkpoint(self._block, x, l, None, cache_index, dtype, blk, c,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._block(x, l, cache, cache_index, dtype, blk, c)
         return self.ln_f(x).to(dtype), cache

@@ -8,9 +8,22 @@ package stacks under ``nn.scan``; ``forward(..., l=i)`` then uses layer ``i``.
 
 Activations keep the JAX package's (batch, time, channels) layout; the conv
 modules transpose to torch's (batch, channels, time) around the call.
+
+``dtype`` is a product's compute dtype, flax's ``dtype`` beside its
+``param_dtype``: the input, weight and bias are cast to it at use, so a
+bf16 forward over float32 parameters returns float32 gradients to them, as
+``jax.grad`` does. ``dtype=None`` computes in the stored weight's dtype:
+the serving models, whose weights ``weights.cast_for_inference`` casts in
+place. A tensor already in the compute dtype is used as it is.
+
+A module built with a ``dtype`` rounds where the JAX module does: a dense's
+product rounds before its bias is added, ``silu`` and ``gelu`` round after
+each of jax.nn's ops. The serving models (``dtype=None``) keep the fused
+ops, each rounding once, that they were served with.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,25 +33,53 @@ def _pick(t: torch.Tensor | None, l: int | None):
     return t if (t is None or l is None) else t[l]
 
 
+def cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """``t`` in ``dtype``: ``t`` itself when it has it (or is None)."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
+def silu(x, dtype: torch.dtype | None):
+    """SiLU of a module with compute dtype ``dtype``: jax.nn.silu's ``x *
+    logistic(x)``, the logistic as XLA expands it, ``1 / (1 + exp(-x))``,
+    rounding after each op; None: ``F.silu``."""
+    return F.silu(x) if dtype is None else x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x, dtype: torch.dtype | None):
+    """Exact (erf) GELU of a module with compute dtype ``dtype``:
+    jax.nn.gelu's ``0.5 x erfc(-x sqrt(1/2))``, the constant in x's dtype,
+    rounding after each op; None: ``F.gelu``."""
+    if dtype is None:
+        return F.gelu(x)
+    return 0.5 * x * torch.erfc(-x * torch.tensor(np.sqrt(0.5), dtype=x.dtype))
+
+
 class Dense(nn.Module):
-    """flax ``nn.Dense``: weight (*lead, out, in), bias (*lead, out). The input
-    is cast to the weight's dtype, as flax casts to its compute dtype."""
+    """flax ``nn.Dense``: weight (*lead, out, in), bias (*lead, out), the
+    product in ``dtype`` (None: the weight's)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 lead: tuple = ()):
+                 lead: tuple = (), dtype: torch.dtype | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(*lead, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(*lead, out_features)) if bias else None
+        self.dtype = dtype
 
     def forward(self, x, l: int | None = None, bias: bool = True):
-        """``bias=False``: the product alone, in float32, a row-split
-        product's partial sum, all-reduced before its bias is added once
-        (``models/gpt2.py``): the sum rounds to the compute dtype once, as
-        the unsplit product does."""
+        """``bias=False``: the product of the compute-dtype operands alone,
+        in float32, a row-split product's partial sum, all-reduced before
+        its bias is added once (``models/gpt2.py``): the sum rounds to the
+        compute dtype once, as the unsplit product does."""
         w = _pick(self.weight, l)
+        dt = w.dtype if self.dtype is None else self.dtype
         if not bias:
-            return F.linear(x.to(w.dtype).float(), w.float())
-        return F.linear(x.to(w.dtype), w, _pick(self.bias, l))
+            return F.linear(cast(x, dt).float(), cast(w, dt).float())
+        b = cast(_pick(self.bias, l), dt)
+        if self.dtype is None or b is None:
+            return F.linear(cast(x, dt), cast(w, dt), b)
+        # flax's order: the product rounds to the compute dtype, then the
+        # bias is added in it
+        return F.linear(cast(x, dt), cast(w, dt)) + b
 
 
 def quantize_rows(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -74,19 +115,23 @@ class QuantDense(nn.Module):
 
 class Conv1d(nn.Module):
     """flax ``nn.Conv`` over time on (B, T, C) input: weight (*lead, out,
-    in / groups, K); ``groups`` is flax's ``feature_group_count``."""
+    in / groups, K); ``groups`` is flax's ``feature_group_count``; the
+    convolution in ``dtype`` (None: the weight's)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dilation: int = 1, lead: tuple = (), groups: int = 1):
+                 padding: int = 0, dilation: int = 1, lead: tuple = (), groups: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(*lead, out_ch, in_ch // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(*lead, out_ch))
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.groups = groups
+        self.dtype = dtype
 
     def forward(self, x, l: int | None = None):
         w = _pick(self.weight, l)
-        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, _pick(self.bias, l),
+        dt = w.dtype if self.dtype is None else self.dtype
+        y = F.conv1d(cast(x, dt).transpose(1, 2), cast(w, dt), cast(_pick(self.bias, l), dt),
                      stride=self.stride, padding=self.padding, dilation=self.dilation,
                      groups=self.groups)
         return y.transpose(1, 2)
@@ -135,7 +180,9 @@ class LayerNorm(Norm):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed`` (or a bucket table): weight (*lead, num, dim)."""
+    """flax ``nn.Embed`` (or a bucket table): weight (*lead, num, dim). The
+    rows come out in the table's dtype, as flax's with no ``dtype``: float32
+    in training, bf16 from a model cast for serving."""
 
     def __init__(self, num: int, dim: int, lead: tuple = ()):
         super().__init__()

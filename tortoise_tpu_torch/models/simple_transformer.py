@@ -7,15 +7,16 @@ PreNorm(GEGLU feed-forward))``; LayerScale (CaiT, arXiv:2103.17239) starts
 each channel's gain at an epsilon chosen by the 1-based layer index. There
 is no rotary embedding: the caller adds learned absolute positions. Layers
 are separate modules under ``block_{i}``, as in the JAX package, where the
-per-layer init breaks the scan's homogeneity.
+per-layer init breaks the scan's homogeneity. ``dtype`` is the products'
+compute dtype and that of the attention weights (None: the weights', and
+the input's).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from tortoise_tpu_torch.models.layers import Dense, LayerNorm
+from tortoise_tpu_torch.models.layers import Dense, LayerNorm, gelu
 
 
 def layerscale_init(layer_index_1based: int) -> float:
@@ -33,12 +34,13 @@ class SimpleAttention(nn.Module):
     a biased output projection (reference transformer.py:135-178). Masked
     logits take the dtype's lowest value; the softmax runs in float32."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int = 64, causal: bool = False):
+    def __init__(self, dim: int, heads: int, dim_head: int = 64, causal: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.heads, self.dim_head, self.causal = heads, dim_head, causal
+        self.heads, self.dim_head, self.causal, self.dtype = heads, dim_head, causal, dtype
         inner = heads * dim_head
-        self.to_qkv = Dense(dim, 3 * inner, bias=False)
-        self.to_out = Dense(inner, dim)
+        self.to_qkv = Dense(dim, 3 * inner, bias=False, dtype=dtype)
+        self.to_out = Dense(inner, dim, dtype=dtype)
 
     def forward(self, x, mask=None):
         b, n, _ = x.shape
@@ -51,7 +53,8 @@ class SimpleAttention(nn.Module):
         if self.causal:
             keep = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
             dots = dots.masked_fill(~keep, neg)
-        attn = torch.softmax(dots.float(), dim=-1).to(x.dtype)
+        attn = torch.softmax(dots.float(), dim=-1).to(x.dtype if self.dtype is None
+                                                       else self.dtype)
         out = torch.einsum("bhij,bhjd->bhid", attn, v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
 
@@ -61,28 +64,29 @@ class SimpleFeedForward(nn.Module):
     by the exact (erf) GELU of the gate half, a product back to dim
     (reference transformer.py:112-130)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dtype: torch.dtype | None = None):
         super().__init__()
-        self.ff_in = Dense(dim, dim * mult * 2)
-        self.ff_out = Dense(dim * mult, dim)
+        self.dtype = dtype
+        self.ff_in = Dense(dim, dim * mult * 2, dtype=dtype)
+        self.ff_out = Dense(dim * mult, dim, dtype=dtype)
 
     def forward(self, x):
         val, gate = self.ff_in(x).chunk(2, dim=-1)
-        return self.ff_out(val * F.gelu(gate))
+        return self.ff_out(val * gelu(gate, self.dtype))
 
 
 class SimpleTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, layer_index: int, dim_head: int = 64,
-                 ff_mult: int = 4, causal: bool = False):
+                 ff_mult: int = 4, causal: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         # the LayerScale gains' initial value (weights.init_random)
         self.layerscale = layerscale_init(layer_index)
         self.attn_scale = nn.Parameter(torch.full((dim,), self.layerscale))
         self.ff_scale = nn.Parameter(torch.full((dim,), self.layerscale))
         self.attn_norm = LayerNorm(dim)
-        self.attn = SimpleAttention(dim, heads, dim_head, causal)
+        self.attn = SimpleAttention(dim, heads, dim_head, causal, dtype)
         self.ff_norm = LayerNorm(dim)
-        self.ff = SimpleFeedForward(dim, ff_mult)
+        self.ff = SimpleFeedForward(dim, ff_mult, dtype)
 
     def forward(self, x, mask=None):
         x = x + self.attn(self.attn_norm(x).to(x.dtype), mask=mask) * self.attn_scale
@@ -94,12 +98,13 @@ class SimpleTransformer(nn.Module):
     only, no input or output norm (reference transformer.py:182-219)."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int = 64, ff_mult: int = 4,
-                 causal: bool = False):
+                 causal: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"block_{i}", SimpleTransformerBlock(
-                dim, heads, i + 1, dim_head=dim_head, ff_mult=ff_mult, causal=causal))
+                dim, heads, i + 1, dim_head=dim_head, ff_mult=ff_mult, causal=causal,
+                dtype=dtype))
 
     def forward(self, x, mask=None):
         for i in range(self.depth):

@@ -3,16 +3,17 @@
 Port of ``tortoise_tpu/models/xtransformer.py``: pre-norm RMSNorm, GEGLU
 feed-forward (exact erf GELU), rotary embeddings on the first 32 channels
 of q, k and v (the vendored version's quirk), a final LayerNorm. Depth is
-stacked under ``layers_scan`` as in the JAX package.
+stacked under ``layers_scan`` as in the JAX package. ``dtype`` is the
+products' compute dtype and that of the attention weights and values
+(None: the weights', and the input's).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from tortoise_tpu_torch.models.layers import Dense, LayerNorm
+from tortoise_tpu_torch.models.layers import Dense, LayerNorm, gelu
 
 
 class RMSNorm(nn.Module):
@@ -43,14 +44,14 @@ def apply_rotary(t, freqs):
 
 class EncoderAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int = 64, rot_dim: int = 32,
-                 lead: tuple = ()):
+                 lead: tuple = (), dtype: torch.dtype | None = None):
         super().__init__()
         inner = heads * dim_head
-        self.heads, self.dim_head, self.rot_dim = heads, dim_head, rot_dim
-        self.to_q = Dense(dim, inner, bias=False, lead=lead)
-        self.to_k = Dense(dim, inner, bias=False, lead=lead)
-        self.to_v = Dense(dim, inner, bias=False, lead=lead)
-        self.to_out = Dense(inner, dim, lead=lead)
+        self.heads, self.dim_head, self.rot_dim, self.dtype = heads, dim_head, rot_dim, dtype
+        self.to_q = Dense(dim, inner, bias=False, lead=lead, dtype=dtype)
+        self.to_k = Dense(dim, inner, bias=False, lead=lead, dtype=dtype)
+        self.to_v = Dense(dim, inner, bias=False, lead=lead, dtype=dtype)
+        self.to_out = Dense(inner, dim, lead=lead, dtype=dtype)
 
     def forward(self, x, l: int | None = None, mask=None):
         """``mask`` (B, T) bool: a logit counts only where its query and its
@@ -68,40 +69,44 @@ class EncoderAttention(nn.Module):
         if mask is not None:
             pair = mask[:, None, :, None] & mask[:, None, None, :]
             logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhij,bhjd->bhid", attn, v.to(x.dtype))
+        dt = x.dtype if self.dtype is None else self.dtype
+        attn = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.einsum("bhij,bhjd->bhid", attn, v.to(dt))
         return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh), l)
 
 
 class GEGLUFeedForward(nn.Module):
-    def __init__(self, dim: int, mult: float = 2.0, lead: tuple = ()):
+    def __init__(self, dim: int, mult: float = 2.0, lead: tuple = (),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         inner = int(dim * mult)
-        self.proj = Dense(dim, inner * 2, lead=lead)
-        self.out = Dense(inner, dim, lead=lead)
+        self.dtype = dtype
+        self.proj = Dense(dim, inner * 2, lead=lead, dtype=dtype)
+        self.out = Dense(inner, dim, lead=lead, dtype=dtype)
 
     def forward(self, x, l: int | None = None):
         val, gate = self.proj(x, l).chunk(2, dim=-1)
-        return self.out(val * F.gelu(gate), l)
+        return self.out(val * gelu(gate, self.dtype), l)
 
 
 class _EncoderLayers(nn.Module):
     """All layers' parameters, stacked: (depth, ...)."""
 
-    def __init__(self, dim: int, heads: int, ff_mult: float, depth: int):
+    def __init__(self, dim: int, heads: int, ff_mult: float, depth: int, dtype):
         super().__init__()
         lead = (depth,)
         self.attn_norm = RMSNorm(dim, lead=lead)
-        self.attn = EncoderAttention(dim, heads, lead=lead)
+        self.attn = EncoderAttention(dim, heads, lead=lead, dtype=dtype)
         self.ff_norm = RMSNorm(dim, lead=lead)
-        self.ff = GEGLUFeedForward(dim, ff_mult, lead=lead)
+        self.ff = GEGLUFeedForward(dim, ff_mult, lead=lead, dtype=dtype)
 
 
 class XTransformerEncoder(nn.Module):
-    def __init__(self, dim: int, depth: int, heads: int, ff_mult: float = 2.0):
+    def __init__(self, dim: int, depth: int, heads: int, ff_mult: float = 2.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.depth = depth
-        self.layers_scan = _EncoderLayers(dim, heads, ff_mult, depth)
+        self.layers_scan = _EncoderLayers(dim, heads, ff_mult, depth, dtype)
         self.final_norm = LayerNorm(dim)
 
     def forward(self, x, mask=None):

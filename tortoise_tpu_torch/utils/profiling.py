@@ -2,6 +2,7 @@
 TextToSpeech requests on one GPU.
 
     python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2 | --k4k6 | --train]
+        [--dtype f32|bf16]
 
 Builds the full-width TextToSpeech (seeded random weights, voice
 train_dotrice), answers one unprofiled warm-up request, then answers one
@@ -40,6 +41,8 @@ variants beside SDPA.
 full 402 text and 604 mel tokens, float32 with TF32 off, seeded random
 weights and batch) after three unprofiled steps: its wall, the device busy
 time, device time by kernel family and the kernels that take the most.
+``--dtype bf16`` computes it in bf16 over the float32 parameters
+(``UnifiedVoice(dtype=torch.bfloat16)``).
 """
 from __future__ import annotations
 
@@ -329,7 +332,7 @@ def train_batch(cfg, b: int, t_text: int, t_mel: int, device, seed: int) -> dict
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def profile_train_step() -> dict:
+def profile_train_step(dtype: torch.dtype | None = None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from tortoise_tpu_torch import weights
@@ -337,7 +340,7 @@ def profile_train_step() -> dict:
     from tortoise_tpu_torch.training import train_step as ts
 
     dev = weights.float32_device("cuda")
-    model = UnifiedVoice().to(dev)
+    model = UnifiedVoice(dtype=dtype).to(dev)
     weights.init_random(model, 0)
     shape = (4, 402, 604)
     batch = train_batch(model.config, *shape, dev, seed=5)
@@ -357,7 +360,7 @@ def profile_train_step() -> dict:
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + (e["end_us"] - e["start_us"]) / 1e3
-    res.update(batch=list(shape), wall_ms_profiled=wall_ms,
+    res.update(batch=list(shape), dtype=str(dtype or torch.float32), wall_ms_profiled=wall_ms,
                busy_share_of_wall=res["device_busy_ms"] / wall_ms,
                top_kernels_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
     return res
@@ -378,6 +381,8 @@ def main() -> int:
                       help="time K4 (per hop and layout, UnivNet's forward) and K6 instead")
     what.add_argument("--train", action="store_true",
                       help="profile one full-width UnifiedVoice train step instead")
+    parser.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                        help="--train's compute dtype (the parameters stay float32)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: torch sees no CUDA device")
@@ -389,7 +394,8 @@ def main() -> int:
     elif args.k4k6:
         result = {"nvidia_smi": smi, **profile_k4_k6()}
     elif args.train:
-        result = {"nvidia_smi": smi, **profile_train_step()}
+        result = {"nvidia_smi": smi, **profile_train_step(
+            torch.bfloat16 if args.dtype == "bf16" else None)}
     else:
         tts = TextToSpeech(device="cuda", enable_redaction=False)
         clips, _ = load_voice("train_dotrice")
