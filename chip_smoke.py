@@ -12,10 +12,15 @@ Phases, each of which raises on failure (nothing falls back):
   3. K2 (whole GPT-2 decode step), each of its four variants (bf16 or int8
      weights x bf16 or int8 cache), against its plain PyTorch version at
      full width: L=30, C=1024, H=16, B in {1, 16}, pos in {0, 37, 500},
-     T=768;
+     T=768; then at the batches the bench's requests decode (200 tokens,
+     their cache of T=512 rows, pos in {0, 37, the last decode step}): bf16
+     at B=64 (tts_batch) and 128 (quality standard), int8_weights at B=96
+     (quality fast with int8_decode weights), int8_cache and both at B=256
+     (quality high_quality over the int8 cache);
   4. K3 (relative-position attention) against its plain version at B in
      {2, 1} (the fast preset's CFG batch, ultra_fast's), H=16, D=64, T in
-     {256, 2229}, per-row valid lengths below T, timed beside
+     {256, 2229} with per-row valid lengths below T, and at T=1114 with 870
+     valid (the bench's 200-token clip), timed beside
      scaled_dot_product_attention with the bias as a float mask;
   5. K4 (UnivNet's location-variable convolution) against its plain
      version and the shifted-reshape einsum form at F=2186 frames (a
@@ -131,9 +136,22 @@ Phases, each of which raises on failure (nothing falls back):
      fetch_weights --offline over a seeded reference-layout rlg_auto.pth
      and make_demo_voices (its clips the repository's, byte for byte),
      both into build/.
-Before each path of phases 7-15 every launch counter is set to 0, and read
+ 16. last, in a process of its own (this script with --bench-worker): the
+     benchmark program tortoise_tpu_torch/bench.py at full width, its
+     headline and every section through its section functions, one timed
+     run after each warm-up (200 tokens a request; the long-form chunks
+     500): the quality ladder (ultra_fast, fast, standard at 256
+     candidates), quality fast with int8_decode weights, high_quality at
+     256 candidates over the int8 cache and the long-form loop, first audio
+     with both weight kinds, tts_batch of 64 with K2 on and off, the fast
+     path with K2 off, tts_batch of 8. It fails on any section's error or
+     skip, a headline or row that is not finite and positive, memory left
+     allocated after a section beyond the headline instance's, or a kernel
+     the sections use (K2 bf16, int8_weights and int8_cache, K1, K3, K4)
+     launched no time; the bench's last line is printed.
+Before each path of phases 7-16 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum the runs of phases 7-12, of
-phase 14's world of one, phase 15 and phase 11's tools. Every UnivNet
+phase 14's world of one, phase 15, phase 11's tools and phase 16. Every UnivNet
 forward of those paths launches K4
 12 times, and K4's plain version never runs on the card there.
 
@@ -194,6 +212,9 @@ K2_ROW_REL_BOUND = 0.02
 # K3: bf16 output of a softmax-weighted mean of O(1) values; both round the
 # weights to bf16, the kernel before normalising them, the plain version after
 K3_ABS_BOUND = 0.02
+# (frames, valid frames) of the bench's 200-token clip: 200 latents pad to
+# the 64-latent bucket (256), which is 1114 output frames, 870 of them valid
+K3_BENCH_FRAMES = (256 * 4 * 24000 // 22050, 200 * 4 * 24000 // 22050)
 # fused vs unfused decode step / flash vs einsum diffusion forward at full
 # width, bf16 model: relative to max|unfused|. With the int8 cache the
 # fused step attends to its own row unquantized and the layer stack to the
@@ -253,6 +274,15 @@ STREAM_REQUEST = ("The quick brown fox jumps over the lazy dog.", 21)
 BATCH_TEXTS = ["One sentence of a batch.", "A second, longer sentence of the same batch.",
                "And a third."]
 K2_VARIANTS = ("bf16", "int8_weights", "int8_cache", "int8_weights_int8_cache")
+# phase 3 at the bench's batches (tortoise_tpu_torch/bench.py, 200 tokens a
+# request): (variant, B, the request's text bucket) for tts_batch of 64
+# (bucket 64), quality standard's two batches of 128, quality fast with
+# int8_decode weights (96), and high_quality over the int8 cache (256, one
+# batch) with either weights; the cache is the request's, pos runs to its
+# last decode step (bench_k2_shapes)
+BENCH_TOKENS = 200
+BENCH_K2_CASES = (("bf16", 64, 64), ("bf16", 128, 32), ("int8_weights", 96, 32),
+                  ("int8_cache", 256, 32), ("int8_weights_int8_cache", 256, 32))
 K2_SOURCE = "tortoise_tpu_torch/csrc/decode_step.cu"
 K2_REPLACES = "tortoise_tpu/ops/decode_step_pallas.py:267"
 K1_NAME, K3_NAME, K4_NAME = ("decode_attention_merged", "flash_rel_attention",
@@ -396,9 +426,7 @@ def check_decode_step(record: dict) -> dict:
     pos=500, the times at B=1 (the fast path's batch)."""
     import torch
 
-    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step,
-                                                    fused_decode_step_plain, quantize_cache,
-                                                    quantize_stack, variant)
+    from tortoise_tpu_torch.ops.decode_step import quantize_cache, quantize_stack, variant
 
     L, C, H, T = 30, 1024, 16, 768
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -427,42 +455,132 @@ def check_decode_step(record: dict) -> dict:
             for cname, cache in caches.items():
                 var = variant(stacked, cache)
                 for pos in (0, 37, 500):
-                    got = fused_decode_step(stacked, x, cache, pos, H)
-                    torch.cuda.synchronize()
-                    want = fused_decode_step_plain(stacked, x, cache, pos, H)
-                    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
-                    rel = [_row_rel_err(a, w) for a, w in zip(got, want)]
-                    case = {"variant": var, "B": b, "pos": pos, "abs_err_hidden_k_v": errs,
-                            "row_rel_err_hidden_k_v": rel, "bound": K2_REL_BOUND}
-                    cases.append(case)
-                    print(f"K2 {var:24s} B={b:2d} pos={pos:3d} max|err| hidden/k/v "
-                          f"{errs[0]:.4g}/{errs[1]:.4g}/{errs[2]:.4g}, per-row rel "
-                          f"{rel[0]:.4g}/{rel[1]:.4g}/{rel[2]:.4g} (bound {K2_REL_BOUND})")
-                    if max(rel) > K2_REL_BOUND:
-                        raise AssertionError(f"K2 disagrees with its plain version: {case}")
-                    rows[var]["max_abs_err"] = max(rows[var]["max_abs_err"], max(errs))
+                    case = _k2_case(stacked, x, cache, pos, H, rows, cases)
                     if pos == 500:
-                        run = lambda: fused_decode_step(stacked, x, cache, pos, H)
-                        ms, device_ms = _time_ms(run, 20), _step_device_ms(run)
-                        plain_ms = _time_ms(
-                            lambda: fused_decode_step_plain(stacked, x, cache, pos, H), 5)
-                        bound_ms, bound_by = _k2_bound(stacked, x, cache, pos, L, C)
-                        case.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                                    bound_ms=bound_ms)
-                        print(f"K2 {var:24s} B={b:2d} pos=500: kernel {ms:.3f} ms (device "
-                              f"{device_ms:.3f}), plain {plain_ms:.3f} ms, bound "
-                              f"{bound_ms:.4f} ms")
+                        timing = _k2_timing(stacked, x, cache, pos, H, 5)
+                        case.update(timing)
                         # the batches of the fast path and ultra_fast beside the
                         # row's own time (the main path's B=96 where it runs)
-                        rows[var].update({f"b{b}_ms": ms, f"b{b}_device_ms": device_ms,
-                                          f"b{b}_bound_ms": bound_ms})
+                        rows[var].update({f"b{b}_ms": timing["ms"],
+                                          f"b{b}_device_ms": timing["device_ms"],
+                                          f"b{b}_bound_ms": timing["bound_ms"]})
                         if b == 1:
-                            rows[var].update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                                             timed_at="B=1 pos=500", library_ms=None,
-                                             library_device_ms=None, bound_ms=bound_ms,
-                                             bound_by=bound_by)
+                            rows[var].update(timing, timed_at="B=1 pos=500", library_ms=None,
+                                             library_device_ms=None)
+    check_decode_step_bench_shapes(stacks, rows, cases, rand)
     record["k2"] = cases
     return rows
+
+
+def bench_k2_shapes(text_bucket: int) -> tuple[int, int]:
+    """(cache rows T, last decode position) of a bench request of
+    BENCH_TOKENS tokens: its prompt [cond | start, text, stop pad, bucket,
+    stop | start_mel] (the longest of tts_batch's texts for bucket 64), the
+    cache padded to a multiple of 256 as the sampler pads it."""
+    from tortoise_tpu_torch import bench
+    from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
+
+    text = bench.SENTENCE if text_bucket == 32 else \
+        f"{bench.SENTENCE} Utterance number {bench.SERVE_UTTERANCES - 1}."
+    ids = len(VoiceBpeTokenizer().encode(text)) + 1
+    prompt = 1 + -(-ids // text_bucket) * text_bucket + 2 + 1
+    return -(-(prompt + BENCH_TOKENS) // 256) * 256, prompt + BENCH_TOKENS - 2
+
+
+def _bench_k2_cache(g, var: str, b: int, t: int, heads: int, layers: int, c: int) -> dict:
+    """A random cache of the bench's shape, made a layer at a time (at B=256
+    the whole bf16 cache would take 16 GB before quantizing): bf16, or its
+    rows quantized into an int8 cache as the sampler writes them."""
+    import torch
+
+    from tortoise_tpu_torch.models.gpt2 import quantize_kv_rows
+
+    int8 = var.endswith("int8_cache")
+    cache = {n: torch.empty((layers, b, t, c), dtype=torch.int8 if int8 else torch.bfloat16,
+                            device="cuda") for n in ("k", "v")}
+    if int8:
+        cache.update({f"{n}_scale": torch.empty((layers, b, heads, t), device="cuda")
+                      for n in ("k", "v")})
+    for n in ("k", "v"):
+        for l_ in range(layers):
+            rows = torch.randn((b, t, c), generator=g, device="cuda").to(torch.bfloat16)
+            if int8:
+                q, sc = quantize_kv_rows(rows, heads)
+                cache[n][l_], cache[f"{n}_scale"][l_] = q, sc.transpose(1, 2)
+            else:
+                cache[n][l_] = rows
+    return cache
+
+
+def check_decode_step_bench_shapes(stacks: dict, rows: dict, cases: list, rand) -> None:
+    """Phase 3 at BENCH_K2_CASES: each variant against its plain version at
+    pos 0, 37 and the request's last decode position, timed there (its
+    b{B}_* keys in the variant's row)."""
+    import torch
+
+    from tortoise_tpu_torch.ops.decode_step import variant
+
+    L, C, H = 30, 1024, 16
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for var, b, bucket in BENCH_K2_CASES:
+        t, last = bench_k2_shapes(bucket)
+        stacked = stacks["int8" if var.startswith("int8_weights") else "bf16"]
+        cache = _bench_k2_cache(g, var, b, t, H, L, C)
+        x = rand(b, C)
+        assert variant(stacked, cache) == var
+        for pos in (0, 37, last):
+            case = _k2_case(stacked, x, cache, pos, H, rows, cases, bench=True)
+        timing = _k2_timing(stacked, x, cache, last, H, 3)
+        case.update(timing)
+        rows[var].update({f"b{b}_{k}": timing[k]
+                          for k in ("ms", "device_ms", "plain_ms", "bound_ms")})
+        del cache
+        torch.cuda.empty_cache()
+
+
+def _k2_case(stacked, x, cache, pos, heads, rows, cases, **extra) -> dict:
+    """One K2 step against its plain version: appends and returns the case
+    (each output's max abs and per-row relative error), raises past
+    K2_REL_BOUND, keeps the variant row's worst abs error."""
+    import torch
+
+    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step,
+                                                    fused_decode_step_plain, variant)
+
+    var, (_, b, t, _) = variant(stacked, cache), cache["k"].shape
+    got = fused_decode_step(stacked, x, cache, pos, heads)
+    torch.cuda.synchronize()
+    want = fused_decode_step_plain(stacked, x, cache, pos, heads)
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+    rel = [_row_rel_err(a, w) for a, w in zip(got, want)]
+    case = {"variant": var, "B": b, "T": t, "pos": pos, "abs_err_hidden_k_v": errs,
+            "row_rel_err_hidden_k_v": rel, "bound": K2_REL_BOUND, **extra}
+    cases.append(case)
+    print(f"K2 {var:24s} B={b:3d} T={t} pos={pos:3d} max|err| hidden/k/v "
+          f"{errs[0]:.4g}/{errs[1]:.4g}/{errs[2]:.4g}, per-row rel "
+          f"{rel[0]:.4g}/{rel[1]:.4g}/{rel[2]:.4g} (bound {K2_REL_BOUND})")
+    if max(rel) > K2_REL_BOUND:
+        raise AssertionError(f"K2 disagrees with its plain version: {case}")
+    rows[var]["max_abs_err"] = max(rows[var]["max_abs_err"], max(errs))
+    return case
+
+
+def _k2_timing(stacked, x, cache, pos, heads, plain_reps: int) -> dict:
+    """K2's event and device ms of one step at ``pos``, its plain version's
+    ms over ``plain_reps`` runs, and its bound."""
+    from tortoise_tpu_torch.ops.decode_step import (fused_decode_step,
+                                                    fused_decode_step_plain, variant)
+
+    layers, b, _, c = cache["k"].shape
+    run = lambda: fused_decode_step(stacked, x, cache, pos, heads)
+    ms, device_ms = _time_ms(run, 20), _step_device_ms(run)
+    plain_ms = _time_ms(lambda: fused_decode_step_plain(stacked, x, cache, pos, heads),
+                        plain_reps)
+    bound_ms, bound_by = _k2_bound(stacked, x, cache, pos, layers, c)
+    print(f"K2 {variant(stacked, cache):24s} B={b:3d} pos={pos}: kernel {ms:.3f} ms (device "
+          f"{device_ms:.3f}), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _k2_bound(stacked, x, cache, pos, layers, c):
@@ -492,11 +610,16 @@ def check_flash_attention(record: dict) -> dict:
     H, D = 16, 64
     g = torch.Generator(device="cuda").manual_seed(1)
     cases, worst, row = [], 0.0, {}
-    for B, t in ((2, 256), (2, 2229), (1, 256), (1, 2229)):
+    # (B, T, valid lengths): T - 5 and 3T/4 apart, and the bench's clip,
+    # whose CFG rows share its valid length
+    t_bench, n_bench = K3_BENCH_FRAMES
+    for B, t, lens in ((2, 256, None), (2, 2229, None), (1, 256, None), (1, 2229, None),
+                       (2, t_bench, [n_bench] * 2), (1, t_bench, [n_bench])):
         q, k, v = (torch.randn((B, H, t, D), generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         bias = torch.randn((H, 2 * t - 1), generator=g, device="cuda").to(torch.bfloat16).float()
-        valid = torch.tensor([t - 5, (3 * t) // 4][:B], dtype=torch.int32, device="cuda")
+        valid = torch.tensor(lens or [t - 5, (3 * t) // 4][:B], dtype=torch.int32,
+                             device="cuda")
         got = flash_rel_attention(q, k, v, bias, valid)
         torch.cuda.synchronize()
         want = flash_rel_attention_plain(q, k, v, bias, valid)
@@ -531,16 +654,19 @@ def check_flash_attention(record: dict) -> dict:
         if err > K3_ABS_BOUND:
             raise AssertionError(f"K3 disagrees with its plain version at B={B} T={t}: {err}")
         worst = max(worst, err)
+        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "device_ms": device_ms, "library_device_ms": library_device_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
         if t == 2229:
-            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                      "device_ms": device_ms, "library_device_ms": library_device_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
             row.update(timing if B == 2 else {f"b1_{k_}": x for k_, x in timing.items()})
+        elif t == t_bench:
+            row.update({f"b{B}_t{t}_{k_}": x for k_, x in timing.items()})
     record["k3"] = cases
     return {"name": K3_NAME, "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/flash_rel_attn.cu",
             "replaces": "tortoise_tpu/ops/attn_pallas.py:89",
-            "max_abs_err": worst, "timed_at": "B=2 T=2229 (b1_*: B=1 T=2229)", **row}
+            "max_abs_err": worst, "timed_at": f"B=2 T=2229 (b1_*: B=1 T=2229; b1_t{t_bench}_*, "
+                                              f"b2_t{t_bench}_*: the bench's clip)", **row}
 
 
 def check_lvc(record: dict) -> dict:
@@ -2883,6 +3009,106 @@ def run_serving_and_rest(record: dict, launches: Launches) -> None:
         print(f"phase 15 {part}: {record['phase15_s'][part]:.1f} s")
 
 
+# phase 16: the bench's sections with one timed run each (its Runs, every
+# field 1) after each one's warm-up, at BENCH_TOKENS tokens a request.
+# The kernels the sections launch: K2 in the variants they run (bf16: the
+# headline, the ladder and tts_batch; int8_weights: int8_decode; int8_cache:
+# high_quality over the int8 cache), K1 (fused_ab's rows with K2 off), K3
+# and K4 (every quality request)
+BENCH_KERNELS = (_k2_row_name("bf16"), _k2_row_name("int8_weights"),
+                 _k2_row_name("int8_cache"), K1_NAME, K3_NAME, K4_NAME)
+# a section's instances are dropped before the next: the memory left
+# allocated after each stays within this of the headline instance's, GB
+BENCH_MEMORY_SLACK_GB = 0.5
+# the AR batch of each quality row: the picker's on an 80 GB card (128,
+# 256 with the int8 cache), which it gets only if this process has freed
+# its cached memory before the child starts
+BENCH_AR_BATCHES = {"ultra_fast": 128, "fast": 128, "standard": 128, "fast_int8_decode": 128,
+                    "high_quality_int8kv": 256}
+BENCH_TIMEOUT = 900
+
+
+def bench_worker() -> int:
+    """Phase 16 in a process of its own (``chip_smoke.py --bench-worker``):
+    the bench's headline and every section of tortoise_tpu_torch/bench.py
+    through its section functions, one timed run each, the launch counters
+    set to 0 before and read after. Prints the bench's line, then one JSON
+    line {"line", "launches"}."""
+    import torch
+
+    from tortoise_tpu_torch import bench
+    from tortoise_tpu_torch.api_fast import TextToSpeechFast
+
+    launches = Launches()
+    launches.reset()
+    t0 = time.perf_counter()
+    tts = TextToSpeechFast(dtype=torch.bfloat16, device="cuda")
+    ctx = bench.Context(tts, "cuda", BENCH_TOKENS, bench.Runs(*[1] * 8))
+    detail = bench.measure_headline(ctx, t0)
+    bench.run_sections(detail, ctx)
+    ctx.emit()
+    line = {"metric": "fast_preset_rtf", "value": ctx.headline_rtf, "detail": detail}
+    print(json.dumps({"line": line, "launches": launches.read()}))
+    return 0
+
+
+def run_bench_phase(record: dict, launches: Launches) -> None:
+    """Phase 16: bench_worker in a process of its own (its memory and
+    timings its own), after every other phase. Fails on a section's error
+    or skip, a headline that is not finite and positive, a row without a
+    finite positive rtf, memory that piles up between sections, or a kernel
+    of BENCH_KERNELS that did not launch; adds its launches to the totals."""
+    import math
+    import subprocess
+
+    import torch
+
+    from tortoise_tpu_torch import bench
+
+    print("--- phase 16: python3 -m tortoise_tpu_torch.bench's sections, one run each")
+    # the child's batch picker reads the card's free memory: this process's
+    # cached blocks go back to the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                 "reserved": torch.cuda.memory_reserved() / 1e9}
+    print(f"this process holds {json.dumps(parent_gb)} GB")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--bench-worker"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(run.stdout[-6000:])
+    if run.returncode:
+        raise AssertionError(f"phase 16 exited {run.returncode}: {run.stderr[-3000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    line, counts = res["line"], res["launches"]
+    detail = line["detail"]
+    record["bench"] = {"line": line, "launches": counts, "wall_s": wall, "parent_gb": parent_gb}
+    print("bench line", json.dumps(line))
+    print(f"phase 16 in {wall:.1f} s; launches {json.dumps(counts)}")
+    errors = {k: v for k, v in detail.items() if k.endswith("_error")}
+    if errors or detail["sections_skipped"] or \
+            tuple(detail["section_times_s"]) != tuple(name for name, *_ in bench.SECTIONS):
+        raise AssertionError(f"phase 16: errors {errors}, skipped "
+                             f"{detail['sections_skipped']}, ran {detail['section_times_s']}")
+    ladder = detail["quality_ladder"]
+    rtfs = [line["value"], *(r["rtf"] for r in ladder.values()),
+            detail["long_form_high_quality"]["rtf"], detail["fast_int8_decode"]["rtf"],
+            *(r["rtf"] for r in detail["fused_ab"]["fast_b1"].values())]
+    if not all(math.isfinite(x) and x > 0 for x in rtfs) or len(ladder) != 5:
+        raise AssertionError(f"phase 16: rtfs {rtfs}, ladder {sorted(ladder)}")
+    batches = {k: r["ar_batch"] for k, r in ladder.items()}
+    if batches != BENCH_AR_BATCHES:
+        raise AssertionError(f"phase 16: AR batches {batches}, not {BENCH_AR_BATCHES}")
+    mem = detail["memory_allocated_gb"]
+    if max(mem.values()) > mem["headline"] + BENCH_MEMORY_SLACK_GB:
+        raise AssertionError(f"phase 16: memory piles up between sections: {mem}")
+    missing = [k for k in BENCH_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 16: {missing} never launched: {counts}")
+    launches.add(counts)
+
+
 def serving_walls() -> int:
     """``--serving-walls [--root DIR]``: phases 7-10's requests alone, on
     the package at PACKAGE_ROOT; one JSON line of their walls."""
@@ -2998,6 +3224,7 @@ def main() -> int:
     run_serving_and_rest(record, launches)
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
+    run_bench_phase(record, launches)
 
     rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows
     for row in rows:
@@ -3030,4 +3257,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-worker"]:
         sys.exit(mesh_worker())
+    if sys.argv[1:] == ["--bench-worker"]:
+        sys.exit(bench_worker())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

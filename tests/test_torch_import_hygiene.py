@@ -93,7 +93,19 @@ def test_the_walk_finds_the_port():
             "tortoise_tpu_torch.tools.profile_diffusion_step",
             "tortoise_tpu_torch.tools.fetch_weights", "tortoise_tpu_torch.tools.import_voice_pack",
             "tortoise_tpu_torch.tools.make_demo_voices",
-            "tortoise_tpu_torch.tools.convert_tokenizer"} <= set(MODULES)
+            "tortoise_tpu_torch.tools.convert_tokenizer",
+            "tortoise_tpu_torch.bench"} <= set(MODULES)
+
+
+def test_port_bench_does_not_import_the_root_bench():
+    """The root bench.py is the JAX package's program: the port's bench keeps
+    its own copies of its constants."""
+    proc = run_without_jax("""
+        import sys
+        import tortoise_tpu_torch.bench
+        assert "bench" not in sys.modules, sorted(sys.modules)
+    """)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("module", MODULES)

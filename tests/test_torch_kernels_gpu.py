@@ -154,12 +154,13 @@ def _k2_inputs(g, dev, kind, L, b, C, H, T):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bf16", "int8_weights", "int8_cache",
                                   "int8_weights_int8_cache"])
-@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 17, 96, 128])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16, 17, 96, 128, 129, 256])
 def test_decode_step_kernel_edges(cuda, kind, b):
     """The batch tail of the products' n side and the block's batch tile
-    (B up to 128), and prefixes of 0, 1, 63, 64, 65, 255 and T-1 rows:
-    shorter than one 64-row stage, at its edge, ending inside a split and
-    at a split boundary of the plan."""
+    (128 rows; 129 and 256 loop over two tiles, 256 being the int8 cache's
+    quality batch, b x heads = 4096 attention blocks), and prefixes of 0,
+    1, 63, 64, 65, 255 and T-1 rows: shorter than one 64-row stage, at its
+    edge, ending inside a split and at a split boundary of the plan."""
     from tortoise_tpu_torch.ops.decode_step import plan_step
 
     L, C, H, T = 2, 1024, 16, K2_EDGE_T

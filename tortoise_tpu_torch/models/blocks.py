@@ -59,6 +59,15 @@ class GroupNorm32(nn.Module):
         return ((xn * scale + bias) * m).to(x.dtype)
 
 
+def attention_logits(q, k):
+    """Logits (B, H, T, S) float32 of q (B, T, H, ch) and k (B, S, H, ch),
+    each scaled by ch^-1/4 first. The JAX block's scale is a numpy scalar,
+    which promotes q and k to float32 before the product: a type rule of
+    JAX's, so the serving models follow it too."""
+    scale = 1.0 / np.sqrt(np.sqrt(q.shape[-1]))
+    return torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float() * scale)
+
+
 class AttentionBlock(nn.Module):
     """Self-attention over time with the diffusion-codebase head layout
     (per-head [q|k|v] channel interleave), 1/sqrt(sqrt(d)) applied to q and k,
@@ -103,12 +112,7 @@ class AttentionBlock(nn.Module):
                 v.transpose(1, 2).contiguous(), rel_bias.float().contiguous(), lens)
             out = o.transpose(1, 2).reshape(b, t, c)
         else:
-            scale = 1.0 / np.sqrt(np.sqrt(ch))
-            if self.dtype is None:      # the serving models: q and k scaled in their dtype
-                q, k = (q * scale).float(), (k * scale).float()
-            else:                       # the JAX block's numpy scale promotes them to float32
-                q, k = q.float() * scale, k.float() * scale
-            logits = torch.einsum("bthd,bshd->bhts", q, k)
+            logits = attention_logits(q, k)
             if rel_bias is not None:
                 logits = logits + attn_ops.expand_rel_bias(rel_bias.float(), t)[None]
             if valid_mask is not None:

@@ -56,15 +56,13 @@ class GPT2Config:
     quant_weights: bool = False
 
 
-def gelu_new(x, dtype: torch.dtype | None = None):
-    """HF "gelu_new": the tanh approximation GPT-2 uses. With a compute
-    ``dtype`` as the JAX package's rounds it: x^3 as two products, the numpy
-    constant promoting the tanh's argument, and so the result, to float32;
-    None: the serving models', in x's dtype throughout."""
-    if dtype is None:
-        return 0.5 * x * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x ** 3)))
-    inner = np.sqrt(2.0 / np.pi) * (x + 0.044715 * (x * (x * x))).float()
-    return 0.5 * x * (1.0 + torch.tanh(inner))
+def gelu_new(x):
+    """HF "gelu_new": the tanh approximation GPT-2 uses, rounded as the JAX
+    package's: x^3 as two products and the Python constant in x's dtype,
+    then the numpy constant promotes the tanh's argument, and so the result,
+    to float32 (a type rule of JAX's, so the serving models follow it too)."""
+    cubic = torch.tensor(0.044715, dtype=x.dtype) * (x * (x * x))
+    return 0.5 * x * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + cubic).float()))
 
 
 def _dense(cfg: GPT2Config, in_f: int, out_f: int, lead: tuple, dtype):
@@ -210,7 +208,7 @@ class GPT2Stack(nn.Module):
         x = x + self._row(blk.attn.c_proj, self._attend(q, k, v, cache, l, cache_index), l,
                           dtype)
         h = self._ln(blk.ln_2, x, l).to(dtype)
-        return x + self._row(blk.mlp_proj, gelu_new(self._column(blk.mlp_fc, h, l), self.dtype),
+        return x + self._row(blk.mlp_proj, gelu_new(self._column(blk.mlp_fc, h, l)),
                              l, dtype)
 
     def forward(self, emb, cache=None, cache_index: int = 0):

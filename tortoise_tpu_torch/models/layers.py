@@ -19,7 +19,10 @@ place. A tensor already in the compute dtype is used as it is.
 A module built with a ``dtype`` rounds where the JAX module does: a dense's
 product rounds before its bias is added, ``silu`` and ``gelu`` round after
 each of jax.nn's ops. The serving models (``dtype=None``) keep the fused
-ops, each rounding once, that they were served with.
+ops, each rounding once: where XLA rounds there differs by backend, and
+splitting them would add launches to the diffusion loop. JAX's type
+promotions hold on every backend, so both paths follow them
+(``gpt2.gelu_new``, ``blocks.attention_logits``).
 """
 from __future__ import annotations
 
