@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (nothing falls back):
   1. refuse to run without CUDA; print the card and its power limit;
   2. build the hand-written kernels from tortoise_tpu_torch/csrc, one nvcc
-     per source, all at once;
+     per source, all at once, and print K1's registers, shared memory and
+     spills (nvcc -Xptxas -v);
   3. K2 (whole GPT-2 decode step), each of its four variants (bf16 or int8
      weights x bf16 or int8 cache), against its plain PyTorch version at
      full width: L=30, C=1024, H=16, B in {1, 16}, pos in {0, 37, 500},
@@ -28,10 +29,13 @@ Phases, each of which raises on failure (nothing falls back):
      predictor's frames-innermost layout and with each frame's block
      contiguous; a line per hop with its share of its bound;
   6. K1 (one layer's decode attention with the row write) against its
-     plain version and scaled_dot_product_attention at L=30, C=1024, H=16,
-     T=768, B in {1, 8, 16, 96} (8: a dp=2 rank's rows in phase 14), pos
-     in {0, 37, 500, 767}, over bf16 and f32 caches: the row write
-     bit-exact, every other row untouched;
+     plain version at L=30, C=1024, H=16, T=768, B in {1, 8, 16, 64, 96}
+     (8: a dp=2 rank's rows in phase 14; 64: the bench's tts_batch with K2
+     off), pos in {0, 37, 500, 767}, over bf16 and f32 caches: the row
+     write bit-exact, every other row untouched; timed at pos=500 beside
+     its plain version and the row write plus scaled_dot_product_attention,
+     warm (every call on one layer) and cold (each call the next of the 30
+     layers, so none finds its slice in L2, as in the decode);
   7. the full-width TextToSpeech (seeded random weights, voice
      train_dotrice): K2 at the fast request's shapes (96 candidates, the
      last decode position) over a bf16 cache and over an int8 cache, and
@@ -69,6 +73,8 @@ Phases, each of which raises on failure (nothing falls back):
      section; its per-layer decode runs K1), whose torch.profiler passes
      come after every timing of the process, each tool checking its
      kernels again (TOOL_RUNS lists each one's arguments and cuts); then
+     one K1 call at B=1 and at B=16 under torch.profiler, which must run
+     exactly one device kernel; then
      profile_diffusion_step in a process of its own (K3 and the dense
      form at B=1 and 2, T=896 and 2229: host, event and busy ms a step);
  12. the quality API's remaining paths, at full width with seeded random
@@ -151,7 +157,8 @@ Phases, each of which raises on failure (nothing falls back):
      launched no time; the bench's last line is printed.
 Before each path of phases 7-16 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum the runs of phases 7-12, of
-phase 14's world of one, phase 15, phase 11's tools and phase 16. Every UnivNet
+phase 14's world of one, phase 15, phase 11's tools and phase 16, and the
+record keeps each path's counts apart (K1's are printed). Every UnivNet
 forward of those paths launches K4
 12 times, and K4's plain version never runs on the card there.
 
@@ -164,6 +171,16 @@ this one by default, and prints one JSON line of their walls, each
 request's wall beside a digest of its sampled codes and of its audio. Run
 on two checkouts in one call, in the order A, B, B, A, it compares their
 serving walls and outputs on one card.
+
+    python3 chip_smoke.py --k1-ab [--root DIR]
+
+times K1 on the package at DIR at every shape its per-layer decode runs
+(C=1024 at B in {1, 8, 16, 64, 96}, a tp=2 rank's C=512 at B in {8, 16},
+pos=500, T=768, three q/cache type pairs), warm and cold, beside row write
++ SDPA; its host microseconds a call by piece at B=1 and 16; and the
+requests whose decode runs it (quality ultra_fast over the f32 cache, the
+bench's fast path and tts_batch of 64 with gpt_fused_step=False), and
+prints one JSON line. Run on two checkouts in one call (A, B, B, A).
 
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel and K2 variant, and {"ok": true, "device": {...}}. The full
@@ -757,21 +774,76 @@ def _k1_inputs(g, b, c, q_dtype):
     return qkv.split(c, dim=-1)   # q, k_new, v_new: views, rows 3C apart
 
 
-def check_decode_attention_merged(record: dict, C: int = 1024, H: int = 16,
-                                  batches: tuple = (1, 8, 16, 96), key: str = "k1") -> dict:
-    """K1 against its plain version at full width over bf16 and f32 caches:
-    every (batch row, head) within its bound, the row write bit-exact and
-    every other row untouched (the whole cache equals the plain version's
-    after each call). Timed at pos=500 beside the plain version and the row
-    write plus scaled_dot_product_attention over the strided prefix views;
-    the row's numbers are B=16, pos=500, bf16 cache. ``C`` and ``H`` are
-    one rank's channels and heads (phase 14 checks tp=2's half)."""
+def _cycled(fn, layers: int):
+    """A callable that calls ``fn(layer)`` with the next of ``layers``
+    layers each time: each call reads a layer slice no call of the last
+    layers - 1 read, so it finds none of it in L2, as the decode's layer
+    loop does."""
+    it = itertools.cycle(range(layers))
+    return lambda: fn(next(it))
+
+
+def k1_times(kernel, plain, q, kn, vn, cache, plain_cache, pos: int, heads: int,
+             layer: int) -> dict:
+    """K1 at one shape: event and device ms warm (every call on ``layer``)
+    and cold (``_cycled`` over the cache's layers), beside its plain version
+    and the row write plus scaled_dot_product_attention over the strided
+    prefix views (the library yardstick, warm and cold), and its bound.
+    ``kernel`` and ``plain`` are the wrapper and plain version of the
+    package under test. Every timed call writes the same k/v row at pos of
+    the layer it takes; afterwards ``plain_cache`` gets those rows too, so
+    the two caches stay equal."""
     import torch
     import torch.nn.functional as F
 
+    L, b, _, c = cache["k"].shape
+    dh = c // heads
+    c_dtype = cache["k"].dtype
+
+    def k1(l):
+        return kernel(q, kn, vn, cache["k"], cache["v"], l, pos, heads=heads)
+
+    def plain_at(l):
+        return plain(q, kn, vn, plain_cache["k"], plain_cache["v"], l, pos, heads=heads)
+
+    def sdpa(l):
+        kc, vc = cache["k"][l], cache["v"][l]
+        kc[:, pos], vc[:, pos] = kn.to(c_dtype), vn.to(c_dtype)
+        view = lambda t_: t_[:, :pos + 1].view(b, pos + 1, heads, dh).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.to(c_dtype).reshape(b, heads, 1, dh), view(kc),
+                                              view(vc))
+
+    warm = lambda fn: lambda: fn(layer)
+    t = {"ms_warm": _time_ms(warm(k1), 20), "device_ms_warm": _device_ms(warm(k1), 20),
+         "library_ms_warm": _time_ms(warm(sdpa), 20),
+         "library_device_ms_warm": _device_ms(warm(sdpa), 20),
+         "ms": _time_ms(_cycled(k1, L), 2 * L), "device_ms": _device_ms(_cycled(k1, L), 2 * L),
+         "library_ms": _time_ms(_cycled(sdpa, L), 2 * L),
+         "library_device_ms": _device_ms(_cycled(sdpa, L), 2 * L),
+         "plain_ms": _time_ms(_cycled(plain_at, L), 5)}
+    for n, new in (("k", kn), ("v", vn)):
+        plain_cache[n][:, :, pos] = new.to(c_dtype)
+    t["bound_ms"], t["bound_by"] = _bound(
+        _nbytes(q, kn, vn) + q.numel() * q.element_size()
+        + 2 * b * (pos + 1) * c * cache["k"].element_size(), 4 * b * (pos + 1) * c, "f32")
+    t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    return t
+
+
+def check_decode_attention_merged(record: dict, C: int = 1024, H: int = 16,
+                                  batches: tuple = (1, 8, 16, 64, 96), key: str = "k1") -> dict:
+    """K1 against its plain version at full width over bf16 and f32 caches:
+    every (batch row, head) within its bound, the row write bit-exact and
+    every other row untouched (the whole cache equals the plain version's
+    after each call). Timed at pos=500 (``k1_times``), warm and with a cold
+    L2; the row's numbers are the cold ones at B=16, pos=500, bf16 cache.
+    ``C`` and ``H`` are one rank's channels and heads (phase 14 checks
+    tp=2's half)."""
+    import torch
+
     from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
 
-    L, T, layer, dh = 30, 768, 7, 64
+    L, T, layer = 30, 768, 7
     g = torch.Generator(device="cuda").manual_seed(5)
     cases, row, worst = [], None, 0.0
     for q_dtype, c_dtype, bound in ((torch.bfloat16, torch.bfloat16, K1_BF16_BOUND),
@@ -796,28 +868,15 @@ def check_decode_attention_merged(record: dict, C: int = 1024, H: int = 16,
                         "head_rel_err": err, "max_abs_err": abs_err, "bound": bound,
                         "cache_equal": exact}
                 if pos == 500:
-                    def sdpa():
-                        kc, vc = cache["k"][layer], cache["v"][layer]
-                        kc[:, pos], vc[:, pos] = kn.to(c_dtype), vn.to(c_dtype)
-                        view = lambda t_: t_[:, :pos + 1].view(b, pos + 1, H, dh).transpose(1, 2)
-                        return F.scaled_dot_product_attention(
-                            q.to(c_dtype).reshape(b, H, 1, dh), view(kc), view(vc))
-                    case["ms"] = _time_ms(lambda: decode_attention_merged(
-                        q, kn, vn, cache["k"], cache["v"], layer, pos, heads=H), 20)
-                    case["plain_ms"] = _time_ms(lambda: decode_attention_merged_plain(
-                        q, kn, vn, plain["k"], plain["v"], layer, pos, heads=H), 5)
-                    case["library_ms"] = _time_ms(sdpa, 20)
-                    case["device_ms"] = _device_ms(lambda: decode_attention_merged(
-                        q, kn, vn, cache["k"], cache["v"], layer, pos, heads=H), 20)
-                    case["library_device_ms"] = _device_ms(sdpa, 20)
-                    case["bound_ms"], case["bound_by"] = _bound(
-                        _nbytes(q, kn, vn, got) + 2 * b * (pos + 1) * C * cache["k"].element_size(),
-                        4 * b * (pos + 1) * C, "f32")
-                    print(f"K1 {what} B={b:2d} pos=500: kernel {case['ms']:.4f} ms (device "
-                          f"{case['device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, row write "
-                          f"+ SDPA {case['library_ms']:.4f} ms (device "
-                          f"{case['library_device_ms']:.4f}), bound {case['bound_ms']:.4f} ms "
-                          f"({case['bound_by']})")
+                    case.update(k1_times(decode_attention_merged, decode_attention_merged_plain,
+                                         q, kn, vn, cache, plain, pos, H, layer))
+                    print(f"K1 {what} B={b:2d} pos=500: cold event {case['ms']:.4f} ms, device "
+                          f"{case['device_ms']:.4f} ({case['share_of_bound']:.0%} of the bound "
+                          f"{case['bound_ms']:.4f}, {case['bound_by']}); warm event "
+                          f"{case['ms_warm']:.4f}, device {case['device_ms_warm']:.4f}; row "
+                          f"write + SDPA cold {case['library_ms']:.4f} / "
+                          f"{case['library_device_ms']:.4f}, warm {case['library_ms_warm']:.4f} "
+                          f"/ {case['library_device_ms_warm']:.4f}; plain {case['plain_ms']:.4f}")
                     if b == 16 and c_dtype == torch.bfloat16:
                         row = {k_: case[k_] for k_ in ("ms", "plain_ms", "library_ms",
                                                         "device_ms", "library_device_ms",
@@ -834,7 +893,40 @@ def check_decode_attention_merged(record: dict, C: int = 1024, H: int = 16,
     return {"name": K1_NAME, "route": "cuda",
             "source": "tortoise_tpu_torch/csrc/decode_attn_merged.cu",
             "replaces": "tortoise_tpu/ops/attn_pallas.py:215", "max_abs_err": worst,
-            "timed_at": f"B=16 pos=500 T=768 C={C} H={H} bf16 cache", **row}
+            "timed_at": f"B=16 pos=500 T=768 C={C} H={H} bf16 cache, cold L2", **row}
+
+
+def check_k1_one_kernel(record: dict) -> None:
+    """One K1 call under torch.profiler at B=1 and B=16 (full width, T=768,
+    pos=500, bf16): the call must run exactly one device kernel, K1's. Runs
+    after every timing of the process (a profiler session slows the
+    launches after it) and before profile_diffusion_step's process: after
+    that process, a window of this one recorded no device event at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged
+    from tortoise_tpu_torch.utils.profiling import device_events
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    seen = {}
+    for b in (1, 16):
+        cache = {n: torch.randn((2, b, 768, 1024), generator=g, device="cuda").to(torch.bfloat16)
+                 for n in "kv"}
+        q, kn, vn = _k1_inputs(g, b, 1024, torch.bfloat16)
+        call = lambda: decode_attention_merged(q, kn, vn, cache["k"], cache["v"], 1, 500,
+                                               heads=16)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        seen[b] = [e["name"] for e in device_events(prof)]
+        print(f"K1 one call under the profiler, B={b}: device kernels {seen[b]}")
+    record["k1_device_kernels_a_call"] = seen
+    if any(len(names) != 1 or "decode_attn_merged_kernel" not in names[0]
+           for names in seen.values()):
+        raise AssertionError(f"a K1 call must run exactly one device kernel, K1's: {seen}")
 
 
 def _head_rel_err(got, want, heads: int) -> float:
@@ -1221,6 +1313,7 @@ class Launches:
         self.total = {name(v): 0 for fn, name in self.by_variant.items()
                       for v in fn.launches_by_variant}
         self.total.update(dict.fromkeys(self.single, 0))
+        self.by_path: dict[str, dict] = {}
         self.lvc_plain_on_cuda = 0
         plain = lvc.location_variable_convolution_lvc_plain
 
@@ -1247,9 +1340,12 @@ class Launches:
                                  f"{self.lvc_plain_on_cuda} times on a main path")
         return counts
 
-    def add(self, counts: dict):
+    def add(self, counts: dict, path: str):
+        """Adds a path's counts to the totals and to ``by_path[path]``."""
+        mine = self.by_path.setdefault(path, dict.fromkeys(self.total, 0))
         for k, n in counts.items():
             self.total[k] += n
+            mine[k] += n
 
 
 def check_tool_kernels(record: dict) -> list[dict]:
@@ -1333,8 +1429,9 @@ def run_tools(record: dict, launches: Launches) -> None:
     (bench_fused_decode_step's first step, check_fused_exactness's
     decisive agreement 1.0 over both caches), K2
     in bench_fused_ab's "on" requests only, finite audio, every section of
-    profile_ar_step timed; then profile_diffusion_step in a process of its
-    own."""
+    profile_ar_step timed; then one K1 call under the profiler
+    (``check_k1_one_kernel``) and profile_diffusion_step in a process of
+    its own."""
     import importlib
     import math
 
@@ -1385,9 +1482,10 @@ def run_tools(record: dict, launches: Launches) -> None:
             if not all(math.isfinite(r["device_ms"]) and r["device_ms"] > 0 for r in timed):
                 raise AssertionError(f"profile_ar_step: a section was not timed: {secs}")
     counts = launches.read()
-    launches.add(counts)
+    launches.add(counts, "run_tools")
     record["tools_launches"] = counts
     print("tools path launches", json.dumps(counts))
+    check_k1_one_kernel(record)
     _profile_diffusion_step(record)
 
 
@@ -1486,7 +1584,7 @@ def run_pipeline(tts, clips, record: dict, launches: Launches) -> None:
             raise AssertionError(f"{preset!r} request did not launch both kernels: "
                                  f"{res['launches']}")
         results.append(res)
-    launches.add(launches.read())
+    launches.add(launches.read(), "run_pipeline")
     record["requests"] = results
 
 
@@ -1595,7 +1693,7 @@ def run_fast_path(clips, record: dict, launches: Launches) -> dict:
                                 "launches": grew_by(before),
                                 "wav_sha": [_digest(w) for w in wavs]}
         counts = launches.read()
-        launches.add(counts)
+        launches.add(counts, "run_fast_path")
         res["path_launches"] = counts
 
         # outside the counted run: the stream's chunks against the full
@@ -1644,7 +1742,7 @@ def run_quality_int8(clips, record: dict, launches: Launches) -> None:
         launches.reset()
         res, _ = _quality_request(tts, clips, preset, text, seed, launches)
         counts = launches.read()
-        launches.add(counts)
+        launches.add(counts, "run_quality_int8")
         if counts[_k2_row_name(var)] <= 0 or counts["flash_rel_attention"] <= 0:
             raise AssertionError(f"int8-cache request ({gw}) did not launch {var} and K3: "
                                  f"{counts}")
@@ -1682,7 +1780,7 @@ def run_quality_f32_cache(clips, record: dict, launches: Launches):
     launches.reset()
     res, _ = _quality_request(tts, clips, preset, text, seed, launches)
     counts = launches.read()
-    launches.add(counts)
+    launches.add(counts, "run_quality_f32_cache")
     k2 = sum(counts[_k2_row_name(v)] for v in K2_VARIANTS)
     if counts[K1_NAME] <= 0 or counts[K1_NAME] % layers or k2 or counts[K3_NAME] <= 0:
         raise AssertionError(f"f32-cache request: K1 must run in every layer of every step, K2 "
@@ -1721,7 +1819,7 @@ def run_cli(record: dict, launches: Launches) -> None:
     rc = cli.main(argv)
     wall = time.perf_counter() - t0
     counts = launches.read()
-    launches.add(counts)
+    launches.add(counts, "run_cli")
     sr, wav = wav_read(out)
     res = {"argv": argv, "rc": rc, "wall_s_with_init": wall, "sample_rate": sr,
            "samples": int(wav.shape[0]), "dtype": str(wav.dtype), "launches": counts,
@@ -2140,7 +2238,7 @@ def run_quality_api_rest(clips, record: dict, launches: Launches) -> None:
     torch.cuda.empty_cache()
     _run_quality_clis(models_dir, cpu_classifier, record)
     counts = launches.read()
-    launches.add(counts)
+    launches.add(counts, "run_quality_api_rest")
     record["phase12_launches"] = counts
     print("quality API path launches", json.dumps(counts))
     if min(counts[_k2_row_name("bf16")], counts[K3_NAME], counts[K4_NAME]) <= 0:
@@ -2763,7 +2861,7 @@ def run_mesh(clips, bf16_ref_codes, record: dict, launches: Launches) -> dict:
         launches.reset()
         res[name], _ = _quality_request(tts, clips, preset, text, seed, launches)
         counts = launches.read()
-        launches.add(counts)
+        launches.add(counts, "run_mesh")
         res[name].update(init_s=init_s, codes=tts.last_candidates)
         if min(counts[K1_NAME], counts[K3_NAME], counts[K4_NAME]) <= 0 or \
                 any(counts[_k2_row_name(v)] for v in K2_VARIANTS):
@@ -2835,7 +2933,7 @@ def _check_socket_server(record: dict, launches: Launches) -> None:
     finally:
         server.close()
         thread.join(timeout=SOCKET_TIMEOUT)
-    launches.add(launches.read())
+    launches.add(launches.read(), "_check_socket_server")
     if thread.is_alive():
         raise AssertionError("socket server: serve_forever did not return after close")
     record["phase15_socket"] = {"init_s": init_s, "utterances": rows}
@@ -2908,7 +3006,7 @@ def _check_npz_round_trip(record: dict, launches: Launches) -> None:
     with torch.inference_mode():
         got, want = loaded.inference(mel, z), direct.inference(mel, z)
     counts = launches.read()
-    launches.add(counts)
+    launches.add(counts, "_check_npz_round_trip")
     res = {"source": source, "save_s": save_s,
            "load_s": load_s, "bytes": os.path.getsize(os.path.join(models_dir, "vocoder.npz")),
            "equal": bool(torch.equal(got, want)), "launches": counts}
@@ -3106,7 +3204,7 @@ def run_bench_phase(record: dict, launches: Launches) -> None:
     missing = [k for k in BENCH_KERNELS if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"phase 16: {missing} never launched: {counts}")
-    launches.add(counts)
+    launches.add(counts, "run_bench_phase")
 
 
 def serving_walls() -> int:
@@ -3167,6 +3265,172 @@ def serving_walls() -> int:
     return 0
 
 
+# --k1-ab: K1's shapes (C, H, batches) at pos=500, T=768, L=30 (full width
+# and a tp=2 rank's), the type pairs of phase 6, the host pieces' batches
+# and calls a timing, and the bench's K2-off runs after a warm one
+K1_AB_SHAPES = ((1024, 16, (1, 8, 16, 64, 96)), (512, 8, (8, 16)))
+K1_HOST_BATCHES, K1_HOST_CALLS = (1, 16), 2000
+K1_AB_BENCH_RUNS, K1_AB_F32_REQUESTS = 3, 3
+
+
+def _host_us(fn, calls: int = K1_HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn``, the median of five runs of
+    ``calls`` calls; the device is waited on only between runs."""
+    import torch
+
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return sorted(runs)[2]
+
+
+def k1_host_pieces(attn, b: int, pos: int = 500) -> dict:
+    """K1's host microseconds a call at (B, C=1024, H=16, T=768, bf16),
+    by piece: the argument checks, the allocations, the split plan and the
+    kernel's launch (its arguments gathered and the ctypes call), beside the
+    whole wrapper. ``attn`` is the ``ops.attn`` module of the package under
+    test: a one-kernel wrapper (``k1_plan``, one output allocation) or a
+    two-kernel one (``decode_splits``, the output and a split scratch)."""
+    import torch
+
+    c, heads, t, layer = 1024, 16, 768, 1
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cache = {n: torch.randn((2, b, t, c), generator=g, device="cuda").to(torch.bfloat16)
+             for n in "kv"}
+    q, kn, vn = _k1_inputs(g, b, c, torch.bfloat16)
+    kc, vc = cache["k"], cache["v"]
+    pieces = {"checks": lambda: attn._check_k1_args(q, kn, vn, kc, vc, layer, pos, heads)}
+    if hasattr(attn, "k1_plan"):
+        group, splits = attn.k1_plan(b, heads, pos)
+        out = q.new_empty((b, c))
+        layer_bytes = layer * b * t * c * kc.element_size()
+        pieces["allocations"] = lambda: q.new_empty((b, c))
+        pieces["plan"] = lambda: attn.k1_plan(b, heads, pos)
+        pieces["launch"] = lambda: attn._K1(
+            q.get_device(), q.data_ptr(), kn.data_ptr(), vn.data_ptr(), q.stride(0),
+            kc.data_ptr() + layer_bytes, vc.data_ptr() + layer_bytes, out.data_ptr(),
+            attn._K1_KIND[q.dtype, kc.dtype], b, t, c, group, pos, splits)
+    else:
+        splits = attn.decode_splits(b * heads, pos)
+        out = torch.empty((b, c), dtype=q.dtype, device=q.device)
+        partial = torch.empty((b, heads, splits, 66), dtype=torch.float32, device=q.device)
+        pieces["allocations"] = lambda: (
+            torch.empty((b, c), dtype=q.dtype, device=q.device),
+            torch.empty((b, heads, splits, 66), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+        pieces["plan"] = lambda: attn.decode_splits(b * heads, pos)
+        pieces["launch"] = lambda: attn._K1(
+            q.get_device(), q.data_ptr(), kn.data_ptr(), vn.data_ptr(), q.stride(0),
+            kc.data_ptr(), vc.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            int(q.dtype == torch.float32), int(kc.dtype == torch.float32), 2, b, t, c, layer,
+            pos, splits)
+    res = {name: _host_us(fn) for name, fn in pieces.items()}
+    res["wrapper"] = _host_us(lambda: attn.decode_attention_merged(q, kn, vn, kc, vc, layer, pos,
+                                                                   heads=heads))
+    res["rest"] = res["wrapper"] - sum(res[k] for k in pieces)
+    res["splits"] = splits
+    return res
+
+
+def k1_ab() -> int:
+    """``--k1-ab [--root DIR]``: K1 and the requests whose decode runs it,
+    on the package at PACKAGE_ROOT; one JSON line. K1 (``k1_times``) at
+    K1_AB_SHAPES over the three type pairs, warm and cold, beside row write
+    + SDPA; its host microseconds by piece (``k1_host_pieces``); then the
+    requests with K2 off: quality ultra_fast over the f32 cache
+    (gpt_fused_step=False, K1_AB_F32_REQUESTS after a warm-up request), and
+    the bench's fast path and ``tts_batch`` of 64 with gpt_fused_step=False
+    (its runners, the median of K1_AB_BENCH_RUNS timed runs after a warm
+    one, 200 tokens). Run on two checkouts in one call, in the order A, B,
+    B, A."""
+    import torch
+
+    import tortoise_tpu_torch
+    from tortoise_tpu_torch import bench
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.api_fast import TextToSpeechFast
+    from tortoise_tpu_torch.ops import _build
+    from tortoise_tpu_torch.ops import attn
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    package = os.path.dirname(os.path.abspath(tortoise_tpu_torch.__file__))
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    if os.path.dirname(package) != PACKAGE_ROOT:
+        raise AssertionError(f"imported {package}, not the package under {PACKAGE_ROOT}")
+    sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    res = {"package": package, "nvidia_smi": _nvidia_smi(), "k1": []}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    L, T, pos, layer = 30, 768, 500, 7
+    for c, heads, batches in K1_AB_SHAPES:
+        for q_dtype, c_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.float32),
+                                 (torch.bfloat16, torch.float32)):
+            for b in batches:
+                cache = {n: torch.randn((L, b, T, c), generator=g, device="cuda").to(c_dtype)
+                         for n in "kv"}
+                plain = {n: t_.clone() for n, t_ in cache.items()}
+                q, kn, vn = _k1_inputs(g, b, c, q_dtype)
+                got = attn.decode_attention_merged(q, kn, vn, cache["k"], cache["v"], layer, pos,
+                                                   heads=heads)
+                want = attn.decode_attention_merged_plain(q, kn, vn, plain["k"], plain["v"],
+                                                          layer, pos, heads=heads)
+                err = _head_rel_err(got, want, heads)
+                if err > (K1_F32_BOUND if q_dtype == torch.float32 else K1_BF16_BOUND):
+                    raise AssertionError(f"K1 C={c} B={b} {q_dtype}/{c_dtype}: head rel err "
+                                         f"{err}")
+                case = {"C": c, "B": b, "q": str(q_dtype)[6:], "cache": str(c_dtype)[6:],
+                        "head_rel_err": err,
+                        **k1_times(attn.decode_attention_merged,
+                                   attn.decode_attention_merged_plain, q, kn, vn, cache, plain,
+                                   pos, heads, layer)}
+                res["k1"].append(case)
+                print(f"K1 C={c} B={b:2d} q {case['q']} cache {case['cache']}: cold "
+                      f"{case['ms']:.4f} / {case['device_ms']:.4f} ms "
+                      f"({case['share_of_bound']:.0%} of {case['bound_ms']:.4f}), warm "
+                      f"{case['ms_warm']:.4f} / {case['device_ms_warm']:.4f}; SDPA cold "
+                      f"{case['library_ms']:.4f} / {case['library_device_ms']:.4f}", flush=True)
+                del cache, plain
+                torch.cuda.empty_cache()
+    res["k1_host_us"] = {b: k1_host_pieces(attn, b) for b in K1_HOST_BATCHES}
+    print("K1 host us:", json.dumps(res["k1_host_us"]), flush=True)
+
+    launches = Launches()
+    clips, _ = load_voice("train_dotrice")
+    tts = TextToSpeech(device="cuda", enable_redaction=False, kv_cache_dtype="f32",
+                       gpt_fused_step=False)
+    _quality_request(tts, clips, *REQUESTS[0], launches)
+    f32 = [_quality_request(tts, clips, *REQUESTS[0], launches)[0]
+           for _ in range(K1_AB_F32_REQUESTS)]
+    res["f32_cache_s"] = [r["wall_s"] for r in f32]
+    res["f32_cache_ar_s"] = [r["stages_s"]["autoregressive"] for r in f32]
+    res["f32_cache_codes_sha"] = sorted({r["codes_sha"] for r in f32})
+    del tts
+    gc.collect()
+    torch.cuda.empty_cache()
+    fast = TextToSpeechFast(dtype=torch.bfloat16, device="cuda")
+    launches.reset()
+    for name, runner in (
+            ("fast_k2_off", bench.fast_runner(fast, BENCH_TOKENS, gpt_fused_step=False)),
+            ("tts_batch64_k2_off", bench.serve_runner(fast, bench.SERVE_UTTERANCES, BENCH_TOKENS,
+                                                      gpt_fused_step=False))):
+        rtf, p50, audio = bench._measure(runner, K1_AB_BENCH_RUNS)
+        res[name] = {"rtf": rtf, "p50_wall_s": p50, "audio_s": audio}
+        print(name, json.dumps(res[name]), flush=True)
+    counts = launches.read()
+    if counts[K1_NAME] <= 0 or any(counts[_k2_row_name(v)] for v in K2_VARIANTS):
+        raise AssertionError(f"the K2-off runs must launch K1 and no K2: {counts}")
+    res["bench_k1_launches"] = counts[K1_NAME]
+    print(json.dumps({"k1_ab": res}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3184,10 +3448,14 @@ def main() -> int:
 
     sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged", "decode_attn_kv128",
                "attn_body", "probe_ops")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        usage = pool.submit(_build.resource_usage, "decode_attn_merged")
         list(pool.map(_build.build, sources))
+        record["k1_ptxas"] = [ln.strip() for ln in usage.result().splitlines()
+                              if "Used" in ln or "spill" in ln or "entry function" in ln]
     record["build_s"] = time.perf_counter() - t_start
     print(f"built kernels in {record['build_s']:.1f} s")
+    print("K1, nvcc -Xptxas -v:\n  " + "\n  ".join(record["k1_ptxas"]))
 
     k2_rows = check_decode_step(record)
     k3_row = check_flash_attention(record)
@@ -3225,6 +3493,9 @@ def main() -> int:
     tool_rows = check_tool_kernels(record)
     run_tools(record, launches)
     run_bench_phase(record, launches)
+    record["launches_by_path"] = launches.by_path
+    print("K1 launches by path:", json.dumps({p: n[K1_NAME] for p, n in launches.by_path.items()
+                                              if n[K1_NAME]}))
 
     rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows
     for row in rows:
@@ -3259,4 +3530,6 @@ if __name__ == "__main__":
         sys.exit(mesh_worker())
     if sys.argv[1:] == ["--bench-worker"]:
         sys.exit(bench_worker())
+    if "--k1-ab" in sys.argv:
+        sys.exit(k1_ab())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from tortoise_tpu import weights as jax_weights
 from tortoise_tpu_torch.convert.from_jax import from_jax
-from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_splits
+from tortoise_tpu_torch.ops.attn import K1_MAX_SPLITS, decode_attention_merged, k1_plan
 from tortoise_tpu_torch.ops.lvc import location_variable_convolution_lvc
 
 torch.set_num_threads(2)
@@ -106,15 +106,38 @@ def test_decode_attention_merged_plain_matches_jax(dtype, tol, layer, pos):
 
 
 def test_decode_splits_cover_the_prefix():
-    """K1's split of the prefix: one split at pos 0 and where B x H fills
-    the card, 17 at B=1 (16 heads), none empty, each at least 32 rows."""
-    assert decode_splits(16, 0) == 1 and decode_splits(96 * 16, 500) == 1
-    assert decode_splits(16, 600) == 17 and decode_splits(16 * 16, 500) == 2
-    for blocks in (1, 16, 256):
+    """K1's split of the prefix (k1_plan): one split at pos 0 and where
+    B x H / G blocks fill the card, the cluster's 8 at B=1 (16 heads), none
+    empty, each at least 32 rows."""
+    assert k1_plan(1, 16, 0) == (4, 1) and k1_plan(96, 16, 500) == (4, 1)
+    assert k1_plan(1, 16, 600) == (4, K1_MAX_SPLITS) and k1_plan(16, 16, 500) == (4, 2)
+    for batch, heads in ((1, 1), (1, 16), (16, 16)):
         for pos in (1, 31, 37, 500, 767):
-            s = decode_splits(blocks, pos)
+            _, s = k1_plan(batch, heads, pos)
             chunk = -(-pos // s)
             assert (s - 1) * chunk < pos and (s == 1 or chunk >= 32)
+
+
+# (B, C, pos=500) -> (G, S): four heads a block at both widths; as many
+# splits as keep one block an SM of the 132, up to a cluster of 8
+K1_PLANS = [(1, 1024, (4, 8)), (8, 1024, (4, 4)), (16, 1024, (4, 2)), (64, 1024, (4, 1)),
+            (96, 1024, (4, 1)), (1, 512, (4, 8)), (8, 512, (4, 8)), (16, 512, (4, 4)),
+            (64, 512, (4, 1)), (96, 512, (4, 1))]
+
+
+@pytest.mark.parametrize("b,c,plan", K1_PLANS)
+def test_k1_plan_groups_and_cluster_size(b, c, plan):
+    """G and the cluster size at the decode's batches and both widths
+    (a tp=2 rank's C=512): a split grid within one block an SM, every
+    split non-empty and at least 32 rows, one split at pos 0."""
+    heads = c // 64
+    g, s = k1_plan(b, heads, 500)
+    assert (g, s) == plan
+    assert heads % g == 0 and 1 <= s <= K1_MAX_SPLITS
+    assert s == 1 or b * heads // g * s <= 132
+    chunk = -(-500 // s)
+    assert (s - 1) * chunk < 500 and (s == 1 or chunk >= 32)
+    assert k1_plan(b, heads, 0) == (g, 1)
 
 
 @pytest.fixture(scope="module")

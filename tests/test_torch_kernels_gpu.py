@@ -483,15 +483,17 @@ K1_CASES = [(torch.bfloat16, torch.bfloat16, 1e-2), (torch.float32, torch.float3
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,cache_dtype,bound", K1_CASES)
-@pytest.mark.parametrize("b", [1, 16, 96])
+@pytest.mark.parametrize("b,C", [(1, 1024), (16, 1024), (64, 1024), (96, 1024), (8, 512),
+                                 (16, 512)])
 @pytest.mark.parametrize("pos", [0, 37, 500, 767])
-def test_decode_attention_merged_kernel_matches_plain(cuda, q_dtype, cache_dtype, bound, b, pos):
-    """At the smoke's shapes (L=30, C=1024, H=16, T=768): every head within
-    its bound; the row write bit-exact, every other row of the cache
-    untouched."""
+def test_decode_attention_merged_kernel_matches_plain(cuda, q_dtype, cache_dtype, bound, b, C,
+                                                      pos):
+    """At the smoke's shapes (L=30, T=768; C=1024, H=16, and a tp=2 rank's
+    C=512, H=8): every head within its bound; the row write bit-exact,
+    every other row of the cache untouched."""
     from tortoise_tpu_torch.ops.attn import decode_attention_merged, decode_attention_merged_plain
 
-    L, C, H, T, layer = 30, 1024, 16, 768, 7
+    L, H, T, layer = 30, C // 64, 768, 7
     g = torch.Generator(device=cuda).manual_seed(pos)
     cache = {n: torch.randn((L, b, T, C), generator=g, device=cuda).to(cache_dtype) for n in "kv"}
     qkv = torch.randn((b, 3 * C), generator=g, device=cuda).to(q_dtype)

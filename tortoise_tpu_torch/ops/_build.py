@@ -77,6 +77,20 @@ def build(name: str) -> Path:
     return out
 
 
+def resource_usage(name: str) -> str:
+    """What ``ptxas -v`` reports for ``csrc/<name>.cu`` under the build's
+    flags: each kernel's registers, shared memory and spills. Compiles to a
+    throwaway object; raises on a failed compile."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *[f for f in NVCC_FLAGS if f != "-shared"], "-c", "-Xptxas", "-v",
+               "-o", os.path.join(tmp, f"{name}.o"), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu (exit {proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stderr
+
+
 def _library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it, once a process."""
     with _lock:

@@ -19,6 +19,7 @@ plain version, CUDA tensors launch the kernel (or raise).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,11 +33,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _K3 = _build.Kernel("flash_rel_attn", "tt_flash_rel_attn", [_P] * 6 + [_I] * 3)
 _K1 = _build.Kernel("decode_attn_merged", "tt_decode_attn_merged",
-                    [_P] * 3 + [_I] + [_P] * 4 + [_I] * 9)
-# K1 splits a (batch row, head)'s prefix rows over this many blocks in all
-# where B x H blocks alone would leave SMs idle (132 on an H100), down to
-# at least _MIN_SPLIT_ROWS rows a split
-_K1_TARGET_BLOCKS = 264
+                    [_P] * 3 + [_I] + [_P] * 3 + [_I] * 7)
+_K1_DTYPES = (torch.bfloat16, torch.float32)
+# the kernel's type switch: bit 0 an f32 q, bit 1 an f32 cache
+_K1_KIND = {(qd, cd): int(qd is torch.float32) | int(cd is torch.float32) << 1
+            for qd in _K1_DTYPES for cd in _K1_DTYPES}
+# K1's plan (k1_plan): the H100's SMs; a cluster's blocks at most (the
+# portable size); rows a split at least
+_SMS = 132
+K1_MAX_SPLITS = 8
 _MIN_SPLIT_ROWS = 32
 
 
@@ -146,37 +151,64 @@ def decode_attention_merged_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
     return chunked_decode_attention_merged(q, k_cache, v_cache, layer, pos, heads=heads)
 
 
-def decode_splits(blocks: int, pos: int) -> int:
-    """K1's split of the pos prefix rows: enough blocks for the card, every
-    split at least _MIN_SPLIT_ROWS rows and none empty."""
+@functools.lru_cache(maxsize=8192)
+def k1_plan(batch: int, heads: int, pos: int) -> tuple[int, int]:
+    """K1's launch plan, (group, splits): a block takes ``group`` heads of
+    one batch row (4 where the heads allow it, so each cache row is read as
+    a run of 4 x 64 values) and one of ``splits`` parts of the pos prefix
+    rows, a thread-block cluster of at most K1_MAX_SPLITS. As many splits
+    as keep the blocks within one an SM (_SMS): on the H100 fewer, longer
+    splits stream better than more, shorter ones. Each split keeps at least
+    _MIN_SPLIT_ROWS rows, none is empty, and pos 0 has one."""
+    group = 4 if heads % 4 == 0 else 2 if heads % 2 == 0 else 1
+    splits = max(1, min(K1_MAX_SPLITS, _SMS // (batch * (heads // group)),
+                        pos // _MIN_SPLIT_ROWS))
     if pos == 0:
-        return 1
-    splits = max(1, min(-(-_K1_TARGET_BLOCKS // blocks), pos // _MIN_SPLIT_ROWS))
+        return group, 1
     chunk = -(-pos // splits)
-    return -(-pos // chunk)
+    return group, -(-pos // chunk)
+
+
+def _k1_arg_error(q, k_new, v_new, k_cache, v_cache, heads) -> ValueError:
+    """The message of the first argument ``_check_k1_args`` refuses."""
+    b, c = q.shape
+    if c != heads * HEAD_DIM:
+        return ValueError(f"decode_attention_merged kernel needs a head dim of {HEAD_DIM}: "
+                          f"C={c}, heads={heads}")
+    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        if x.shape != q.shape or x.dtype not in _K1_DTYPES or x.dtype != q.dtype \
+                or x.stride() != q.stride() or x.stride(1) != 1 or x.device != q.device:
+            return ValueError(f"{name}: needs a bf16 or f32 {tuple(q.shape)} tensor with unit "
+                              f"column stride and q's dtype, strides and device, got {x.dtype} "
+                              f"{tuple(x.shape)} {x.stride()} on {x.device}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.dim() != 4 or x.shape[1] != b or x.shape[3] != c or x.shape != k_cache.shape \
+                or x.dtype not in _K1_DTYPES or x.dtype != k_cache.dtype \
+                or not x.is_contiguous() or x.device != q.device or x.data_ptr() % 16:
+            return ValueError(f"{name}: needs a contiguous, 16-byte aligned bf16 or f32 (L, {b}, "
+                              f"T, {c}) cache on {q.device} (the int8 cache's scales are not "
+                              f"K1's), got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return ValueError("decode_attention_merged: bad arguments")
 
 
 def _check_k1_args(q, k_new, v_new, k_cache, v_cache, layer, pos, heads):
-    b, c = q.shape
-    if c != heads * HEAD_DIM:
-        raise ValueError(f"decode_attention_merged kernel needs a head dim of {HEAD_DIM}: "
-                         f"C={c}, heads={heads}")
-    for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
-        if x.shape != q.shape or x.dtype not in (torch.bfloat16, torch.float32) \
-                or x.dtype != q.dtype or x.stride() != q.stride() or x.stride(1) != 1 \
-                or x.device != q.device:
-            raise ValueError(f"{name}: needs a bf16 or f32 {tuple(q.shape)} tensor with unit "
-                             f"column stride and q's dtype, strides and device, got {x.dtype} "
-                             f"{tuple(x.shape)} {x.stride()} on {x.device}")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dim() != 4 or x.shape[1] != b or x.shape[3] != c or x.shape != k_cache.shape \
-                or x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != k_cache.dtype \
-                or not x.is_contiguous() or x.device != q.device:
-            raise ValueError(f"{name}: needs a contiguous bf16 or f32 (L, {b}, T, {c}) cache on "
-                             f"{q.device} (the int8 cache's scales are not K1's), got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if not 0 <= layer < k_cache.shape[0] or not 0 <= pos < k_cache.shape[2]:
-        raise ValueError(f"layer={layer}, pos={pos} outside the cache {tuple(k_cache.shape)}")
+    """Raises ValueError unless the kernel takes these arguments: one
+    expression on the path that passes, the message built only on failure."""
+    shape, dtype, stride, dev = q.shape, q.dtype, q.stride(), q.get_device()
+    cshape, cdtype = k_cache.shape, k_cache.dtype
+    if not (len(shape) == 2 and shape[1] == heads * HEAD_DIM and stride[1] == 1
+            and dtype in _K1_DTYPES and k_new.dtype is dtype and v_new.dtype is dtype
+            and k_new.shape == shape and v_new.shape == shape
+            and k_new.stride() == stride and v_new.stride() == stride
+            and k_new.get_device() == dev and v_new.get_device() == dev
+            and len(cshape) == 4 and cshape[1] == shape[0] and cshape[3] == shape[1]
+            and v_cache.shape == cshape and cdtype in _K1_DTYPES and v_cache.dtype is cdtype
+            and k_cache.is_contiguous() and v_cache.is_contiguous()
+            and k_cache.get_device() == dev and v_cache.get_device() == dev
+            and not (k_cache.data_ptr() | v_cache.data_ptr()) & 15):
+        raise _k1_arg_error(q, k_new, v_new, k_cache, v_cache, heads)
+    if not 0 <= layer < cshape[0] or not 0 <= pos < cshape[2]:
+        raise ValueError(f"layer={layer}, pos={pos} outside the cache {tuple(cshape)}")
 
 
 def decode_attention_merged(q, k_new, v_new, k_cache, v_cache, layer: int, pos: int, *,
@@ -190,15 +222,13 @@ def decode_attention_merged(q, k_new, v_new, k_cache, v_cache, layer: int, pos: 
                                              heads=heads)
     _check_k1_args(q, k_new, v_new, k_cache, v_cache, layer, pos, heads)
     b, c = q.shape
-    lcount, _, t, _ = k_cache.shape
-    splits = decode_splits(b * heads, pos)
-    out = torch.empty((b, c), dtype=q.dtype, device=q.device)
-    partial = torch.empty((b, heads, splits, HEAD_DIM + 2), dtype=torch.float32,
-                          device=q.device) if splits > 1 else None
+    t = k_cache.shape[2]
+    group, splits = k1_plan(b, heads, pos)
+    out = q.new_empty((b, c))
+    layer_bytes = layer * b * t * c * k_cache.element_size()
     _K1(q.get_device(), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
-        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), int(q.dtype == torch.float32),
-        int(k_cache.dtype == torch.float32), lcount, b, t, c, layer, pos, splits)
+        k_cache.data_ptr() + layer_bytes, v_cache.data_ptr() + layer_bytes, out.data_ptr(),
+        _K1_KIND[q.dtype, k_cache.dtype], b, t, c, group, pos, splits)
     decode_attention_merged.launches += 1
     return out
 

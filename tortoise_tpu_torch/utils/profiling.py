@@ -95,13 +95,15 @@ FAMILIES = (
     ("split_attention_kernel<signed char", "K2 attention int8"),
     ("split_attention_kernel", "K2 attention"),
     ("row_stats_kernel", "K2 gemm"),
-    # PR 1-6's K2 kernels, so a profile of that tree reads the same families
+    # the earlier kernels (K2's before its redesign, K1's split merge), so a
+    # profile of an older tree reads the same families
+    ("merge_splits_kernel", "K1"),
     ("rows_gemm_kernel<signed char", "K2 gemm int8"),
     ("rows_gemm_kernel", "K2 gemm"),
     ("decode_attention_kernel<signed char", "K2 attention int8"),
     ("decode_attention_kernel", "K2 attention"),
     ("flash_rel_attn_kernel", "K3"),
-    ("decode_attn_merged_kernel", "K1"), ("merge_splits_kernel", "K1"),
+    ("decode_attn_merged_kernel", "K1"),
     ("lvc_kernel", "K4"),
     ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
     ("cudnn", "cuBLAS/cuDNN"), ("conv", "cuBLAS/cuDNN"),
