@@ -74,7 +74,12 @@ Phases, each of which raises on failure (nothing falls back):
      come after every timing of the process, each tool checking its
      kernels again (TOOL_RUNS lists each one's arguments and cuts); then
      one K1 call at B=1 and at B=16 under torch.profiler, which must run
-     exactly one device kernel; then
+     exactly one device kernel; then the trace phase in a process of its
+     own (this script with --trace-worker): one K2 bf16 decode step at B=1,
+     one K1 call at B=16 and one K3 call at B=2, T=2229, full width, inside
+     one utils/profiling.trace block writing build/trace/*.pt.trace.json,
+     whose kernel events must hold K1, K2's products and attention and K3,
+     and its host side their launches; then
      profile_diffusion_step in a process of its own (K3 and the dense
      form at B=1 and 2, T=896 and 2229: host, event and busy ms a step);
  12. the quality API's remaining paths, at full width with seeded random
@@ -137,8 +142,10 @@ Phases, each of which raises on failure (nothing falls back):
      CLVP with use_xformers=False at the shipped widths, the card against
      the CPU module in float32 with TF32 off; a full-width UnivNet's tree
      through weights.save_params and load_weights ("native", the same
-     forward as the tree loaded directly); istft(stft(x)) against x; the
-     native crossfade against its formula; the repo tools without JAX:
+     forward as the tree loaded directly); istft(stft(x)) against x;
+     stft_magnitude(center=False) against the CPU's; the native crossfade
+     against its formula; decode(encode(t)) of the request texts against
+     their cleaned text; the repo tools without JAX:
      fetch_weights --offline over a seeded reference-layout rlg_auto.pth
      and make_demo_voices (its clips the repository's, byte for byte),
      both into build/.
@@ -333,6 +340,14 @@ TOOL_RUNS = (
 # profiler passes would slow this process's launches): B=1 and 2 at its
 # default 896 frames and at 2229 (a 500-token clip), 4 of its 16 steps
 DIFFUSION_PROFILE_ARGS = ["--tout", "896", "2229", "--steps", "4", "--batch", "1", "2"]
+# the trace phase, a process of its own (this script with --trace-worker)
+# before profile_diffusion_step's: one utils/profiling.trace block around one
+# K2 bf16 decode step (B=1, the fast path's), one K1 call (B=16) and one K3
+# call (B=2, the fast preset's CFG batch, T=2229), full width; its file must
+# hold these kernel families and the host's launches
+TRACE_DIR = os.path.join(ROOT, "build", "trace")
+TRACE_FAMILIES = ("K1", "K2 gemm", "K2 attention", "K3")
+TRACE_TIMEOUT = 300
 # phase 15. CLVP's plain-Transformer variant at the shipped widths (768, 20
 # + 20 layers, 12 heads, text table 350), float32 with TF32 off on the card
 # against the CPU module: sums in other orders over 20 layers, a similarity
@@ -921,7 +936,7 @@ def check_k1_one_kernel(record: dict) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-        seen[b] = [e["name"] for e in device_events(prof)]
+        seen[b] = [e["name"] for e in device_events(prof, f"one K1 call at B={b}")]
         print(f"K1 one call under the profiler, B={b}: device kernels {seen[b]}")
     record["k1_device_kernels_a_call"] = seen
     if any(len(names) != 1 or "decode_attn_merged_kernel" not in names[0]
@@ -1486,7 +1501,99 @@ def run_tools(record: dict, launches: Launches) -> None:
     record["tools_launches"] = counts
     print("tools path launches", json.dumps(counts))
     check_k1_one_kernel(record)
+    run_trace_phase(record, launches)
     _profile_diffusion_step(record)
+
+
+def trace_worker() -> int:
+    """The trace phase in a process of its own (``chip_smoke.py
+    --trace-worker``): one K2 bf16 decode step at B=1, one K1 call at B=16
+    and one K3 call at B=2, T=2229 (full width, seeded random inputs, each
+    called once untraced first), then the same three calls inside one
+    ``utils.profiling.trace(build/trace)`` block. The file must parse, its
+    kernel events must hold TRACE_FAMILIES and its host side the launches.
+    Prints one JSON line: the file, its MB, events, kernel families and
+    launch calls, the launch counts and the seconds."""
+    import glob
+    import shutil
+    from collections import Counter
+
+    import torch
+
+    from tortoise_tpu_torch.ops.attn import decode_attention_merged, flash_rel_attention
+    from tortoise_tpu_torch.ops.decode_step import fused_decode_step
+    from tortoise_tpu_torch.utils.profiling import _k2_stack, family, trace
+
+    t0 = time.perf_counter()
+    L, C, H, T, pos = 30, 1024, 16, 768, 500
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bf16 = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    stacked, x = _k2_stack(L, C, g), bf16(1, C)
+    k2_cache = {n: bf16(L, 1, T, C) for n in "kv"}
+    k1_cache = {n: bf16(L, 16, T, C) for n in "kv"}
+    q, kn, vn = _k1_inputs(g, 16, C, torch.bfloat16)
+    t3 = 2229
+    q3, k3, v3 = (bf16(2, H, t3, 64) for _ in range(3))
+    bias = bf16(H, 2 * t3 - 1).float()
+    valid = torch.tensor([t3 - 5, (3 * t3) // 4], dtype=torch.int32, device="cuda")
+    calls = (lambda: fused_decode_step(stacked, x, k2_cache, pos, H),
+             lambda: decode_attention_merged(q, kn, vn, k1_cache["k"], k1_cache["v"], 7, pos,
+                                             heads=H),
+             lambda: flash_rel_attention(q3, k3, v3, bias, valid))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    launches = Launches()
+    launches.reset()
+    t1 = time.perf_counter()
+    with trace(TRACE_DIR) as log_dir:
+        for call in calls:
+            call()
+    traced_s = time.perf_counter() - t1
+    counts = launches.read()
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files} into {log_dir}, not one .pt.trace.json")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if isinstance(e, dict)]
+    kernels = Counter(family(e["name"]) for e in events if e.get("cat") == "kernel")
+    launch_calls = Counter(e["name"] for e in events
+                           if e.get("name", "").startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    res = {"file": os.path.relpath(files[0], ROOT), "mb": os.path.getsize(files[0]) / 1e6,
+           "events": len(events), "kernel_events_by_family": kernels,
+           "launch_calls": launch_calls, "launches": counts, "traced_s": traced_s,
+           "worker_s": time.perf_counter() - t0}
+    print(f"trace {res['file']}: {res['mb']:.3f} MB, {res['events']} events; kernels by "
+          f"family {json.dumps(kernels)}; launch calls {json.dumps(launch_calls)}")
+    missing = [fam for fam in TRACE_FAMILIES if not kernels.get(fam)]
+    once = {k: counts[k] for k in (_k2_row_name("bf16"), K1_NAME, K3_NAME)}
+    if missing or not launch_calls or set(once.values()) != {1}:
+        raise AssertionError(f"the trace misses {missing} or the host's launches, or a kernel "
+                             f"did not launch once in it: {res}")
+    print(json.dumps(res))
+    return 0
+
+
+def run_trace_phase(record: dict, launches: Launches) -> None:
+    """The trace phase: trace_worker in a process of its own, after this
+    process's last timing and profiler pass and before
+    profile_diffusion_step's process. Fails if the worker does. Its launches
+    stay in record["trace"] and out of the totals: it runs no main path."""
+    import subprocess
+
+    print("--- trace phase: python3 chip_smoke.py --trace-worker")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-worker"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=TRACE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(run.stdout[-3000:])
+    if run.returncode:
+        raise AssertionError(f"the trace worker exited {run.returncode}: {run.stderr[-3000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    res["wall_s"] = wall
+    record["trace"] = res
+    print(f"trace phase: {wall:.1f} s")
 
 
 # profile_diffusion_step's main in a process of its own, its result on the last line
@@ -3018,19 +3125,30 @@ def _check_npz_round_trip(record: dict, launches: Launches) -> None:
 
 def _check_stft_and_crossfade(record: dict) -> None:
     """Phase 15d: istft(stft(x)) on the card against x (23.2 s at 24 kHz,
-    n_fft 1024, hop 256), and native.crossfade against its formula."""
+    n_fft 1024, hop 256); stft_magnitude(center=False) of x on the card
+    against the same call on the CPU; native.crossfade against its formula;
+    the tokenizer's decode(encode(t)) of the smoke's request texts against
+    their cleaned text."""
     import numpy as np
     import torch
 
     from tortoise_tpu_torch import native
     from tortoise_tpu_torch.ops import mel
+    from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 
     g = torch.Generator(device="cuda").manual_seed(16)
     x = torch.randn((1, 557056), generator=g, device="cuda").clamp(-4, 4) / 4
     spec = mel.stft(x, 1024, 256, 1024)
     back = mel.istft(spec, 1024, 256, 1024, length=x.shape[-1])
+    mag = mel.stft_magnitude(x, 1024, 256, 1024, center=False)
     torch.cuda.synchronize()
     err = (back - x[:, :back.shape[-1]]).abs().max().item() / x.abs().max().item()
+    mag_cpu = mel.stft_magnitude(x.cpu(), 1024, 256, 1024, center=False)
+    mag_err = ((mag.cpu() - mag_cpu).abs().max() / mag_cpu.abs().max()).item()
+    tok = VoiceBpeTokenizer()
+    texts = sorted({t for _, t, _ in REQUESTS} | {STREAM_REQUEST[0], *BATCH_TEXTS,
+                                                   *SOCKET_TEXTS})
+    decoded = {t: tok.decode(tok.encode(t)) == tok.preprocess_text(t) for t in texts}
     rng = np.random.default_rng(16)
     chunk, overlap = rng.standard_normal(4096).astype(np.float32), \
         rng.standard_normal(1024).astype(np.float32)
@@ -3042,11 +3160,15 @@ def _check_stft_and_crossfade(record: dict) -> None:
     want[:1024] = overlap * (1 - t) + chunk[:1024] * t
     cf_err = float(np.abs(faded - want).max())
     res = {"stft_shape": list(spec.shape), "istft_rel_err": err, "bound": STFT_REL_BOUND,
-           "crossfade_max_abs_err": cf_err}
+           "magnitude_shape": list(mag.shape), "magnitude_rel_err_vs_cpu": mag_err,
+           "crossfade_max_abs_err": cf_err, "decode_round_trips": decoded}
     record["phase15_stft_crossfade"] = res
-    print("stft/istft and crossfade", json.dumps(res))
-    if back.shape != x.shape or err > STFT_REL_BOUND or cf_err > 1e-6:
-        raise AssertionError(f"istft(stft(x)) or crossfade: {res}")
+    print("stft/istft, stft_magnitude, crossfade, decode", json.dumps(res))
+    frames = 1 + (x.shape[-1] - 1024) // 256
+    if back.shape != x.shape or err > STFT_REL_BOUND or cf_err > 1e-6 \
+            or mag.shape != (1, 513, frames) or mag_err > STFT_REL_BOUND \
+            or not all(decoded.values()):
+        raise AssertionError(f"istft(stft(x)), stft_magnitude, crossfade or decode: {res}")
 
 
 def _check_repo_tools(record: dict) -> None:
@@ -3530,6 +3652,8 @@ if __name__ == "__main__":
         sys.exit(mesh_worker())
     if sys.argv[1:] == ["--bench-worker"]:
         sys.exit(bench_worker())
+    if sys.argv[1:] == ["--trace-worker"]:
+        sys.exit(trace_worker())
     if "--k1-ab" in sys.argv:
         sys.exit(k1_ab())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

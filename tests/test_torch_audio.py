@@ -2,7 +2,8 @@
 JAX package's (tortoise_tpu/utils/audio.py): mp3 clips through ffmpeg (its
 subprocess stubbed, and missing), the voice registry over wav, mp3, npz and
 pth with the extra-voices library, the reference's ``.pth`` latent files and
-the ``<voice>.clips.npz`` cache. Every voice folder a test reads or writes is
+the ``<voice>.clips.npz`` cache, the error for an unsupported extension and
+the warning for a clip that is probably not audio. Every voice folder a test reads or writes is
 a copy under ``tmp_path``: no test writes into the repository's voices."""
 import os
 import shutil
@@ -169,3 +170,37 @@ def test_registry_and_latent_files_match_jax(voices, tmp_path, monkeypatch):
     _, jmerged = jax_audio.load_voices(["pth_pair", "npz_pair"])
     for a, b in zip(merged, jmerged):
         np.testing.assert_array_equal(a, b)
+
+
+def test_unsupported_extension_raises_as_jax(tmp_path):
+    path = str(tmp_path / "clip.flac")
+    with pytest.raises(AssertionError) as want:
+        jax_audio.load_audio(path, 24000)
+    with pytest.raises(AssertionError) as got:
+        port_audio.load_audio(path, 24000)
+    assert str(got.value) == str(want.value) == f"unsupported audio format: {path}"
+
+
+@pytest.mark.parametrize("kind,warns", [("non_negative", True), ("over_two", True),
+                                        ("normal", False)])
+def test_suspicious_clip_prints_the_jax_line(tmp_path, capsys, kind, warns):
+    """A float32 wav at 22.05 kHz loaded at 24 kHz: one with no sample below
+    0, one with a sample over 2, one ordinary clip. The check runs after
+    resampling and before clipping; both packages print the same line (or
+    none) and return the same samples."""
+    sig = 0.5 * np.sin(np.linspace(0, 40 * np.pi, 11025)).astype(np.float32)
+    if kind == "non_negative":
+        sig = 0.5 + 0.4 * sig
+    elif kind == "over_two":
+        sig[5000] = 3.0
+    path = str(tmp_path / f"{kind}.wav")
+    wav_write(path, 22050, sig)
+    want = jax_audio.load_audio(path, 24000)
+    want_out = capsys.readouterr().out
+    got = port_audio.load_audio(path, 24000)
+    got_out = capsys.readouterr().out
+    np.testing.assert_array_equal(got, want)
+    assert got_out == want_out
+    assert got_out.startswith(f"Error with {path}. Max=") == warns
+    if not warns:
+        assert got_out == ""

@@ -103,13 +103,24 @@ def test_paragraph_chunks_are_the_jax_package_s():
     assert chunks == jax_split(bench.PARAGRAPH, 200, 300) and len(chunks) == 2
 
 
-def test_smoke_prints_the_jax_headline(capsys):
+def test_smoke_prints_the_jax_headline(capsys, monkeypatch):
+    """The line's value and vs_baseline are the bench's roundings of the
+    unrounded RTF it measured (recorded from ``bench._line``), exactly."""
+    rtfs = []
+    line = bench._line
+
+    def record(metric, value, baseline, detail):
+        rtfs.append(value)
+        return line(metric, value, baseline, detail)
+
+    monkeypatch.setattr(bench, "_line", record)
     detail = bench.main(["--smoke", "--device", "cpu", "--runs", "1"])
     lines = _lines(capsys.readouterr().out)
-    last = lines[-1]
+    last, rtf = lines[-1], rtfs[-1]
     assert last["metric"] == "fast_preset_rtf" and last["unit"] == "wall_sec_per_audio_sec"
-    assert last["value"] > 0 and math.isfinite(last["value"])
-    assert last["vs_baseline"] == pytest.approx(bench.REFERENCE_RTF / last["value"], rel=1e-3)
+    assert rtf > 0 and math.isfinite(rtf) and last["value"] > 0
+    assert last["value"] == round(rtf, 4)
+    assert last["vs_baseline"] == round(bench.REFERENCE_RTF / rtf, 3)
     assert HEADLINE_KEYS <= set(last["detail"]) and last["detail"] == detail
     assert detail["ar_tokens"] == 32 and detail["runs"] == 1 and detail["device"] == "cpu"
     assert detail["sections_skipped"] == []

@@ -1,7 +1,9 @@
 """The last model and op paths of the port against the JAX package: CLVP's
 plain-Transformer variant (models/simple_transformer.py, CLVP with
-use_xformers=False), the complex STFT pair (ops/mel.stft, istft) and the
-native crossfade binding. Same numpy inputs and weights on both sides,
+use_xformers=False), the complex STFT pair (ops/mel.stft, istft), the
+magnitude spectrogram and the log clamp of the mel front ends
+(stft_magnitude, dynamic_range_compression) and the native crossfade
+binding. Same numpy inputs and weights on both sides,
 float32."""
 import numpy as np
 import pytest
@@ -205,6 +207,53 @@ def test_istft_matches_jax_and_inverts_stft(n_fft, hop, win):
     assert _rel(got, want) <= TOL
     back = mel.istft(mel.stft(_t(x), n_fft, hop, win), n_fft, hop, win)
     assert _rel(back, x[:, :back.shape[-1]]) <= TOL
+
+
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("power", [1.0, 2.0])
+@pytest.mark.parametrize("n_fft,hop,win", [(1024, 256, 1024), (64, 16, 48)])
+def test_stft_magnitude_matches_jax(n_fft, hop, win, power, center):
+    """Magnitude and power spectrograms, centred (reflect padding) and not
+    (JAX's frame_signal: 1 + (T - n_fft) // hop frames): within 1e-5 of the
+    largest JAX bin, tighter than the mel front ends' 1e-3."""
+    from tortoise_tpu.ops import mel as jmel
+    from tortoise_tpu_torch.ops import mel
+
+    x = np.random.default_rng(2).standard_normal((2, 3000)).astype(np.float32)
+    want = np.asarray(jmel.stft_magnitude(jnp.asarray(x), n_fft, hop, win, power=power,
+                                          center=center))
+    got = mel.stft_magnitude(_t(x), n_fft, hop, win, power=power, center=center)
+    assert got.shape == want.shape
+    if not center:
+        assert want.shape[-1] == 1 + (3000 - n_fft) // hop
+    assert _rel(got, want) <= TOL
+
+
+def test_dynamic_range_compression_matches_jax():
+    """log(max(x, clip_val)) at a clip_val other than the default: every
+    value below it clamps, within 1e-6 of JAX's log."""
+    from tortoise_tpu.ops import mel as jmel
+    from tortoise_tpu_torch.ops import mel
+
+    x = np.abs(np.random.default_rng(3).standard_normal((2, 80, 50))).astype(np.float32) * 1e-2
+    want = np.asarray(jmel.dynamic_range_compression(jnp.asarray(x), clip_val=1e-3))
+    got = mel.dynamic_range_compression(_t(x), clip_val=1e-3).numpy()
+    assert (x < 1e-3).any() and got.min() == np.float32(np.log(np.float32(1e-3)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_mels_are_bit_equal_to_the_inline_log_clamp():
+    """tacotron_mel and univnet_mel through dynamic_range_compression are
+    the log of the clamped filterbank output they computed inline before."""
+    from tortoise_tpu_torch.ops import mel
+
+    wav = _t(np.random.default_rng(4).uniform(-0.5, 0.5, (1, 8000)))
+    fb80 = mel.mel_filterbank(22050, 1024, 80, 0.0, 8000.0, htk=True, slaney_norm=True)
+    fb100 = mel.mel_filterbank(24000, 1024, 100, 0.0, 12000.0, htk=False, slaney_norm=True)
+    spec80 = mel._apply_filterbank(fb80, mel.stft_magnitude(wav, 1024, 256, 1024, power=2.0))
+    spec100 = mel._apply_filterbank(fb100, mel.stft_magnitude(wav, 1024, 256, 1024))
+    assert torch.equal(mel.tacotron_mel(wav), torch.log(spec80.clamp(min=1e-5)))
+    assert torch.equal(mel.univnet_mel(wav), torch.log(spec100.clamp(min=1e-5)))
 
 
 # --- native crossfade ----------------------------------------------------------------

@@ -4,8 +4,9 @@ Port of ``tortoise_tpu/ops/mel.py``: the 22.05 kHz / 80-bin "tacotron" mel
 for AR conditioning (power 2, HTK scale, slaney norm, log-clamp 1e-5,
 divided by ``mel_norms``) and the 24 kHz / 100-bin "univnet" mel for the
 diffusion conditioning (magnitude, slaney scale and norm, log-clamp). The
-STFT is ``torch.stft`` with center=True, reflect padding and a periodic hann
-window, which is what ``stft_magnitude`` computes with an rFFT. ``stft`` and
+STFT is ``torch.stft`` (reflect padding under ``center``, a periodic hann
+window centred in ``n_fft``), which is what the JAX ``stft_magnitude``
+computes with an rFFT of the frames ``frame_signal`` cuts. ``stft`` and
 ``istft`` are the JAX package's complex transform pair (the reference's
 ``utils/stft.py`` STFT class), framed by hand as there.
 """
@@ -69,13 +70,20 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax:
     return fb.astype(np.float32)
 
 
-def stft_magnitude(x, n_fft: int, hop: int, win_length: int, power: float = 1.0):
-    """(B, T) -> (B, n_freqs, n_frames) magnitude (power 1) or power spectrogram."""
+def stft_magnitude(x, n_fft: int, hop: int, win_length: int, power: float = 1.0,
+                   center: bool = True):
+    """(B, T) -> (B, n_freqs, n_frames) magnitude (power 1) or power
+    spectrogram; reflect-padded by n_fft // 2 under ``center``, else
+    ``1 + (T - n_fft) // hop`` frames from the signal's first sample."""
     window = torch.hann_window(win_length, periodic=True, dtype=torch.float32, device=x.device)
     spec = torch.stft(x.float(), n_fft, hop_length=hop, win_length=win_length, window=window,
-                      center=True, pad_mode="reflect", onesided=True, return_complex=True)
+                      center=center, pad_mode="reflect", onesided=True, return_complex=True)
     mag = spec.abs()
     return mag if power == 1.0 else mag ** power
+
+
+def dynamic_range_compression(x, clip_val: float = 1e-5):
+    return torch.log(x.clamp(min=clip_val))
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,8 +146,8 @@ def _apply_filterbank(fb: np.ndarray, spec):
 def tacotron_mel(wav, mel_norms=None):
     """(B, T) in [-1, 1] at 22.05 kHz -> (B, 80, frames)."""
     fb = mel_filterbank(22050, 1024, 80, 0.0, 8000.0, htk=True, slaney_norm=True)
-    mel = _apply_filterbank(fb, stft_magnitude(wav, 1024, 256, 1024, power=2.0))
-    mel = torch.log(mel.clamp(min=1e-5))
+    spec = stft_magnitude(wav, 1024, 256, 1024, power=2.0)
+    mel = dynamic_range_compression(_apply_filterbank(fb, spec))
     if mel_norms is not None:
         mel = mel / mel_norms.to(mel.device)[:, None]
     return mel
@@ -148,8 +156,8 @@ def tacotron_mel(wav, mel_norms=None):
 def univnet_mel(wav, do_normalization: bool = False):
     """(B, T) in [-1, 1] at 24 kHz -> (B, 100, frames)."""
     fb = mel_filterbank(24000, 1024, 100, 0.0, 12000.0, htk=False, slaney_norm=True)
-    mel = _apply_filterbank(fb, stft_magnitude(wav.clamp(-1.0, 1.0), 1024, 256, 1024))
-    mel = torch.log(mel.clamp(min=1e-5))
+    spec = stft_magnitude(wav.clamp(-1.0, 1.0), 1024, 256, 1024)
+    mel = dynamic_range_compression(_apply_filterbank(fb, spec))
     return normalize_tacotron_mel(mel) if do_normalization else mel
 
 

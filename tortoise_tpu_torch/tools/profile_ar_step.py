@@ -63,7 +63,7 @@ def _busy(run, n: int, dev) -> dict | None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(n)
         torch.cuda.synchronize(dev)
-    bd = device_breakdown(device_events(prof))
+    bd = device_breakdown(device_events(prof, f"{n} profiled decode steps"))
     return {"busy_ms": bd["device_busy_ms"] / n,
             "ms_by_family": {k: v / n for k, v in bd["ms_by_family"].items()}}
 

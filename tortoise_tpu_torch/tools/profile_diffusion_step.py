@@ -80,7 +80,8 @@ def _busy(run, n: int, dev) -> float | None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(n)
         torch.cuda.synchronize(dev)
-    return device_breakdown(device_events(prof))["device_busy_ms"] / n
+    events = device_events(prof, f"{n} profiled diffusion steps")
+    return device_breakdown(events)["device_busy_ms"] / n
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -83,10 +83,15 @@ def load_audio(path: str, sampling_rate: int) -> np.ndarray:
     elif ext == ".mp3":
         audio, sr = _load_mp3(path, sampling_rate), sampling_rate
     else:
-        raise ValueError(f"unsupported audio format (wav or mp3): {path}")
+        raise AssertionError(f"unsupported audio format: {path}")
     if audio.ndim > 1:
         audio = audio[0] if audio.shape[0] < 5 else audio[:, 0]
-    return np.clip(resample(audio, sr, sampling_rate), -1, 1)[None, :]
+    audio = resample(audio, sr, sampling_rate)
+    # the JAX package's (and the reference's) warning for a clip that is
+    # probably not [-1, 1] audio: a sample over 2, or none below 0
+    if np.any(audio > 2) or not np.any(audio < 0):
+        print(f"Error with {path}. Max={audio.max()} min={audio.min()}")
+    return np.clip(audio, -1, 1)[None, :]
 
 
 def save_wav(path: str, audio, sample_rate: int = 24000) -> None:

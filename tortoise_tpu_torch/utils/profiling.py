@@ -1,5 +1,15 @@
-"""Stage timing for the APIs (``StageTimer``) and a device-time breakdown of
-TextToSpeech requests on one GPU.
+"""Stage timing for the APIs (``StageTimer``), a timeline of any block of
+code (``trace``) and a device-time breakdown of TextToSpeech requests on
+one GPU.
+
+    from tortoise_tpu_torch.utils.profiling import trace
+    with trace("build/trace"):
+        ...
+
+writes one Chrome trace, ``build/trace/<host>_<pid>.<ns>.pt.trace.json``:
+the block's host ops and, on a GPU, its kernels, copies and launches on one
+timeline. Open it in the Perfetto UI (ui.perfetto.dev) or in Chrome's
+``chrome://tracing``.
 
     python3 -m tortoise_tpu_torch.utils.profiling [--out build/profile.json] [--k2 | --k4k6 | --train]
         [--dtype f32|bf16]
@@ -50,6 +60,7 @@ import argparse
 import contextlib
 import json
 import os
+import tempfile
 import time
 
 import torch
@@ -86,6 +97,25 @@ class StageTimer:
 
     def json(self) -> str:
         return json.dumps(self.report())
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "tortoise_tpu_torch_trace")):
+    """Record a ``torch.profiler`` trace of a block into ``log_dir`` (made if
+    missing) and yield ``log_dir``, as ``tortoise_tpu/utils/profiling.py::
+    trace`` does with ``jax.profiler``. Host ops always; CUDA kernels and
+    copies too where torch sees a GPU. The file is written when the block
+    ends, also when it raises. A profiler session slows the process's later
+    kernel launches: take timings before a trace or in another process."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()   # the block's kernels end inside the window
 
 
 # kernel name fragment -> family, first match wins
@@ -147,9 +177,16 @@ def device_breakdown(events) -> dict:
             "ms_by_family": by_family, "n_device_events": len(events)}
 
 
-def device_events(prof) -> list[dict]:
-    return [{"name": e.name, "start_us": e.time_range.start, "end_us": e.time_range.end}
-            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+def device_events(prof, window: str) -> list[dict]:
+    """The CUDA device events of a finished ``torch.profiler`` session, each
+    with ``name``, ``start_us`` and ``end_us``. Raises if there are none: a
+    window that ran work on the card and recorded no device event is a
+    profiler that saw nothing, not an idle card, and would read 0 busy ms."""
+    events = [{"name": e.name, "start_us": e.time_range.start, "end_us": e.time_range.end}
+              for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError(f"torch.profiler recorded no CUDA device event in {window}")
+    return events
 
 
 def profile_requests(tts, clips) -> dict:
@@ -166,7 +203,7 @@ def profile_requests(tts, clips) -> dict:
                                 use_deterministic_seed=seed, verbose=False)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
-        res = device_breakdown(device_events(prof))
+        res = device_breakdown(device_events(prof, f"the {preset} request"))
         res.update(wall_ms_profiled=wall_ms,
                    busy_share_of_wall=res["device_busy_ms"] / wall_ms,
                    stages_s=tts.last_stage_timings)
@@ -235,7 +272,7 @@ def profile_k2_variants(steps: int = 10) -> dict:
             for _ in range(steps):
                 run()
             torch.cuda.synchronize()
-        res = device_breakdown(device_events(prof))
+        res = device_breakdown(device_events(prof, f"{steps} K2 steps, {key}"))
         out[key].update({
             "device_busy_ms_per_step": res["device_busy_ms"] / steps,
             "ms_by_family_per_step": {k: v / steps for k, v in res["ms_by_family"].items()},
@@ -357,7 +394,7 @@ def profile_train_step(dtype: torch.dtype | None = None) -> dict:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
-    events = device_events(prof)
+    events = device_events(prof, "one UnifiedVoice train step")
     res = device_breakdown(events)
     by_name: dict[str, float] = {}
     for e in events:

@@ -6,6 +6,7 @@ special tokens, pre-tokenize like HF's ``Whitespace`` (``\\w+|[^\\w\\s]+``),
 map characters to symbols (unknown ones to ``[UNK]``, unfused), then apply
 the merges of ``data/bpe_vocab.json`` (a copy of the JAX package's) lowest
 rank first, leftmost first among equal ranks, as HF's BPE model does.
+``decode`` joins the ids' symbols and undoes the ``[SPACE]`` replacement.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class VoiceBpeTokenizer:
             raise ValueError("expected a tortoise-tpu-bpe-v1 vocabulary "
                              "(tools/convert_tokenizer.py converts an HF tokenizer file)")
         self.vocab: dict[str, int] = d["vocab"]
+        self.symbols = {i: sym for sym, i in self.vocab.items()}
         self.unk_id = self.vocab[d["unk_token"]]
         merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m) for m in d["merges"]]
         self.ranks = {pair: i for i, pair in enumerate(merges)}
@@ -75,3 +77,19 @@ class VoiceBpeTokenizer:
             pos = m.end()
         ids.extend(self._encode_plain(txt[pos:]))
         return ids
+
+    def decode(self, seq) -> str:
+        """Ids (ints, numpy ints or a 1-D tensor) -> text, as the JAX
+        package's ``decode`` through HF's: the ids' symbols joined, ids
+        without one (at or above the vocabulary's size) dropped, spaces
+        removed, ``[SPACE]`` made a space, ``[STOP]`` and ``[UNK]`` dropped.
+        A negative id raises ``OverflowError``, as HF's does."""
+        syms = []
+        for s in seq:
+            i = int(s)
+            if i < 0:
+                raise OverflowError(f"token id {i} is negative")
+            if i in self.symbols:
+                syms.append(self.symbols[i])
+        txt = "".join(syms).replace(" ", "")
+        return txt.replace("[SPACE]", " ").replace("[STOP]", "").replace("[UNK]", "")
