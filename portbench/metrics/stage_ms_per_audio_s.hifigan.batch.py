@@ -1,0 +1,8 @@
+"""``stage_ms_per_audio_s.hifigan``, read as it is, in the cells that report
+``audio_s_per_s.batch``: the offline batch cells, whose runs spread far less
+than the served cells' and so hold a bound of their own."""
+from portbench.run import read_metric
+
+
+def read(ctx):
+    return read_metric("stage_ms_per_audio_s.hifigan", ctx)

@@ -380,3 +380,102 @@ def test_fast_api_options(pair):
     kw = dict(conditioning_latents=cond, use_deterministic_seed=3, max_mel_tokens=16,
               verbose=False)
     assert torch.equal(ptts.tts(TEXT, gpt_fused_step=True, **kw), ptts.tts(TEXT, **kw))
+
+
+# --- the program's spans ------------------------------------------------------------
+
+STEP_SPANS = ("tts.ar.prefill", "tts.ar.step", "tts.ar.finish_check", "tts.diffusion.step")
+
+
+@pytest.fixture(scope="module")
+def quality_tts():
+    """A tiny port TextToSpeech (float32, random weights) for the quality
+    pipeline's spans."""
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.models.clvp import CLVPConfig
+    from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return TextToSpeech(
+            device="cpu", autoregressive_batch_size=2, half=False, kv_cache_dtype="f32",
+            enable_redaction=False, ar_config=UnifiedVoiceConfig(**AR),
+            diffusion_config=DiffusionTtsConfig(model_channels=128, num_layers=2,
+                                                in_latent_channels=128, num_heads=4),
+            clvp_config=CLVPConfig(dim_text=128, dim_speech=128, dim_latent=128,
+                                   text_enc_depth=2, text_heads=4, speech_enc_depth=2,
+                                   speech_heads=4))
+
+
+def _counted(monkeypatch, owner, name):
+    calls = []
+    original = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(owner, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("entry", ["tts_with_preset", "tts", "tts_batch", "tts_stream"])
+def test_span_tree_of_each_entry_point(pair, quality_tts, entry, monkeypatch):
+    """Under the profiler each entry point is one request whose spans are
+    request -> stages -> steps, one ``tts.ar.step`` a decode step taken,
+    one ``tts.diffusion.step`` a diffusion iteration and one ``tts.hifigan``
+    a HiFi-GAN decode or stream chunk; its wavs are bitwise those of the
+    same call with no profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.models import ar_sampler
+    from tortoise_tpu_torch.utils import profiling
+
+    _, ptts, cond = pair
+    kw = dict(use_deterministic_seed=6, max_mel_tokens=16, verbose=False)
+    iterations = 0
+    if entry == "tts_with_preset":
+        iterations = 4
+        rng = np.random.default_rng(2)
+        latents = (rng.standard_normal((1, 128)), rng.standard_normal((1, 256)))
+        call = lambda: [quality_tts.tts_with_preset(
+            TEXT, preset="ultra_fast", conditioning_latents=latents,
+            num_autoregressive_samples=2, diffusion_iterations=iterations, **kw)]
+    elif entry == "tts":
+        call = lambda: [ptts.tts(TEXT, conditioning_latents=cond, **kw)]
+    elif entry == "tts_batch":
+        call = lambda: ptts.tts_batch(["One short one.", "Two."], conditioning_latents=cond,
+                                      text_bucket=16, **kw)
+    else:
+        call = lambda: list(ptts.tts_stream(TEXT, conditioning_latents=cond, first_chunk_size=6,
+                                            stream_chunk_size=8, **kw))
+    off = call()
+    steps = _counted(monkeypatch, ar_sampler, "_step")
+    decodes = _counted(monkeypatch, ptts, "_decode")
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.spans().clear()
+        on = call()
+    spans = profiling.spans()
+    assert len(on) == len(off) and all(
+        a.numpy().tobytes() == b.numpy().tobytes() for a, b in zip(on, off))
+
+    requests = [s for s in spans if s.name == "tts.request"]
+    assert len(requests) == 1 and requests[0].parent is None
+    for s in spans:
+        assert s.request == requests[0].request and s.end_ns is not None
+        if s.name in STEP_SPANS:
+            assert s.parent.name not in STEP_SPANS and s.parent.parent is requests[0], s.name
+        elif s is not requests[0]:
+            assert s.parent is requests[0], s.name
+    count = lambda name: sum(s.name == name for s in spans)
+    assert count("tts.ar.step") == len(steps) > 0
+    assert {s.attrs["rows"] for s in spans if s.name == "tts.ar.step"} == \
+        {len(on) if entry == "tts_batch" else 2 if entry == "tts_with_preset" else 1}
+    assert count("tts.diffusion.step") == iterations
+    hifigan = len(on) if entry == "tts_stream" else len(decodes)
+    assert count("tts.hifigan") == hifigan == (0 if entry == "tts_with_preset" else hifigan)
+    stages = {s.name for s in spans if s.parent is requests[0]}
+    assert stages >= ({"tts.conditioning", "tts.autoregressive", "tts.clvp_rerank",
+                       "tts.latent_reextraction", "tts.diffusion", "tts.vocoder"}
+                      if entry == "tts_with_preset" else
+                      {"tts.prepare", "tts.autoregressive", "tts.hifigan"})

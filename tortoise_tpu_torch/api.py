@@ -61,7 +61,7 @@ from tortoise_tpu_torch.parallel.sharding import (KVCacheSharding, gather_rows,
 from tortoise_tpu_torch.presets import QUALITY_PRESETS, resolve_preset
 from tortoise_tpu_torch.utils import audio as audio_utils
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
-from tortoise_tpu_torch.utils.profiling import StageTimer
+from tortoise_tpu_torch.utils import profiling
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 from tortoise_tpu_torch.utils.wav2vec_alignment import Wav2VecAlignment
 
@@ -376,6 +376,7 @@ class TextToSpeech:
     def tts_with_preset(self, text, preset="fast", **kwargs):
         return self.tts(text, **resolve_preset(preset, QUALITY_PRESETS, **kwargs))
 
+    @profiling.request
     @torch.inference_mode()
     def tts(self, text, voice_samples=None, conditioning_latents=None, k=1, verbose=True,
             use_deterministic_seed=None, return_deterministic_state=False,
@@ -390,7 +391,7 @@ class TextToSpeech:
         ``cvvp_amount`` in (0, 1] mixes CVVP's scores of the candidates
         against each voice clip (their mean over the clips) into CLVP's; it
         needs ``voice_samples``."""
-        timer = StageTimer(enabled=True)
+        timer = profiling.StageTimer()
         det_seed = deterministic_state(use_deterministic_seed)
         if self.mesh is not None:   # a seed from the clock differs between ranks
             det_seed = replicated(det_seed, self.mesh)

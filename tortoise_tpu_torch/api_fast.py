@@ -41,6 +41,7 @@ from tortoise_tpu_torch.ops import mel as mel_ops
 from tortoise_tpu_torch.parallel.mesh import batch_sharding, replicate_tree, replicated
 from tortoise_tpu_torch.parallel.sharding import gather_rows
 from tortoise_tpu_torch.presets import FAST_PRESETS, resolve_preset
+from tortoise_tpu_torch.utils import profiling
 from tortoise_tpu_torch.utils.audio import deterministic_state, format_conditioning
 from tortoise_tpu_torch.utils.tokenizer import VoiceBpeTokenizer
 
@@ -89,6 +90,18 @@ def handle_chunks(wav_gen: np.ndarray, wav_gen_prev, wav_overlap, overlap_len: i
     wav_overlap = wav_gen[-overlap_len:]
     wav_gen_prev = wav_gen
     return wav_chunk, wav_gen_prev, wav_overlap
+
+
+def _ar_segments(stream):
+    """An AR stream's segments as (codes (n,) on the host, latents), each
+    decoded and copied to the host inside a ``tts.autoregressive`` span."""
+    while True:
+        with profiling.span("tts.autoregressive"):
+            segment = next(stream, None)
+            if segment is None:
+                return
+            codes = segment[0][0].cpu().numpy()
+        yield codes, segment[1]
 
 
 class TextToSpeechFast:
@@ -180,6 +193,34 @@ class TextToSpeechFast:
             cond = self.get_random_conditioning_latents(det_seed)
         return det_seed, torch.as_tensor(text_tokens, device=self.device), cond
 
+    def _prepare_batch(self, texts, conditioning_latents, seed, text_bucket: int):
+        """-> (seed, text tokens (N, T) long, each with the stop pad, the
+        longest padded to a ``text_bucket`` multiple, AR conditioning latents
+        (N, D)) on the device."""
+        det_seed = deterministic_state(seed)
+        if self.mesh is not None:   # a seed from the clock differs between ranks
+            det_seed = replicated(det_seed, self.mesh)
+        cfg = self.autoregressive.config
+        n = len(texts)
+        ids = [self.tokenizer.encode(t) for t in texts]
+        max_len = max(len(i) for i in ids) + 1  # api-level pad
+        limit = min(400, cfg.max_text_tokens - 2)
+        if max_len >= limit:
+            raise ValueError(f"Too much text provided in at least one utterance (longest is "
+                             f"{max_len} tokens >= {limit}).")
+        tb = -(-max_len // text_bucket) * text_bucket if text_bucket else max_len
+        tb = max(min(tb, cfg.max_text_tokens), max_len)
+        toks = np.zeros((n, tb), np.int64)
+        for r, seq in enumerate(ids):
+            toks[r, :len(seq)] = seq
+        toks = torch.as_tensor(toks, device=self.device)
+        if conditioning_latents is None:
+            cond = self.get_random_conditioning_latents(det_seed)
+        else:
+            cond = torch.as_tensor(conditioning_latents, device=self.device)
+            cond = cond[None] if cond.ndim == 1 else cond
+        return det_seed, toks, cond.expand(n, -1) if cond.shape[0] == 1 else cond
+
     def _clamp_mel_tokens(self, max_mel_tokens: int) -> int:
         """Generation stays inside the mel position table (a decode step uses
         position step + 2)."""
@@ -206,8 +247,9 @@ class TextToSpeechFast:
     def _decode(self, latents, n: int, cond):
         """HiFi-GAN at the exact length: latents (1, >=n, D) -> (1, 1, S)
         float32 on the CPU, S = _expected_samples(n)."""
-        wav = self.hifi_decoder.inference(latents[:, :n].float(), cond)
-        return wav[:, :_expected_samples(n), 0][:, None, :].float().cpu()
+        with profiling.span("tts.hifigan"):
+            wav = self.hifi_decoder.inference(latents[:, :n].float(), cond)
+            return wav[:, :_expected_samples(n), 0][:, None, :].float().cpu()
 
     def _settings(self, max_mel_tokens, fused: bool, emit_latents: bool, **sampling):
         return SamplerSettings(max_generate=self._clamp_mel_tokens(max_mel_tokens),
@@ -221,6 +263,7 @@ class TextToSpeechFast:
             settings.pop(k, None)
         return self.tts(text, **settings)
 
+    @profiling.request
     @torch.inference_mode()
     def tts(self, text, voice_samples=None, conditioning_latents=None, k=1, verbose=True,
             use_deterministic_seed=None, return_deterministic_state=False, temperature=0.8,
@@ -229,14 +272,16 @@ class TextToSpeechFast:
         """One clip: float32 (1, 1, S) CPU tensor at 24 kHz (reference
         api_fast.py:421-503). ``gpt_fused_step`` overrides the instance's
         choice for this call."""
-        det_seed, text_t, cond = self._prepare(text, voice_samples, conditioning_latents,
-                                               use_deterministic_seed)
+        with profiling.span("tts.prepare"):
+            det_seed, text_t, cond = self._prepare(text, voice_samples, conditioning_latents,
+                                                   use_deterministic_seed)
         settings = self._settings(max_mel_tokens, self._fused(gpt_fused_step), False,
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   repetition_penalty=repetition_penalty)
         gen = torch.Generator(device=self.device).manual_seed(det_seed)
-        codes, _ = sample_speech(self.autoregressive, cond, text_t, gen, 1, settings,
-                                 stacked=self._ar_stacked)
+        with profiling.span("tts.autoregressive"):
+            codes, _ = sample_speech(self.autoregressive, cond, text_t, gen, 1, settings,
+                                     stacked=self._ar_stacked)
         wav = self._finish_wav(cond, text_t, codes)
         if return_deterministic_state:
             return wav, (det_seed, text, voice_samples, conditioning_latents)
@@ -245,12 +290,15 @@ class TextToSpeechFast:
     def _finish_wav(self, cond, text_tokens, codes):
         """Sampled codes (1, m) -> wav: teacher-forced latents, trimmed after
         the stop token, decoded at their exact length."""
-        codes_np = codes[0].cpu().numpy()
+        with profiling.span("tts.latent_reextraction"):
+            latents = self._relatent(cond, text_tokens, codes)
+            codes_np = codes[0].cpu().numpy()
         n = self._trim_codes(codes_np)
         self.last_codes = codes_np[:n]
-        return self._decode(self._relatent(cond, text_tokens, codes), n, cond)
+        return self._decode(latents, n, cond)
 
     # ------------------------------------------------------------------
+    @profiling.request
     @torch.inference_mode()
     def tts_batch(self, texts, conditioning_latents=None, verbose=True,
                   use_deterministic_seed=None, temperature=0.8, repetition_penalty=2.0,
@@ -260,29 +308,10 @@ class TextToSpeechFast:
         conditioning_latents (N, D), (1, D), (D,) or None (one random voice).
         Texts pad to ``text_bucket`` multiples with the stop token. Returns a
         list of N float32 (1, 1, S_i) CPU tensors, on every rank of a mesh."""
-        det_seed = deterministic_state(use_deterministic_seed)
-        if self.mesh is not None:   # a seed from the clock differs between ranks
-            det_seed = replicated(det_seed, self.mesh)
-        cfg = self.autoregressive.config
+        with profiling.span("tts.prepare"):
+            det_seed, toks, cond = self._prepare_batch(texts, conditioning_latents,
+                                                       use_deterministic_seed, text_bucket)
         n = len(texts)
-        ids = [self.tokenizer.encode(t) for t in texts]
-        max_len = max(len(i) for i in ids) + 1  # api-level pad
-        limit = min(400, cfg.max_text_tokens - 2)
-        if max_len >= limit:
-            raise ValueError(f"Too much text provided in at least one utterance (longest is "
-                             f"{max_len} tokens >= {limit}).")
-        tb = -(-max_len // text_bucket) * text_bucket if text_bucket else max_len
-        tb = max(min(tb, cfg.max_text_tokens), max_len)
-        toks = np.zeros((n, tb), np.int64)
-        for r, seq in enumerate(ids):
-            toks[r, :len(seq)] = seq
-        toks = torch.as_tensor(toks, device=self.device)
-        if conditioning_latents is None:
-            cond = self.get_random_conditioning_latents(det_seed)
-        else:
-            cond = torch.as_tensor(conditioning_latents, device=self.device)
-            cond = cond[None] if cond.ndim == 1 else cond
-        cond = cond.expand(n, -1) if cond.shape[0] == 1 else cond
         settings = self._settings(max_mel_tokens, self._fused(gpt_fused_step), False,
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   repetition_penalty=repetition_penalty)
@@ -290,18 +319,21 @@ class TextToSpeechFast:
         shard = self._batch_sharding
         if shard is not None and n % shard.size:
             shard = None            # unsplit on every rank, as the JAX package falls back
-        codes, _ = sample_speech(self.autoregressive, cond, toks, gen, n, settings,
-                                 stacked=self._ar_stacked, batch_sharding=shard)
+        with profiling.span("tts.autoregressive"):
+            codes, _ = sample_speech(self.autoregressive, cond, toks, gen, n, settings,
+                                     stacked=self._ar_stacked, batch_sharding=shard)
         if shard is None:
-            latents = self._relatent(cond, toks, codes)
-            codes = codes.cpu().numpy()
+            with profiling.span("tts.latent_reextraction"):
+                latents = self._relatent(cond, toks, codes)
+                codes = codes.cpu().numpy()
             return [self._decode(latents[r:r + 1], self._trim_codes(codes[r]), cond[r:r + 1])
                     for r in range(n)]
         # this rank's utterances, vocoded into a zeroed (n / dp, S_max) block
         rows = shard.rows(n)
         cond, toks = cond[rows], toks[rows]
-        latents = self._relatent(cond, toks, codes)
-        lengths = [self._trim_codes(c) for c in gather_rows(codes, shard).cpu().numpy()]
+        with profiling.span("tts.latent_reextraction"):
+            latents = self._relatent(cond, toks, codes)
+            lengths = [self._trim_codes(c) for c in gather_rows(codes, shard).cpu().numpy()]
         sizes = [_expected_samples(m) for m in lengths]
         block = torch.zeros((codes.shape[0], max(sizes)), device=self.device)
         for j, r in enumerate(range(n)[rows]):
@@ -310,6 +342,7 @@ class TextToSpeechFast:
         return [wavs[r:r + 1, None, :sizes[r]] for r in range(n)]
 
     # ------------------------------------------------------------------
+    @profiling.request
     @torch.inference_mode()
     def tts_stream(self, text, voice_samples=None, conditioning_latents=None, verbose=True,
                    use_deterministic_seed=None, stream_chunk_size=40, first_chunk_size=16,
@@ -329,8 +362,9 @@ class TextToSpeechFast:
         go through ``stream_speech`` from the start. Same seed, same codes as
         ``tts``."""
         del overlap_wav_len
-        det_seed, text_t, cond = self._prepare(text, voice_samples, conditioning_latents,
-                                               use_deterministic_seed)
+        with profiling.span("tts.prepare"):
+            det_seed, text_t, cond = self._prepare(text, voice_samples, conditioning_latents,
+                                                   use_deterministic_seed)
         settings = self._settings(max_mel_tokens, self._fused(None), True,
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   repetition_penalty=repetition_penalty)
@@ -353,31 +387,36 @@ class TextToSpeechFast:
             u_valid = _u_frames(n)  # decode frontier: frames past it are masked
             while u_emit < target_u:
                 emit_to = min(target_u, u_emit + (_U_LEN - _HALO_U))
-                pieces, a = [], u_emit
-                while a < emit_to:
-                    u_start = max(0, a - _HALO_U)
-                    end = u_valid if u_start + _U_LEN >= u_valid else u_start + _U_LEN - _HALO_U
-                    b = min(emit_to, end)
-                    # latent frames the window's interpolation reaches
-                    lat_hi = min(n, (u_start + _U_LEN) * 147 // 640 + 3)
-                    lat_off = max(0, lat_hi - _W_LAT)
-                    lat_win = latents[:, lat_off:lat_off + _W_LAT]
-                    lat_win = F.pad(lat_win, (0, 0, 0, _W_LAT - lat_win.shape[1]))  # never read
-                    wav = self.hifi_decoder.inference_window(
-                        lat_win, cond, lat_off, n, u_start, _U_LEN,
-                        min(_U_LEN, max(0, u_valid - u_start)))
-                    pieces.append(wav[0, (a - u_start) * 256:(b - u_start) * 256, 0])
-                    a = b
+                with profiling.span("tts.hifigan"):
+                    pieces, a = [], u_emit
+                    while a < emit_to:
+                        u_start = max(0, a - _HALO_U)
+                        end = u_valid if u_start + _U_LEN >= u_valid \
+                            else u_start + _U_LEN - _HALO_U
+                        b = min(emit_to, end)
+                        # latent frames the window's interpolation reaches
+                        lat_hi = min(n, (u_start + _U_LEN) * 147 // 640 + 3)
+                        lat_off = max(0, lat_hi - _W_LAT)
+                        lat_win = latents[:, lat_off:lat_off + _W_LAT]
+                        # padding rows are never read
+                        lat_win = F.pad(lat_win, (0, 0, 0, _W_LAT - lat_win.shape[1]))
+                        wav = self.hifi_decoder.inference_window(
+                            lat_win, cond, lat_off, n, u_start, _U_LEN,
+                            min(_U_LEN, max(0, u_valid - u_start)))
+                        pieces.append(wav[0, (a - u_start) * 256:(b - u_start) * 256, 0])
+                        a = b
+                    chunk = torch.cat(pieces).float().cpu()
                 u_emit = emit_to
-                yield torch.cat(pieces).float().cpu()
+                yield chunk
 
         first_len = min(first_chunk_size, stream_chunk_size, max(max_gen - 1, 0))
         if first_len + 1 <= _W_LAT:
             # the JAX package's fused head: the first segment's target counts
             # a stop token anywhere in it, and the chunk fits one window
-            state, toks, latents = ar_sampler.prefill_segment(
-                ar, cond, text_t, gen, settings, first_len, stacked=stacked)
-            codes = toks[0].cpu().numpy()
+            with profiling.span("tts.autoregressive"):
+                state, toks, latents = ar_sampler.prefill_segment(
+                    ar, cond, text_t, gen, settings, first_len, stacked=stacked)
+                codes = toks[0].cpu().numpy()
             last_n, latents_f32 = self._trim_codes(codes), latents.float()
             stopped = last_n < len(codes)
             u_valid = _u_frames(last_n)
@@ -392,8 +431,7 @@ class TextToSpeechFast:
                                               seg_len=stream_chunk_size,
                                               first_seg_len=first_len, stacked=stacked)
         if not stopped:
-            for codes, latents in stream:
-                codes = codes[0].cpu().numpy()
+            for codes, latents in _ar_segments(stream):
                 last_n, latents_f32 = self._trim_codes(codes), latents.float()
                 stopped = last_n < len(codes)
                 if stopped:

@@ -19,6 +19,7 @@ import torch
 
 from tortoise_tpu_torch.diffusion.schedule import DiffusionSchedule
 from tortoise_tpu_torch.parallel.mesh import draw_rows
+from tortoise_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,10 +82,12 @@ def _loop(step, schedule: DiffusionSchedule, cfg: SamplerConfig, model_fn: Calla
     n = schedule.num_timesteps
     x = noise
     for t in range(n - 1, -1, -1):
-        t_orig = torch.full((x.shape[0],), int(tab["timestep_map"][t]), device=x.device)
-        cfk = cfg.cond_free_k * (1 - t / n) if cfg.ramp_conditioning_free else cfg.cond_free_k
-        eps, var_values = _model_out(model_fn, x, t_orig, cfg, cfk)
-        x = step(tab, x, t, eps.float(), var_values.float(), generator)
+        with profiling.span("tts.diffusion.step", batch=x.shape[0]):
+            t_orig = torch.full((x.shape[0],), int(tab["timestep_map"][t]), device=x.device)
+            cfk = cfg.cond_free_k * (1 - t / n) if cfg.ramp_conditioning_free \
+                else cfg.cond_free_k
+            eps, var_values = _model_out(model_fn, x, t_orig, cfg, cfk)
+            x = step(tab, x, t, eps.float(), var_values.float(), generator)
     return x
 
 

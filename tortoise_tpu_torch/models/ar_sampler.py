@@ -38,6 +38,7 @@ from tortoise_tpu_torch.ops import sampling
 from tortoise_tpu_torch.ops.decode_step import fused_decode_step
 from tortoise_tpu_torch.parallel.mesh import BatchShard
 from tortoise_tpu_torch.parallel.sharding import all_ranks
+from tortoise_tpu_torch.utils import profiling
 
 # the decode loop asks the device whether every candidate has finished only
 # this often: each question is a host sync, and steps taken after the last
@@ -119,51 +120,53 @@ def _prefill(model: UnifiedVoice, cond_latent, text_tokens, generator: torch.Gen
     """Prompt through the stack into a fresh cache, token 0 sampled. Returns
     (state, the latent of token 0 (B, D) f32 or None); under a mesh B is
     this rank's rows of the ``num_samples``."""
-    cfg = model.config
-    prompt = model.compute_prompt(cond_latent, text_tokens)
-    if prompt.shape[0] != num_samples:
-        prompt = prompt.expand(num_samples, -1, -1)
-    if batch_sharding is not None:
-        prompt = prompt[batch_sharding.rows(num_samples)]
-    b, p_len, _ = prompt.shape
-    dev = prompt.device
-    # cache padded to a multiple of 256, as in the JAX sampler
-    cache_len = -(-(p_len + settings.max_generate) // 256) * 256
-    if cache_sharding is not None:
-        assert cache_sharding.tp == (model.gpt.tp.size if model.gpt.tp else 1), \
-            "the cache's tp split is not the stack's"
-        cache = init_kv_cache(cfg.gpt_config, num_samples, cache_len, dtype=cache_dtype,
-                              device=dev, sharding=cache_sharding)
-    else:
-        cache = init_kv_cache(cfg.gpt_config, b, cache_len, dtype=cache_dtype, device=dev)
-    hidden, _ = model.gpt(prompt, cache=cache, cache_index=0)
-    last_hidden = hidden[:, -1]
-    seen = torch.zeros((b, cfg.number_mel_codes), dtype=torch.bool, device=dev)
-    seen[:, 1] = True
-    seen[:, cfg.start_mel_token] = True
-    tok = _warp_and_sample(settings, model.hidden_to_mel_logits(last_hidden), seen, generator,
-                           batch_sharding)
-    seen[torch.arange(b, device=dev), tok] = True
-    state = DecodeState(cache, tok, seen, tok == cfg.stop_mel_token, generator, 0, p_len,
-                        batch_sharding)
-    return state, (model.hidden_to_latent(last_hidden) if settings.emit_latents else None)
+    with profiling.span("tts.ar.prefill"):
+        cfg = model.config
+        prompt = model.compute_prompt(cond_latent, text_tokens)
+        if prompt.shape[0] != num_samples:
+            prompt = prompt.expand(num_samples, -1, -1)
+        if batch_sharding is not None:
+            prompt = prompt[batch_sharding.rows(num_samples)]
+        b, p_len, _ = prompt.shape
+        dev = prompt.device
+        # cache padded to a multiple of 256, as in the JAX sampler
+        cache_len = -(-(p_len + settings.max_generate) // 256) * 256
+        if cache_sharding is not None:
+            assert cache_sharding.tp == (model.gpt.tp.size if model.gpt.tp else 1), \
+                "the cache's tp split is not the stack's"
+            cache = init_kv_cache(cfg.gpt_config, num_samples, cache_len, dtype=cache_dtype,
+                                  device=dev, sharding=cache_sharding)
+        else:
+            cache = init_kv_cache(cfg.gpt_config, b, cache_len, dtype=cache_dtype, device=dev)
+        hidden, _ = model.gpt(prompt, cache=cache, cache_index=0)
+        last_hidden = hidden[:, -1]
+        seen = torch.zeros((b, cfg.number_mel_codes), dtype=torch.bool, device=dev)
+        seen[:, 1] = True
+        seen[:, cfg.start_mel_token] = True
+        tok = _warp_and_sample(settings, model.hidden_to_mel_logits(last_hidden), seen, generator,
+                               batch_sharding)
+        seen[torch.arange(b, device=dev), tok] = True
+        state = DecodeState(cache, tok, seen, tok == cfg.stop_mel_token, generator, 0, p_len,
+                            batch_sharding)
+        return state, (model.hidden_to_latent(last_hidden) if settings.emit_latents else None)
 
 
 def _step(model: UnifiedVoice, settings: SamplerSettings, stacked, state: DecodeState):
     """One decode step: feeds ``state.tok``, samples the next token (stop once
     stopped). Returns (next tokens (B,), its latent (B, D) f32 or None)."""
-    cfg = model.config
-    emb = model.decode_embed(state.tok[:, None], state.step)
-    h = _gpt_step(model, settings, stacked, emb, state.cache, state.pos)
-    tok = _warp_and_sample(settings, model.hidden_to_mel_logits(h), state.seen, state.generator,
-                           state.shard)
-    tok = torch.where(state.finished, torch.full_like(tok, cfg.stop_mel_token), tok)
-    state.finished = state.finished | (tok == cfg.stop_mel_token)
-    state.seen[torch.arange(tok.shape[0], device=tok.device), tok] = True
-    state.tok = tok
-    state.step += 1
-    state.pos += 1
-    return tok, (model.hidden_to_latent(h) if settings.emit_latents else None)
+    with profiling.span("tts.ar.step", rows=state.tok.shape[0]):
+        cfg = model.config
+        emb = model.decode_embed(state.tok[:, None], state.step)
+        h = _gpt_step(model, settings, stacked, emb, state.cache, state.pos)
+        tok = _warp_and_sample(settings, model.hidden_to_mel_logits(h), state.seen, state.generator,
+                               state.shard)
+        tok = torch.where(state.finished, torch.full_like(tok, cfg.stop_mel_token), tok)
+        state.finished = state.finished | (tok == cfg.stop_mel_token)
+        state.seen[torch.arange(tok.shape[0], device=tok.device), tok] = True
+        state.tok = tok
+        state.step += 1
+        state.pos += 1
+        return tok, (model.hidden_to_latent(h) if settings.emit_latents else None)
 
 
 def _check_stack(settings: SamplerSettings, stacked):
@@ -204,8 +207,11 @@ def sample_speech(model: UnifiedVoice, cond_latent, text_tokens, generator: torc
         lats = torch.zeros((b, max_gen, cfg.model_dim), dtype=torch.float32, device=dev)
         lats[:, 0] = latent0
     for s in range(max_gen - 1):
-        if s % FINISH_CHECK_EVERY == 0 and _all_finished(state):
-            break
+        if s % FINISH_CHECK_EVERY == 0:
+            with profiling.span("tts.ar.finish_check"):
+                finished = _all_finished(state)
+            if finished:
+                break
         tok, latent = _step(model, settings, stacked, state)
         toks[:, s + 1] = tok
         if lats is not None:
