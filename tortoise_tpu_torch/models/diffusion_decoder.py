@@ -14,10 +14,16 @@ sampling call (``rel_bias_vectors``), in place of the JAX package's
 
 ``dtype`` is the compute dtype of every product but ``out_conv``, which is
 float32, as in the JAX model (None: each weight's, the serving models').
+
+On the card a sampling step's forward is ~300 small launches, more host
+time than device time, so an inference call with precomputed conditioning
+and bias vectors replays a CUDA graph of the forward, one per input
+signature (``DiffusionTts.forward``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -26,8 +32,9 @@ from torch import nn
 
 from tortoise_tpu_torch.models.blocks import AttentionBlock, GroupNorm32
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, silu
-from tortoise_tpu_torch.ops.attn import rel_bias_vector
+from tortoise_tpu_torch.ops.attn import flash_rel_attention, rel_bias_vector
 from tortoise_tpu_torch.ops.interpolate import nearest_interpolate
+from tortoise_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +48,19 @@ class DiffusionTtsConfig:
     num_heads: int = 16
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half: int, max_period: int, device: torch.device) -> torch.Tensor:
+    """``timestep_embedding``'s float32 frequency table (computed in
+    float64), copied to ``device`` once: a copy from host memory at every
+    step would wait for the card, and a CUDA graph cannot hold one."""
+    freqs = np.exp(-np.log(max_period) * np.arange(half, dtype=np.float64) / half)
+    with torch.inference_mode(False):
+        return torch.as_tensor(freqs.astype(np.float32), device=device)
+
+
 def timestep_embedding(timesteps, dim: int, max_period: int = 10000):
     """Sinusoidal embeddings, cos first (frequency table in float64)."""
-    half = dim // 2
-    freqs = torch.as_tensor(
-        np.exp(-np.log(max_period) * np.arange(half, dtype=np.float64) / half)
-        .astype(np.float32), device=timesteps.device)
+    freqs = _frequencies(dim // 2, max_period, timesteps.device)
     args = timesteps[:, None].float() * freqs[None]
     emb = torch.cat([args.cos(), args.sin()], dim=-1)
     if dim % 2:
@@ -108,10 +122,31 @@ class _Stacked(nn.Module):
         self.n = n
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured forward: the static inputs a replay refills, the static
+    output it rewrites, and the K3 launches it runs."""
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    out: torch.Tensor
+    k3_launches: int
+
+
 class DiffusionTts(nn.Module):
+    # forward's CUDA graphs, process-wide: captured, and replayed in place
+    # of an eager forward
+    graph_captures = 0
+    graph_replays = 0
+
     def __init__(self, config: DiffusionTtsConfig = DiffusionTtsConfig(),
                  dtype: torch.dtype | None = None):
         super().__init__()
+        # input signature -> _Graph; the graphs share one memory pool and,
+        # per device, one capture stream. A graph's static inputs and output
+        # stay allocated: 9.1 MB at B=2 over 1114 frames
+        self._graphs: dict[tuple, _Graph] = {}
+        self._graph_pool = None
+        self._graph_streams: dict[torch.device, torch.cuda.Stream] = {}
         cfg = self.config = config
         ch = cfg.model_channels
         self.compute_dtype = dtype
@@ -215,6 +250,11 @@ class DiffusionTts(nn.Module):
             .to(self.dtype).float()
         return vec(self.layers_scan), vec(self.cond_scan)
 
+    def _apply(self, fn, *args, **kwargs):
+        # a graph reads the parameters where they lay when it was captured
+        self._graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, x, timesteps, precomputed_aligned_embeddings=None,
                 aligned_conditioning=None, conditioning_latent=None,
                 conditioning_free: bool = False, valid_len=None, rel_biases=None,
@@ -226,7 +266,77 @@ class DiffusionTts(nn.Module):
         T)``. valid_len (B,) or None; rel_biases from
         ``rel_bias_vectors(T)`` (or None: each block builds its own); flash
         routes the 13 per-step attention blocks through K3. Returns
-        (B, T, 200): eps and variance channels."""
+        (B, T, 200): eps and variance channels.
+
+        A call on the card in eval mode without grad, given
+        precomputed_aligned_embeddings and rel_biases and outside a capture,
+        takes the graph path: the first call of an input signature (the
+        inputs' shapes, dtypes, strides and devices, which are given,
+        ``conditioning_free``, ``flash``, inference mode) computes eagerly
+        and then captures a CUDA graph of the forward over copies of its
+        inputs; a later call copies its inputs into the graph's, replays it
+        and returns a copy of its output, the eager result bit for bit. One
+        call at a time a module: the graphs share their buffers. Every other
+        call runs eagerly."""
+        if (x.is_cuda and precomputed_aligned_embeddings is not None
+                and rel_biases is not None and not self.training
+                and not torch.is_grad_enabled() and not torch.cuda.is_current_stream_capturing()):
+            return self._forward_graphed(x, timesteps, precomputed_aligned_embeddings,
+                                         conditioning_free, valid_len, rel_biases, flash)
+        return self._forward_eager(x, timesteps, precomputed_aligned_embeddings,
+                                   aligned_conditioning, conditioning_latent, conditioning_free,
+                                   valid_len, rel_biases, flash)
+
+    def _forward_graphed(self, x, timesteps, aligned, conditioning_free: bool, valid_len,
+                         rel_biases, flash: bool):
+        """``forward``'s graph path."""
+        inputs = (x, timesteps, aligned, valid_len, *rel_biases)
+        key = (conditioning_free, flash, torch.is_inference_mode_enabled(),
+               *(None if t is None else (t.shape, t.dtype, t.stride(), t.device)
+                 for t in inputs))
+        entry = self._graphs.get(key)
+        if entry is None:
+            # this call's result, and the warm-up of the kernels the capture records
+            out = self._forward_eager(x, timesteps, aligned, conditioning_free=conditioning_free,
+                                      valid_len=valid_len, rel_biases=rel_biases, flash=flash)
+            self._graphs[key] = self._capture(inputs, conditioning_free, flash)
+            return out
+        for static, t in zip(entry.inputs, inputs):
+            if t is not None:
+                static.copy_(t)
+        entry.graph.replay()
+        DiffusionTts.graph_replays += 1
+        flash_rel_attention.launches += entry.k3_launches
+        return entry.out.clone()
+
+    def _capture(self, inputs: tuple, conditioning_free: bool, flash: bool) -> _Graph:
+        """A graph of ``_forward_eager`` over copies of ``inputs``; it runs
+        nothing until replayed."""
+        static = tuple(None if t is None else t.clone() for t in inputs)
+        x, timesteps, aligned, valid_len, *rel_biases = static
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = self._graph_streams.get(x.device)
+        if stream is None:
+            stream = self._graph_streams[x.device] = torch.cuda.Stream(x.device)
+        graph = torch.cuda.CUDAGraph()
+        k3_before = flash_rel_attention.launches
+        with profiling.span("tts.diffusion.capture", batch=x.shape[0], frames=x.shape[1]), \
+                torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                 capture_error_mode="thread_local"):
+            out = self._forward_eager(x, timesteps, aligned, conditioning_free=conditioning_free,
+                                      valid_len=valid_len, rel_biases=rel_biases, flash=flash)
+        # the capture's K3 calls launched nothing: each replay counts them
+        k3_launches = flash_rel_attention.launches - k3_before
+        flash_rel_attention.launches = k3_before
+        DiffusionTts.graph_captures += 1
+        return _Graph(graph, static, out, k3_launches)
+
+    def _forward_eager(self, x, timesteps, precomputed_aligned_embeddings=None,
+                       aligned_conditioning=None, conditioning_latent=None,
+                       conditioning_free: bool = False, valid_len=None, rel_biases=None,
+                       flash: bool = False):
+        """``forward`` computed op by op."""
         valid_mask = None
         if valid_len is not None:
             pos = torch.arange(x.shape[1], device=x.device)[None, :]
