@@ -6,9 +6,10 @@ The numbers compared (each with its limit in ``limits/<cell>.json``):
 
 * ``ar_gap``: over the judged greedy requests, the widest gap by which a
   served token's logit lies below the reference's best at its position
-  (UnifiedVoice in float32 over the request's prompt and served tokens, the
-  conditioning latent worked out again from the voice's clips). Tokens
-  after a candidate's stop token are forced, not chosen, and left out.
+  (the configuration's AR reference, UnifiedVoice unless it names another,
+  in float32 over the request's prompt and served tokens, the conditioning
+  latent worked out again from the voice's clips). Tokens after a
+  candidate's stop token are forced, not chosen, and left out.
 * ``latent_err``: the relative L2 error of the latent re-extraction (the
   quality pipeline's winner, ``tts_batch``'s utterances) against the
   reference's latents of the same codes.
@@ -30,11 +31,12 @@ The numbers compared (each with its limit in ``limits/<cell>.json``):
   posterior mean, denormalized) from that step's input and model output.
 * ``structure_off``: an exact count of what the served requests did that
   the request did not ask for (``structure``): audio of another length
-  than its mel tokens give, another number of diffusion steps or
-  candidates, timesteps off the schedule, candidates scored other than the
-  reference fixes them, a winner that is not the best scored, another
-  trim, a served wav that is not the judged decoder's output, stream
-  chunks that are not slices of the judged window decodes.
+  than its mel tokens give, decode steps counted other than those tokens
+  took (so that ``mfu`` counts every one), another number of diffusion
+  steps or candidates, timesteps off the schedule, candidates scored other
+  than the reference fixes them, a winner that is not the best scored,
+  another trim, a served wav that is not the judged decoder's output,
+  stream chunks that are not slices of the judged window decodes.
 
 ``numbers(..., control=True)`` computes the same numbers (all but
 ``structure_off``) with the reference in the precision below the
@@ -45,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from portbench import reference
 from portbench import weights as bench_weights
 from portbench.reference import sampler as ref_sampler
 from portbench.reference.clvp import CLVP
@@ -52,7 +55,6 @@ from portbench.reference.diffusion import DiffusionTts
 from portbench.reference.hifigan import Hifigan
 from portbench.reference.layers import fp8_round, set_precision
 from portbench.reference.text import Tokenizer, conditioning_mels
-from portbench.reference.unified_voice import Config, UnifiedVoice
 from portbench.reference.univnet import UnivNet
 from portbench.system import load_clips, voice_seed
 
@@ -88,14 +90,18 @@ def bucketed(ids: list[list[int]], bucket: int, max_text: int) -> torch.Tensor:
 
 
 class Judge:
-    """The reference models of one configuration, with the run's weights."""
+    """The reference models of one configuration, with the run's weights;
+    the AR prior's is the one the configuration names
+    (``reference.autoregressive``)."""
 
     def __init__(self, config: dict, seed: int, device):
         self.config, self.seed, self.device = config, int(seed), device
         ar = config["autoregressive"]
-        self.ar_cfg = Config(**{k: ar[k] for k in Config.__dataclass_fields__ if k in ar})
+        ar_ref = reference.autoregressive(config)
+        prior = ar_ref.build(ar)
+        self.ar_cfg = prior.config
         self.tok = Tokenizer()
-        self.models = {"autoregressive": ("UnifiedVoice", UnifiedVoice(self.ar_cfg))}
+        self.models = {"autoregressive": (ar_ref.NAME, prior)}
         if config["api"] == "fast":
             self.models["hifigan"] = ("HifiganGenerator",
                                       Hifigan(ar["model_dim"],
@@ -112,7 +118,8 @@ class Judge:
         self.specs = {}
         for key, (name, model) in self.models.items():
             model.to(device).eval()
-            self.specs[name] = bench_weights.fill(model, name, seed)
+            self.specs[name] = bench_weights.fill(
+                model, name, seed, ar_ref.SUPPRESSED if key == "autoregressive" else None)
         self._cond = {}
 
     def model(self, key: str):
@@ -362,8 +369,10 @@ class Judge:
 def structure(served: list, mix: dict, config: dict) -> tuple[int, list[str]]:
     """What the served requests did that they did not ask for, counted
     exactly (``structure_off``), and a line for each. Every request: its wavs
-    hold the samples its mel tokens give, and a quality request ran its
-    preset's diffusion steps on the guided (doubled) batch. A judged request
+    hold the samples its mel tokens give, each decode batch took a decode
+    step (``ar_steps``) for each of those tokens but the one its prefill
+    samples, and a quality request ran its preset's diffusion steps on the
+    guided (doubled) batch. A judged request
     (its record kept): the timesteps of the spaced schedule, the candidates
     CLVP scored (as many as asked, fixed as the reference fixes the raw
     ones, against the text's tokens), the re-extracted winner among the best
@@ -379,6 +388,10 @@ def structure(served: list, mix: dict, config: dict) -> tuple[int, list[str]]:
         if s.wav_lengths != [want] * len(req.texts):
             out.append(f"request {req.index}: wav samples {s.wav_lengths}, "
                        f"{len(req.texts)} x {want} asked")
+        steps = s.batches * (req.mel_tokens - 1)
+        if s.ar_steps != steps:
+            out.append(f"request {req.index}: {s.ar_steps} AR decode steps counted, "
+                       f"{s.batches} x {req.mel_tokens - 1} served")
         if mix["entry"] == "tts_with_preset":
             _quality_structure(s, req, mix, stop, tok, out)
         elif s.record is not None:

@@ -9,6 +9,10 @@ clip's mel, its t=0 vector averaged over the clips
 runs the whole sequence at once with causal attention, the reference's
 forward, and returns the logits of every mel position and the final-norm
 latents; the served program's cache and batching are absent on purpose.
+
+The AR reference interface of ``portbench.reference``: ``NAME``,
+``PROGRAM_CONFIG``, ``SUPPRESSED``, ``build``, ``trunk_ops`` (``flops.gpt``)
+and ``conditioning_ops`` (``flops.conditioning_encoder``).
 """
 from __future__ import annotations
 
@@ -19,7 +23,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from portbench import flops
 from portbench.reference.layers import Dense, Embed, LayerNorm, Norm
+
+NAME = "UnifiedVoice"
+PROGRAM_CONFIG = "tortoise_tpu_torch.models.autoregressive:UnifiedVoiceConfig"
+# the calm code 83 and the vocabulary's last two codes, the start and stop
+# tokens
+SUPPRESSED = ("mel_head.bias", (83, -2, -1), -30.0)
+# keys of the configuration's ``autoregressive`` group that only the program
+# reads, ignored here on purpose: the int8 denses are a serving option judged
+# against this float32 model; the APIs multiply the codes' count by the
+# wav-to-mel compression for the latent re-extraction and the model divides
+# it out again, so it moves no served number
+IGNORED = ("quant_weights", "mel_length_compression")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,3 +227,25 @@ class UnifiedVoice(nn.Module):
                          self.mel_embedding(mel) + self.mel_pos_embedding(mel_pos)], dim=1)
         latents = self.final_norm(self.gpt(emb)[:, -(m + 1):-1])
         return self.mel_head(latents), latents
+
+
+def config(ar: dict) -> Config:
+    """The ``autoregressive`` group as this model's ``Config``; raises on a
+    key that is neither a field nor ``IGNORED``."""
+    fields = Config.__dataclass_fields__
+    unknown = sorted(k for k in ar if k not in fields and k not in IGNORED)
+    if unknown:
+        raise ValueError(f"{__name__}: unknown autoregressive key(s) {', '.join(unknown)}")
+    return Config(**{k: v for k, v in ar.items() if k in fields})
+
+
+def build(ar: dict) -> UnifiedVoice:
+    return UnifiedVoice(config(ar))
+
+
+def trunk_ops(ar: dict, batch: int, new: int, context: int) -> float:
+    return flops.gpt(ar["layers"], ar["model_dim"], batch, new, context)
+
+
+def conditioning_ops(ar: dict, frames: int, clips: int) -> float:
+    return flops.conditioning_encoder(ar["model_dim"], frames, clips)

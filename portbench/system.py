@@ -3,36 +3,61 @@ configuration file and driven one request at a time.
 
 ``Driver`` makes a ``TextToSpeech`` (the quality pipeline) or a
 ``TextToSpeechFast`` (the fast one) of ``tortoise_tpu_torch`` with the
-configuration's sizes and options; its models get the benchmark's weights
-through the program's random-weights path (``weights.install``).
+configuration's sizes and options, the AR prior's configuration class the
+one its reference module names (``program_ar_config``); its models get the
+benchmark's weights through the program's random-weights path
+(``weights.install``).
 ``Driver.serve`` answers one ``traffic.Request`` through the mix's entry
 point and returns what the client saw. The recorder's forward hooks keep
 what the judged requests hand between stages (the latent re-extraction,
 three diffusion steps, UnivNet and its blocks, HiFi-GAN's decodes) and,
-for every request, the shapes the per-layer counts need;
+for every request, the shapes the per-layer counts need. Its wrapper on
+``models.ar_sampler._step``, the one decode step every AR path calls (K2,
+the per-layer stack, the mesh), counts each request's decode steps;
 ``ops.decode_step.fused_decode_step.launches``, the program's counter of
-K2 steps, gives each request's decode steps.
+K2 launches, counts those that ran K2.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import random
 import time
+import types
 
 import numpy as np
 import torch
 from scipy.io import wavfile
 
+from portbench import reference
 from portbench import weights as bench_weights
 from portbench.reference import sampler as ref_sampler
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VOICES_DIR = os.path.join(HERE, "..", "tortoise_tpu", "voices")
 SAMPLE_RATE = 24000
-# the models whose weights the benchmark makes (and the reference loads)
-MADE = ("UnifiedVoice", "CLVP", "DiffusionTts", "UnivNetGenerator", "HifiganGenerator")
+# the models besides the AR prior whose weights the benchmark makes (and the
+# reference loads)
+MADE = ("CLVP", "DiffusionTts", "UnivNetGenerator", "HifiganGenerator")
+
+
+def made(config: dict) -> tuple[str, ...]:
+    """The class names of the models whose weights the benchmark makes:
+    the AR prior's from the configuration's reference module, then ``MADE``."""
+    return (reference.autoregressive(config).NAME,) + MADE
+
+
+def program_ar_config(config: dict):
+    """The program's configuration class of the AR prior, which the
+    configuration's reference module names (``PROGRAM_CONFIG``,
+    ``"<module>:<class>"`` under ``tortoise_tpu_torch``)."""
+    path = reference.autoregressive(config).PROGRAM_CONFIG
+    module, _, cls = path.partition(":")
+    if module.split(".")[0] != "tortoise_tpu_torch" or not cls:
+        raise ValueError(f"PROGRAM_CONFIG {path!r} is no tortoise_tpu_torch '<module>:<class>'")
+    return getattr(importlib.import_module(module), cls)
 
 
 def load_config(path: str) -> dict:
@@ -68,7 +93,8 @@ class Served:
     first: float
     done: float
     audio_s: float
-    k2_steps: int
+    ar_steps: int                     # AR decode steps (``ar_sampler._step`` calls)
+    k2_steps: int                     # of those, K2's launches
     batch: int                        # rows of each decode step
     batches: int                      # decode batches (the quality pipeline's)
     wav_lengths: list                 # samples of each wav served
@@ -83,16 +109,18 @@ class Served:
 class Recorder:
     """Forward hooks on the pipeline's models, and recording wrappers on
     CLVP's ``score_candidates``, the diffusion's ``get_conditioning`` and
-    ``timestep_independent_bucketed`` and HiFi-GAN's ``inference_window``. For
-    every request it lists the diffusion calls' (batch, frames, valid
-    frames) and the vocoder's frames; for a judged request (``keep``) it
-    copies to the host what each judged stage was given and gave: every
-    diffusion call's timestep, the latent re-extraction's codes and latents,
-    the diffusion's voice latent (its conditioning mels) and aligned
-    embeddings (the winner's latents), its first, middle and last steps,
-    CLVP's text, candidates and scores, UnivNet's noise, mel and output and each of its LVC blocks'
-    input and output, and each HiFi-GAN decode's frames, speaker latent,
-    valid frames, output and (a stream's window) first u-frame."""
+    ``timestep_independent_bucketed``, HiFi-GAN's ``inference_window`` and
+    the AR sampler's module-level ``_step`` (restored by ``close``). For
+    every request it counts the AR decode steps and lists the diffusion
+    calls' (batch, frames, valid frames) and the vocoder's frames; for a
+    judged request (``keep``) it copies to the host what each judged stage
+    was given and gave: every diffusion call's timestep, the latent
+    re-extraction's codes and latents, the diffusion's voice latent (its
+    conditioning mels) and aligned embeddings (the winner's latents), its
+    first, middle and last steps, CLVP's text, candidates and scores,
+    UnivNet's noise, mel and output and each of its LVC blocks' input and
+    output, and each HiFi-GAN decode's frames, speaker latent, valid
+    frames, output and (a stream's window) first u-frame."""
 
     def __init__(self, tts):
         self.keep = False
@@ -111,27 +139,36 @@ class Recorder:
             self.handles.append(getattr(vocoder, f"lvc_{i}").register_forward_hook(
                 lambda m, args, out, i=i: self._lvc(i, args, out)))
         self.wrapped = []
+        from tortoise_tpu_torch.models import ar_sampler
+        self._wrap(ar_sampler, "_step", self._ar_step)
         self._wrap(getattr(tts, "clvp", None), "score_candidates", self._clvp)
         self._wrap(getattr(tts, "diffusion", None), "get_conditioning", self._voice)
         self._wrap(getattr(tts, "diffusion", None), "timestep_independent_bucketed",
                    self._aligned)
         self._wrap(getattr(tts, "hifi_decoder", None), "inference_window", self._window)
 
-    def _wrap(self, model, method: str, record):
-        if model is None:
+    def _wrap(self, owner, method: str, record):
+        """Route ``owner.method`` (a model's method or a module's function)
+        through ``record(original, args, kwargs)``."""
+        if owner is None:
             return
-        original = getattr(model, method)
+        original = getattr(owner, method)
 
         def wrapper(*args, **kwargs):
             return record(original, args, kwargs)
 
-        setattr(model, method, wrapper)
-        self.wrapped.append((model, method))
+        setattr(owner, method, wrapper)
+        self.wrapped.append((owner, method, original))
 
     def reset(self):
+        self.ar_steps = 0
         self.diffusion_calls, self.vocoder_frames = [], []
         self.kept: dict = {"relatent": [], "diffusion": [], "vocoder": [], "lvc": [],
                            "hifigan": [], "clvp": [], "t": [], "voice": [], "aligned": []}
+
+    def _ar_step(self, original, args, kwargs):
+        self.ar_steps += 1
+        return original(*args, **kwargs)
 
     def _relatent(self, module, args, kwargs, out):
         if self.keep:
@@ -215,8 +252,11 @@ class Recorder:
     def close(self):
         for h in self.handles:
             h.remove()
-        for model, method in self.wrapped:
-            delattr(model, method)
+        for owner, method, original in reversed(self.wrapped):
+            if isinstance(owner, types.ModuleType):
+                setattr(owner, method, original)
+            else:
+                delattr(owner, method)
 
 
 class Driver:
@@ -230,9 +270,11 @@ class Driver:
         self.api = config["api"]
         self.device = device
         self.k2 = decode_step.fused_decode_step
-        self.specs = dict.fromkeys(MADE)
+        ar_ref = reference.autoregressive(config)
+        self.specs = dict.fromkeys(made(config))
         self.clips = {v: load_clips(v) for v in mix["voices"]}
-        with bench_weights.install(program_weights, seed, self.specs):
+        with bench_weights.install(program_weights, seed, self.specs,
+                                   {ar_ref.NAME: ar_ref.SUPPRESSED}):
             self.tts = self._build(options or {})
         self.latents = {}
         if self.api == "fast":
@@ -245,21 +287,19 @@ class Driver:
     def _build(self, options: dict):
         cfg = self.config
         ctor = dict(cfg["constructor"])
+        ar_config = program_ar_config(cfg)(**cfg["autoregressive"])
         if self.api == "quality":
             from tortoise_tpu_torch.api import TextToSpeech
-            from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
             from tortoise_tpu_torch.models.clvp import CLVPConfig
             from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTtsConfig
             return TextToSpeech(device=self.device, text_bucket=cfg["text_bucket"],
-                                ar_config=UnifiedVoiceConfig(**cfg["autoregressive"]),
+                                ar_config=ar_config,
                                 diffusion_config=DiffusionTtsConfig(**cfg["diffusion"]),
                                 clvp_config=CLVPConfig(**cfg["clvp"]), **ctor, **options)
         from tortoise_tpu_torch.api_fast import TextToSpeechFast
-        from tortoise_tpu_torch.models.autoregressive import UnifiedVoiceConfig
         ctor["dtype"] = getattr(torch, ctor["dtype"])
         return TextToSpeechFast(device=self.device, text_bucket=cfg["text_bucket"],
-                                ar_config=UnifiedVoiceConfig(**cfg["autoregressive"]),
-                                **ctor, **options)
+                                ar_config=ar_config, **ctor, **options)
 
     def _diffusion_steps(self) -> int:
         if self.mix["entry"] != "tts_with_preset":
@@ -312,7 +352,8 @@ class Driver:
         self.recorder.end()
         lengths = [int(w.shape[-1]) for w in wavs]
         served = Served(req, sent, first or done, done, sum(lengths) / SAMPLE_RATE,
-                        self.k2.launches - steps0, *self._batch(req, kwargs), lengths,
+                        self.recorder.ar_steps, self.k2.launches - steps0,
+                        *self._batch(req, kwargs), lengths,
                         stages=stages,
                         diffusion_calls=self.recorder.diffusion_calls,
                         vocoder_frames=self.recorder.vocoder_frames)

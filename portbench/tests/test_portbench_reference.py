@@ -20,9 +20,9 @@ from portbench.system import load_clips
 SEED = 2 ** 31 + 99
 
 
-def both(program, reference, name):
-    bench_weights.fill(program, name, SEED)
-    bench_weights.fill(reference, name, SEED)
+def both(program, reference, name, suppressed=None):
+    bench_weights.fill(program, name, SEED, suppressed)
+    bench_weights.fill(reference, name, SEED, suppressed)
     return program.eval(), reference.eval()
 
 
@@ -44,7 +44,7 @@ def test_unified_voice_served_and_reextracted():
     from tortoise_tpu_torch.models.autoregressive import UnifiedVoice, UnifiedVoiceConfig
     prog, ref = both(UnifiedVoice(UnifiedVoiceConfig(layers=2, model_dim=128, heads=4)),
                      ref_uv.UnifiedVoice(ref_uv.Config(layers=2, model_dim=128, heads=4)),
-                     "UnifiedVoice")
+                     "UnifiedVoice", ref_uv.SUPPRESSED)
     mels = conditioning_mels(load_clips("lj"), 3, "cpu")
     with torch.no_grad():
         cond = prog.get_conditioning(mels)

@@ -10,10 +10,11 @@ a model in the order of the sorted names:
 * dense and conv weights N(0, 1/fan_in); embeddings N(0, 0.02^2); the
   diffusion decoder's unconditioned embedding N(0, 1);
 * norm scales 1, biases 0, any other parameter 1;
-* UnifiedVoice's mel-head bias -30 at the calm code and the start and stop
-  tokens (``SUPPRESSED``): the random prior never emits them, so every
-  request decodes and delivers exactly the mel tokens it asks for (a stop
-  token would end it early, and a run of nine calm codes trims the quality
+* the AR prior's logit bias -30 at the calm code and the start and stop
+  tokens (its reference module's ``SUPPRESSED``, handed to ``fill`` and
+  ``install``): the random prior never emits them, so every request
+  decodes and delivers exactly the mel tokens it asks for (a stop token
+  would end it early, and a run of nine calm codes trims the quality
   pipeline's audio, each at seeds the weights choose).
 
 The kind of a parameter is read from the class name of the module that
@@ -28,9 +29,6 @@ import torch
 from torch import nn
 
 MATRIX = {"Dense", "Conv1d", "ConvTranspose1d"}
-# (model, parameter, indices, value): the calm code 83 and the vocabulary's
-# last two codes, the start and stop tokens
-SUPPRESSED = ("UnifiedVoice", "mel_head.bias", (83, -2, -1), -30.0)
 NORMS = {"Norm", "LayerNorm"}
 
 
@@ -60,9 +58,12 @@ def _constant(name: str) -> float:
     return 0.0 if name.endswith("bias") else 1.0
 
 
-def make(model_name: str, entries, seed: int, device) -> dict[str, torch.Tensor]:
+def make(model_name: str, entries, seed: int, device,
+         suppressed: tuple | None = None) -> dict[str, torch.Tensor]:
     """The state dict of ``entries`` (``spec``'s list) for ``model_name``
-    under the run's ``seed``, float32 on ``device``."""
+    under the run's ``seed``, float32 on ``device``; ``suppressed``
+    (parameter, indices, value) sets those entries of that parameter, which
+    the model must have."""
     g = torch.Generator(device=device).manual_seed(
         (int(seed) * 1000003 + zlib.crc32(model_name.encode())) % (1 << 63))
     total = sum(torch.Size(s).numel() for _, s, std in entries if std is not None)
@@ -75,34 +76,38 @@ def make(model_name: str, entries, seed: int, device) -> dict[str, torch.Tensor]
         else:
             out[name] = noise[at:at + n].view(shape).mul_(std)
             at += n
-    model, param, indices, value = SUPPRESSED
-    if model_name == model and param in out:
+    if suppressed is not None:
+        param, indices, value = suppressed
+        if param not in out:
+            raise ValueError(f"{model_name} has no parameter {param} to suppress codes in")
         out[param][list(indices)] = value
     return out
 
 
 @torch.no_grad()
-def fill(model: nn.Module, model_name: str, seed: int) -> list:
+def fill(model: nn.Module, model_name: str, seed: int, suppressed: tuple | None = None) -> list:
     """Load the benchmark's values into ``model`` (strict); returns its spec."""
     entries = spec(model)
     device = next(model.parameters()).device
-    model.load_state_dict(make(model_name, entries, seed, device), strict=True)
+    model.load_state_dict(make(model_name, entries, seed, device, suppressed), strict=True)
     return entries
 
 
 @contextlib.contextmanager
-def install(weights_module, seed: int, specs: dict):
+def install(weights_module, seed: int, specs: dict, suppressed: dict | None = None):
     """While the block runs, the program's random-weights hook
     (``weights_module.init_random``, which its loaders call for a model
     with no checkpoint) fills each model of the classes in ``specs`` with
-    the benchmark's values and records its spec there; other models keep
-    the program's own random values."""
+    the benchmark's values (``suppressed``: class name -> ``make``'s
+    ``suppressed``) and records its spec there; other models keep the
+    program's own random values."""
+    suppressed = suppressed or {}
     original = weights_module.init_random
 
     def init_random(model, program_seed):
         name = type(model).__name__
         if name in specs:
-            specs[name] = fill(model, name, seed)
+            specs[name] = fill(model, name, seed, suppressed.get(name))
         else:
             original(model, program_seed)
 
