@@ -162,12 +162,35 @@ Phases, each of which raises on failure (nothing falls back):
      allocated after a section beyond the headline instance's, or a kernel
      the sections use (K2 bf16, int8_weights and int8_cache, K1, K3, K4)
      launched no time; the bench's last line is printed.
-Before each path of phases 7-16 every launch counter is set to 0, and read
+ 17. the hybrid AR prior (models/granite_hybrid.py, Granite-4.0-H-Micro's
+     widths), in two places. Beside phases 3-6: kernel S1
+     (ssm_decode_step, csrc/ssm_step.cu) against its plain version at the
+     fast preset's B=96, 64 heads of 64, a 128-wide state, conv 4352 x 4,
+     over 8 chained steps (y, the bf16 state and the conv state, each
+     within its bound), two faults planted on the kernel's side (the
+     stored state a bf16 step low, the B and C conv state unshifted) each
+     outside them, then timed cold and back to back beside its bound
+     (portbench/kernels/ssm_step.py's operations and bytes). In phase 11,
+     after check_k1_one_kernel: the full-width TextToSpeech over the
+     hybrid prior (seeded random weights) answers one fast request at 96
+     candidates (S1 launched 36 times a decode step, no K2, one graph
+     capture and a replay every later step), then one more decode step,
+     a replay, under torch.profiler runs S1 36 times on the device, as
+     many as the replay adds to S1's counter.
+Before each path of phases 7-17 every launch counter is set to 0, and read
 after it: the "launches" of the kernels line sum the runs of phases 7-12, of
-phase 14's world of one, phase 15, phase 11's tools and phase 16, and the
-record keeps each path's counts apart (K1's are printed). Every UnivNet
-forward of those paths launches K4
-12 times, and K4's plain version never runs on the card there.
+phase 14's world of one, phase 15, phase 11's tools, phase 16 and phase
+17's request, and the record keeps each path's counts apart (K1's are
+printed). Every UnivNet forward of those paths launches K4
+12 times, and K4's plain version never runs on the card there. A CUDA
+graph's replay runs no wrapper: the decode step adds the S1 launches its
+capture recorded to S1's counter at each replay (phase 17 holds that
+count to the device's).
+
+    python3 chip_smoke.py --granite
+
+builds S1, K3 and K4 and runs phase 17 alone (about 2 minutes), its record
+in build/chip_smoke_granite.json; its kernels line holds S1's row.
 
     python3 chip_smoke.py --serving-walls [--root DIR]
 
@@ -436,6 +459,36 @@ LVC_HOPS = (8, 64, 256)
 LVC_CALLS_PER_FORWARD = 12
 # frames of a 500-token clip: 2176 mel frames plus UnivNet's 10 padding frames
 LVC_FRAMES = 2186
+# phase 17, the hybrid AR prior (models/granite_hybrid.py). Kernel S1,
+# ssm_decode_step, against its plain version at the main path's shape: the
+# fast preset's 96 candidates, Granite-4.0-H-Micro's 64 heads of 64, a
+# 128-wide state, conv 4352 x 4; SSM_STEPS chained steps, each side carrying
+# its own state and conv state, new x, B, C and dt every step
+SSM_NAME = "ssm_decode_step"
+SSM_SOURCE = "tortoise_tpu_torch/csrc/ssm_step.cu"
+SSM_BATCH, SSM_HEADS, SSM_STEPS = 96, 64, 8
+# y is float32 from the float32 update on both sides: sums over the 128
+# state values in another order, and the share of the few state elements
+# that have come to be stored a bf16 step apart; relative to max|plain|
+SSM_Y_REL_BOUND = 1e-3
+# the state is stored in bf16: where the float32 update lies by a hair on
+# the other side of a rounding boundary, the two store one bf16 step apart
+# (at most 2^-7 of the value), and such a pair stays apart, shrunk by the
+# decay, while later inputs may cancel the value around it (one element
+# read 19.7 steps of its own value apart after 8 steps, H100). Every
+# element within SSM_STATE_STEPS such steps of its (row, head)'s largest
+# value, at most SSM_STATE_DIFF_SHARE of them not equal; the conv state
+# holds shifted bf16 values: equal
+SSM_STATE_STEPS = 2.0
+SSM_STATE_DIFF_SHARE = 1e-2
+# faults the check must catch, planted on the kernel's side: the stored
+# state one bf16 step low before each step (the decay off by that step),
+# and the B and C channels' conv state left unshifted
+SSM_FAULTS = ("decay_one_bf16_step", "bc_shift_skipped")
+# the request: the fast preset at 96 candidates, one decode batch, the
+# decode step one CUDA graph replay after the first (captured) step; in
+# each step every Mamba layer launches S1 once
+GRANITE_REQUEST = ("fast", FAST_TEXT, 13)
 
 
 def _step_device_ms(run) -> float:
@@ -944,6 +997,251 @@ def check_k1_one_kernel(record: dict) -> None:
         raise AssertionError(f"a K1 call must run exactly one device kernel, K1's: {seen}")
 
 
+def _ssm_inputs(g, layers: int, state_scale: float):
+    """S1's inputs at B=SSM_BATCH: the in-projection's row (B, C, x and dt
+    are views of it, as on the main path), the conv's and the head's
+    parameters, and ``layers`` layers' (state, conv state)."""
+    import torch
+
+    from tortoise_tpu_torch.ops.ssm_step import D_CONV, D_STATE, HEAD_DIM
+
+    rand = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device="cuda") * scale
+    inner = SSM_HEADS * HEAD_DIM
+    conv_dim = inner + 2 * D_STATE
+    zxbcdt = rand(SSM_BATCH, inner + conv_dim + SSM_HEADS).to(torch.bfloat16)
+    params = (rand(conv_dim, 1, D_CONV, scale=0.5).to(torch.bfloat16),
+              rand(conv_dim, scale=0.1).to(torch.bfloat16),
+              rand(SSM_HEADS, scale=0.5), rand(SSM_HEADS, scale=0.5), rand(SSM_HEADS))
+    states = [(rand(SSM_BATCH, SSM_HEADS, HEAD_DIM, D_STATE, scale=state_scale)
+               .to(torch.bfloat16), rand(SSM_BATCH, conv_dim, D_CONV - 1).to(torch.bfloat16))
+              for _ in range(layers)]
+    return zxbcdt, zxbcdt[:, inner:inner + conv_dim], zxbcdt[:, inner + conv_dim:], params, states
+
+
+def _ssm_chain(seed: int, fault: str | None = None) -> dict:
+    """SSM_STEPS chained steps of S1 against its plain version (see
+    SSM_STEPS), ``fault`` planted on the kernel's side; the worst readings."""
+    import torch
+
+    from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step, ssm_decode_step_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    zxbcdt, xbc, dt, (conv_w, conv_b, dt_bias, a_log, d), [(state, conv)] = \
+        _ssm_inputs(g, 1, 0.3)
+    inner = xbc.shape[1] - 2 * state.shape[-1]
+    counters = torch.zeros(SSM_BATCH, dtype=torch.int32, device="cuda")
+    plain_state, plain_conv = state.clone(), conv.clone()
+    out = {"y_rel_err": 0.0, "y_max_abs_err": 0.0, "state_steps": 0.0, "state_diff_share": 0.0,
+           "conv_state_equal": True, "counters_zero": True}
+    for step in range(SSM_STEPS):
+        if step:
+            zxbcdt.copy_(torch.randn(zxbcdt.shape, generator=g, device="cuda"))
+        if fault == "decay_one_bf16_step":
+            state.mul_(1 - 2 ** -8)
+        kept = conv[:, inner:].clone() if fault == "bc_shift_skipped" else None
+        y = ssm_decode_step(xbc, dt, conv, conv_w, conv_b, dt_bias, a_log, d, state, counters)
+        if kept is not None:
+            conv[:, inner:].copy_(kept)
+        want = ssm_decode_step_plain(xbc, dt, plain_conv, conv_w, conv_b, dt_bias, a_log, d,
+                                     plain_state)
+        ws = plain_state.float()
+        step_size = ws.abs().amax((-2, -1), keepdim=True) * 2.0 ** -7
+        err = (y - want).abs().max().item()
+        out["y_max_abs_err"] = max(out["y_max_abs_err"], err)
+        out["y_rel_err"] = max(out["y_rel_err"], err / want.abs().max().item())
+        out["state_steps"] = max(out["state_steps"],
+                                 ((state.float() - ws).abs() / step_size).max().item())
+        out["state_diff_share"] = max(out["state_diff_share"],
+                                      (state != plain_state).float().mean().item())
+        out["conv_state_equal"] &= bool(torch.equal(conv, plain_conv))
+        out["counters_zero"] &= int(counters.abs().sum()) == 0
+    return out
+
+
+def _ssm_within(r: dict) -> bool:
+    return (r["y_rel_err"] <= SSM_Y_REL_BOUND and r["state_steps"] <= SSM_STATE_STEPS
+            and r["state_diff_share"] <= SSM_STATE_DIFF_SHARE and r["conv_state_equal"]
+            and r["counters_zero"])
+
+
+def check_ssm_step(record: dict) -> dict:
+    """Phase 17's first half: S1 against its plain version over SSM_STEPS
+    chained steps at B=96, within its bounds, and each of SSM_FAULTS
+    planted on the kernel's side outside them; then timed alone, an event
+    time a call with the L2 flushed before it (a 64 MB write), a device time
+    (calls back to back, alternating two layers' states of 100 MB each) and
+    its plain version's event time, beside its bound (the operations and
+    bytes of portbench/kernels/ssm_step.py, the benchmark's roofline).
+    Returns the kernel's row."""
+    import torch
+
+    from portbench.kernels.ssm_step import step as ssm_step_count
+    from tortoise_tpu_torch.ops.ssm_step import (D_CONV, D_STATE, HEAD_DIM, ssm_decode_step,
+                                                 ssm_decode_step_plain)
+
+    sound = _ssm_chain(17)
+    print(f"S1 against its plain version, B={SSM_BATCH}, {SSM_STEPS} chained steps: "
+          f"{json.dumps(sound)}")
+    if not _ssm_within(sound):
+        raise AssertionError(f"S1 disagrees with its plain version: {sound}")
+    planted = {}
+    for fault in SSM_FAULTS:
+        planted[fault] = _ssm_chain(17, fault)
+        print(f"S1 with {fault} planted: {json.dumps(planted[fault])}")
+        if _ssm_within(planted[fault]):
+            raise AssertionError(f"S1's check misses a planted fault, {fault}: "
+                                 f"{planted[fault]}")
+
+    # two layers' states, each 100 MB, in turn: no call finds its state in L2
+    _, xbc, dt, (conv_w, conv_b, dt_bias, a_log, d), states = \
+        _ssm_inputs(torch.Generator(device="cuda").manual_seed(18), 2, 0.1)
+    counters = torch.zeros(SSM_BATCH, dtype=torch.int32, device="cuda")
+    call = lambda i: ssm_decode_step(xbc, dt, states[i][1], conv_w, conv_b, dt_bias, a_log, d,
+                                     states[i][0], counters)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    times = []
+    for i in range(51):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(i % 2)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    event_ms = sorted(times[1:])[len(times) // 2]
+    turn = itertools.count()
+    dev_ms = _device_ms(lambda: call(next(turn) % 2), 50)
+    plain_ms = _time_ms(lambda: ssm_decode_step_plain(
+        xbc, dt, states[0][1], conv_w, conv_b, dt_bias, a_log, d, states[0][0]), 5)
+    ops, nbytes = ssm_step_count(SSM_BATCH, SSM_HEADS, HEAD_DIM, D_STATE, D_CONV)
+    bound_ms, bound_by = _bound(nbytes, ops, "f32")
+    row = {"name": SSM_NAME, "route": "CUDA sm_90a, port-only (no TPU kernel)",
+           "source": SSM_SOURCE, "replaces": "none (port-only)",
+           "max_abs_err": sound["y_max_abs_err"], "ms": event_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "device_ms": dev_ms, "library_device_ms": None,
+           "share_of_bound_device": bound_ms / dev_ms, "bytes": nbytes}
+    record["ssm_step"] = {"sound": sound, "planted": planted, "row": row}
+    print(f"S1 at B={SSM_BATCH}: event {event_ms:.4f} ms cold, device {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes): "
+          f"{100 * bound_ms / dev_ms:.1f}% of it")
+    return row
+
+
+def run_granite(clips, record: dict, launches: Launches) -> None:
+    """Phase 17's second half, after this process's last timing: the
+    full-width TextToSpeech over the hybrid prior (GraniteVoiceConfig,
+    seeded random weights) answers GRANITE_REQUEST, its launch counters set
+    to 0 before it and read after: S1 launched 36 times a decode step
+    (``ar_sampler._step`` calls), no K2, the first step captured and every
+    later one a graph replay. Then one more decode step, a replay, under
+    torch.profiler: its device kernels hold S1 as often as the replay adds
+    to S1's counter. The prior is freed after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.api import TextToSpeech
+    from tortoise_tpu_torch.models import ar_sampler
+    from tortoise_tpu_torch.models.granite_hybrid import GraniteVoice, GraniteVoiceConfig
+    from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step
+    from tortoise_tpu_torch.utils.profiling import device_events
+
+    print("--- phase 17: the hybrid AR prior, a full-width fast request")
+    t0 = time.perf_counter()
+    tts = TextToSpeech(device="cuda", enable_redaction=False, ar_config=GraniteVoiceConfig())
+    init_s = time.perf_counter() - t0
+    mamba_layers = len(tts.ar_cfg.mamba_layers)
+    steps = [0]
+    step = ar_sampler._step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    ar_sampler._step = counted
+    captures, replays = GraniteVoice.graph_captures, GraniteVoice.graph_replays
+    launches.reset()
+    try:
+        preset, text, seed = GRANITE_REQUEST
+        res, _ = _quality_request(tts, clips, preset, text, seed, launches)
+    finally:
+        ar_sampler._step = step
+    counts = launches.read()
+    launches.add(counts, "run_granite")
+    model = tts.autoregressive
+    res.update(init_s=init_s, decode_steps=steps[0],
+               graph_captures=GraniteVoice.graph_captures - captures,
+               graph_replays=GraniteVoice.graph_replays - replays,
+               decode_batches=[b for b, _ in model._caches])
+    if (res["launches"].get(SSM_NAME) != mamba_layers * steps[0] or steps[0] <= 1
+            or res["decode_batches"] != [FAST_CANDIDATES] or res["graph_captures"] != 1
+            or res["graph_replays"] != steps[0] - 1
+            or any(k.startswith("fused_decode_step") for k in res["launches"])):
+        raise AssertionError(f"the hybrid request must launch S1 {mamba_layers} times in each "
+                             f"of its decode steps, no K2, at B={FAST_CANDIDATES}, one capture "
+                             f"and a replay every later step: {res}")
+
+    cache = model.decode_cache(FAST_CANDIDATES, model.mel_head.weight.device)
+    x = torch.randn((FAST_CANDIDATES, tts.ar_cfg.model_dim), device="cuda").to(torch.bfloat16)
+    before, replays = ssm_decode_step.launches, GraniteVoice.graph_replays
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.decode_step(x, cache)
+            torch.cuda.synchronize()
+    added = ssm_decode_step.launches - before
+    on_device = sum(SSM_NAME in e["name"] for e in device_events(prof, "one graph replay"))
+    res.update(replay_s1_counted=added, replay_s1_on_device=on_device)
+    record["granite"] = res
+    print(f"hybrid request: {res['decode_steps']} decode steps, {counts[SSM_NAME]} S1 launches, "
+          f"one replay under the profiler: {on_device} S1 kernels on the device, {added} counted")
+    if added != mamba_layers or on_device != mamba_layers \
+            or GraniteVoice.graph_replays != replays + 1:
+        raise AssertionError(f"a graph replay must run S1 {mamba_layers} times on the device and "
+                             f"count as many: {on_device} ran, {added} counted, "
+                             f"{GraniteVoice.graph_replays - replays} replays")
+    del tts, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def granite_smoke() -> int:
+    """``--granite``: phases 1 and 2 for the sources the hybrid request
+    runs, then phase 17 alone; the kernels line holds S1's row."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    from tortoise_tpu_torch.ops import _build
+    from tortoise_tpu_torch.utils.audio import load_voice
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {_nvidia_smi()}; torch {torch.__version__}")
+    record = {"device": kind}
+    t0 = time.perf_counter()
+    sources = ("ssm_step", "flash_rel_attn", "lvc")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        usage = pool.submit(_build.resource_usage, "ssm_step")
+        list(pool.map(_build.build, sources))
+        record["ssm_ptxas"] = [ln.strip() for ln in usage.result().splitlines()
+                               if "Used" in ln or "spill" in ln or "entry function" in ln]
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s; S1, nvcc -Xptxas -v:\n  "
+          + "\n  ".join(record["ssm_ptxas"]))
+    row = check_ssm_step(record)
+    clips, _ = load_voice("train_dotrice")
+    launches = Launches()
+    run_granite(clips, record, launches)
+    row["launches"] = launches.total[SSM_NAME]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_granite.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"nvidia-smi: {_nvidia_smi()}")
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _head_rel_err(got, want, heads: int) -> float:
     """Largest error over (batch row, head) of a (B, C) attention output,
     each relative to that head's max|want|."""
@@ -1316,6 +1614,7 @@ class Launches:
         from tortoise_tpu_torch.ops import lvc
         from tortoise_tpu_torch.ops.attn import decode_attention_merged, flash_rel_attention
         from tortoise_tpu_torch.ops.decode_step import fused_decode_step
+        from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step
         from tortoise_tpu_torch.tools.bench_attn_body import attn_body
         from tortoise_tpu_torch.tools.decode_attn_kv128 import decode_attention_kv128
         from tortoise_tpu_torch.tools.probe_ops import contraction, probe
@@ -1324,7 +1623,8 @@ class Launches:
         self.by_variant = {fused_decode_step: _k2_row_name, attn_body: _k6_row_name}
         self.single = {K1_NAME: decode_attention_merged, K3_NAME: flash_rel_attention,
                        K4_NAME: lvc.location_variable_convolution_lvc,
-                       K5_NAME: decode_attention_kv128, K7_NAME: probe, K8_NAME: contraction}
+                       K5_NAME: decode_attention_kv128, K7_NAME: probe, K8_NAME: contraction,
+                       SSM_NAME: ssm_decode_step}
         self.total = {name(v): 0 for fn, name in self.by_variant.items()
                       for v in fn.launches_by_variant}
         self.total.update(dict.fromkeys(self.single, 0))
@@ -1445,10 +1745,14 @@ def run_tools(record: dict, launches: Launches) -> None:
     decisive agreement 1.0 over both caches), K2
     in bench_fused_ab's "on" requests only, finite audio, every section of
     profile_ar_step timed; then one K1 call under the profiler
-    (``check_k1_one_kernel``) and profile_diffusion_step in a process of
-    its own."""
+    (``check_k1_one_kernel``), phase 17's request (``run_granite``: after
+    every timing of this process, before the first process after which a
+    profiler window of this one records no device event), the trace phase
+    and profile_diffusion_step in processes of their own."""
     import importlib
     import math
+
+    from tortoise_tpu_torch.utils.audio import load_voice
 
     record["tools"] = {}
     launches.reset()
@@ -1501,6 +1805,7 @@ def run_tools(record: dict, launches: Launches) -> None:
     record["tools_launches"] = counts
     print("tools path launches", json.dumps(counts))
     check_k1_one_kernel(record)
+    run_granite(load_voice("train_dotrice")[0], record, launches)
     run_trace_phase(record, launches)
     _profile_diffusion_step(record)
 
@@ -3569,7 +3874,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged", "decode_attn_kv128",
-               "attn_body", "probe_ops")
+               "attn_body", "probe_ops", "ssm_step")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         usage = pool.submit(_build.resource_usage, "decode_attn_merged")
         list(pool.map(_build.build, sources))
@@ -3583,6 +3888,7 @@ def main() -> int:
     k3_row = check_flash_attention(record)
     k4_row = check_lvc(record)
     k1_row = check_decode_attention_merged(record)
+    ssm_row = check_ssm_step(record)
 
     t0 = time.perf_counter()
     tts = TextToSpeech(device="cuda", enable_redaction=False)
@@ -3619,7 +3925,7 @@ def main() -> int:
     print("K1 launches by path:", json.dumps({p: n[K1_NAME] for p, n in launches.by_path.items()
                                               if n[K1_NAME]}))
 
-    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows
+    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows + [ssm_row]
     for row in rows:
         row["launches"] = launches.total[row["name"]]
         if row["launches"] <= 0:
@@ -3656,4 +3962,6 @@ if __name__ == "__main__":
         sys.exit(trace_worker())
     if "--k1-ab" in sys.argv:
         sys.exit(k1_ab())
+    if sys.argv[1:] == ["--granite"]:
+        sys.exit(granite_smoke())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

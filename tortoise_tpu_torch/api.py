@@ -28,6 +28,11 @@ batch of candidates decodes over dp with the GPT's heads and cache over tp
 (K2 off, K1 in every layer); CLVP scores the candidates over dp; k > 1
 winners diffuse over dp when k divides by it. Codes, scores and mels are
 gathered, and every rank returns the same audio.
+
+``ar_config`` chooses the AR prior: a ``UnifiedVoiceConfig`` (the default)
+or a ``models.granite_hybrid.GraniteVoiceConfig``, the Granite-4.0-H hybrid
+of Mamba-2 and attention layers, which decodes with its own cache and
+step (K2 off), in bf16, with no mesh and no int8 option.
 """
 from __future__ import annotations
 
@@ -89,14 +94,17 @@ def pick_best_batch_size_for_device(device, config: UnifiedVoiceConfig = Unified
     (``torch.cuda.mem_get_info``) over one candidate's cache bytes at
     T = 1024, rounded down to a power of two and kept within [1, 128], or
     [1, 256] for the int8 cache (at 80 GB: 128 and 256, the JAX package's
-    tiers for 30 GB and up, which double for int8). CPU: 32, the
-    reference's default."""
+    tiers for 30 GB and up, which double for int8). The hybrid prior's
+    candidate holds its SSM, conv and attention state
+    (``GraniteVoiceConfig.cache_bytes_per_candidate``, 47.1 MB at its
+    published sizes). CPU: 32, the reference's default."""
     device = torch.device(device)
     if device.type != "cuda":
         b = 32
     else:
         free, _ = torch.cuda.mem_get_info(device)
-        per = kv_cache_bytes_per_candidate(config, _SIZING_CACHE_ROWS, kv_cache_dtype)
+        per = kv_cache_bytes_per_candidate(config, _SIZING_CACHE_ROWS, kv_cache_dtype) \
+            if isinstance(config, UnifiedVoiceConfig) else config.cache_bytes_per_candidate()
         fit = max(1, (free // 2) // per)
         cap = 256 if kv_cache_dtype == torch.int8 else 128
         b = min(cap, 1 << (int(fit).bit_length() - 1))
@@ -114,7 +122,11 @@ def load_autoregressive(config: UnifiedVoiceConfig, gpt_weights: str, device, dt
     whose stack alone is int8, quantized from the f32 weights before the
     cast, as the JAX package's ``int8_decode`` does. With ``mesh`` the
     weights are broadcast from its first rank, and with ``split`` this
-    rank's tp part of them kept (``parallel.sharding``)."""
+    rank's tp part of them kept (``parallel.sharding``). A
+    ``GraniteVoiceConfig`` builds the hybrid prior (its module imported only
+    then), with no stack: its own decode step."""
+    if not isinstance(config, UnifiedVoiceConfig):
+        return _load_hybrid(config, gpt_weights, device, dtype, allow_random, fused, mesh)
     cfg = weights_lib.resolve_gpt_quant(config, gpt_weights)
     with torch.device(device):
         model = UnifiedVoice(cfg)
@@ -127,6 +139,34 @@ def load_autoregressive(config: UnifiedVoiceConfig, gpt_weights: str, device, dt
         if split:
             shard_unified_voice(model, mesh)
     return model, source, (prepare_stacked_params(model.gpt, quantized) if fused else None)
+
+
+def _load_hybrid(config, gpt_weights: str, device, dtype, allow_random: bool, fused: bool,
+                 mesh):
+    """The Granite-4.0-H hybrid prior, seeded random (no checkpoint format
+    exists for it), cast to ``dtype``.
+    It has no K2 stack, no tp split and no int8 denses: those options raise."""
+    from tortoise_tpu_torch.models import granite_hybrid
+
+    if mesh is not None:
+        raise ValueError("mesh: the hybrid AR prior (GraniteVoiceConfig) does not run under a "
+                         "mesh")
+    if gpt_weights != "bf16":
+        raise ValueError(f"gpt_weights={gpt_weights!r}: the hybrid AR prior "
+                         "(GraniteVoiceConfig) has no int8 weights; pass 'bf16'")
+    if fused:
+        raise ValueError("gpt_fused_step: kernel K2 decodes GPT-2 only; the hybrid AR prior "
+                         "(GraniteVoiceConfig) decodes with its own step (leave it None)")
+    if not allow_random:
+        raise FileNotFoundError("no checkpoint format exists for the hybrid AR prior "
+                                "(GraniteVoiceConfig): it runs on random weights only")
+    with torch.device(device):
+        model = granite_hybrid.GraniteVoice(config)
+    warnings.warn("no checkpoint for the hybrid AR prior; using random weights (seed 0): "
+                  "the audio will be noise", stacklevel=3)
+    weights_lib.init_random(model, 0)
+    model = weights_lib.cast_for_inference(model, dtype).eval()
+    return model, "random", None
 
 
 def load_random_latent_converter(name: str, channels: int, device, models_dir,
@@ -196,14 +236,23 @@ class TextToSpeech:
                              f"{tuple(KV_CACHE_DTYPES)}")
         self.kv_cache_dtype = KV_CACHE_DTYPES[kv_cache_dtype]
         self.dtype = torch.bfloat16 if half else torch.float32
+        hybrid = ar_config is not None and not isinstance(ar_config, UnifiedVoiceConfig)
+        if hybrid and kv_cache_dtype != "bf16":
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: the hybrid AR prior "
+                             "(GraniteVoiceConfig) keeps its cache in its weights' dtype; "
+                             "pass 'bf16'")
+        if hybrid and is_cuda and not half:
+            raise ValueError("half=False: the hybrid AR prior's decode kernel "
+                             "(ops/ssm_step.py) takes a bf16 model on CUDA")
         # On CUDA both kernels run unless the caller turns one off. They
         # compute in bf16 and cast their inputs at the call boundary, as the
         # JAX fused step does, so half=False keeps them. The CPU takes their
         # plain versions only when asked to explicitly.
         # K2 decodes one device's whole stack: off under a mesh, as in the
-        # JAX package, whose fused kernel GSPMD cannot split
+        # JAX package, whose fused kernel GSPMD cannot split; the hybrid
+        # prior decodes with its own step
         self.gpt_fused_step = (is_cuda if gpt_fused_step is None else gpt_fused_step) \
-            and mesh is None
+            and mesh is None and not (hybrid and gpt_fused_step is None)
         self.flash_attn = is_cuda if flash_attn is None else flash_attn
         self.mesh = mesh
         self._batch_sharding = batch_sharding(mesh) if mesh is not None else None
@@ -239,8 +288,9 @@ class TextToSpeech:
             allow_random_weights, self.gpt_fused_step, mesh, split=True)
         # the cache splits over tp as the GPT stack did (whole when its heads
         # do not divide by tp)
+        gpt = getattr(self.autoregressive, "gpt", None)
         self._cache_sharding = KVCacheSharding(mesh) \
-            if self.autoregressive.gpt.tp is not None else None
+            if gpt is not None and gpt.tp is not None else None
         self.ar_cfg = self.autoregressive.config
         self.diff_cfg = diffusion_config or DiffusionTtsConfig(
             in_latent_channels=self.ar_cfg.model_dim)

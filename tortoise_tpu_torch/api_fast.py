@@ -130,6 +130,9 @@ class TextToSpeechFast:
         self.mesh = mesh
         self._batch_sharding = batch_sharding(mesh) if mesh is not None else None
 
+        if ar_config is not None and not isinstance(ar_config, UnifiedVoiceConfig):
+            raise ValueError(f"ar_config: TextToSpeechFast runs UnifiedVoice only (its HiFi-GAN "
+                             f"decodes UnifiedVoice's latents), got {type(ar_config).__name__}")
         self.autoregressive, self.ar_source, self._ar_stacked = load_autoregressive(
             ar_config or UnifiedVoiceConfig(), gpt_weights, self.device, dtype, models_dir,
             allow_random_weights, self.gpt_fused_step, mesh)

@@ -18,6 +18,11 @@ With ``settings.fused_step`` each decode step is kernel K2
 ``models.gpt2`` with the plain decode attention. Both write the new k/v rows
 into the cache in place (quantized with their scales into an int8 cache).
 
+A recurrent prior (``models/granite_hybrid.py``, which has ``prefill`` and
+``decode_step``) keeps its own decode cache of Mamba and attention state:
+its prompt runs once and its states fan out to the candidate rows, and its
+decode step is its own (K2 and the mesh are off for it).
+
 Under a mesh ``sample_speech`` decodes this rank's rows of the candidate
 batch (``batch_sharding``) into its part of the cache (``cache_sharding``,
 whole heads over tp), with the per-layer stack: K2 is off, as in the JAX
@@ -96,7 +101,11 @@ def _gpt_step(model: UnifiedVoice, settings: SamplerSettings, stacked, emb, cach
     """(B, 1, C) embedding -> post-ln_f hidden (B, C); writes the step's k/v
     rows into ``cache`` at ``pos`` in place. Into an int8 cache K2's bf16
     rows go quantized per (layer, batch, head), with the formula of the
-    plain layer stack (``gpt2.quantize_kv_rows``)."""
+    plain layer stack (``gpt2.quantize_kv_rows``). A recurrent prior's own
+    step gives its residual (B, C) and advances its cache."""
+    decode_step = getattr(model, "decode_step", None)
+    if decode_step is not None:
+        return decode_step(emb[:, 0], cache)
     if settings.fused_step:
         heads = model.config.heads
         y, k_rows, v_rows = fused_decode_step(stacked, emb[:, 0], cache, pos, heads)
@@ -119,27 +128,37 @@ def _prefill(model: UnifiedVoice, cond_latent, text_tokens, generator: torch.Gen
              batch_sharding: BatchShard | None = None, cache_sharding=None):
     """Prompt through the stack into a fresh cache, token 0 sampled. Returns
     (state, the latent of token 0 (B, D) f32 or None); under a mesh B is
-    this rank's rows of the ``num_samples``."""
+    this rank's rows of the ``num_samples``. A recurrent prior prefills its
+    one prompt and fans it out to its cache of ``num_samples`` rows
+    (``cache_dtype`` unused: its cache is in its weights' dtype)."""
     with profiling.span("tts.ar.prefill"):
         cfg = model.config
         prompt = model.compute_prompt(cond_latent, text_tokens)
-        if prompt.shape[0] != num_samples:
-            prompt = prompt.expand(num_samples, -1, -1)
-        if batch_sharding is not None:
-            prompt = prompt[batch_sharding.rows(num_samples)]
-        b, p_len, _ = prompt.shape
-        dev = prompt.device
-        # cache padded to a multiple of 256, as in the JAX sampler
-        cache_len = -(-(p_len + settings.max_generate) // 256) * 256
-        if cache_sharding is not None:
-            assert cache_sharding.tp == (model.gpt.tp.size if model.gpt.tp else 1), \
-                "the cache's tp split is not the stack's"
-            cache = init_kv_cache(cfg.gpt_config, num_samples, cache_len, dtype=cache_dtype,
-                                  device=dev, sharding=cache_sharding)
+        if hasattr(model, "prefill"):
+            if batch_sharding is not None or cache_sharding is not None:
+                raise ValueError("a recurrent AR prior does not decode under a mesh")
+            b, p_len, dev = num_samples, prompt.shape[1], prompt.device
+            cache = model.decode_cache(b, dev)
+            last_hidden = model.prefill(prompt, cache).expand(b, -1)
         else:
-            cache = init_kv_cache(cfg.gpt_config, b, cache_len, dtype=cache_dtype, device=dev)
-        hidden, _ = model.gpt(prompt, cache=cache, cache_index=0)
-        last_hidden = hidden[:, -1]
+            if prompt.shape[0] != num_samples:
+                prompt = prompt.expand(num_samples, -1, -1)
+            if batch_sharding is not None:
+                prompt = prompt[batch_sharding.rows(num_samples)]
+            b, p_len, _ = prompt.shape
+            dev = prompt.device
+            # cache padded to a multiple of 256, as in the JAX sampler
+            cache_len = -(-(p_len + settings.max_generate) // 256) * 256
+            if cache_sharding is not None:
+                assert cache_sharding.tp == (model.gpt.tp.size if model.gpt.tp else 1), \
+                    "the cache's tp split is not the stack's"
+                cache = init_kv_cache(cfg.gpt_config, num_samples, cache_len,
+                                      dtype=cache_dtype, device=dev, sharding=cache_sharding)
+            else:
+                cache = init_kv_cache(cfg.gpt_config, b, cache_len, dtype=cache_dtype,
+                                      device=dev)
+            hidden, _ = model.gpt(prompt, cache=cache, cache_index=0)
+            last_hidden = hidden[:, -1]
         seen = torch.zeros((b, cfg.number_mel_codes), dtype=torch.bool, device=dev)
         seen[:, 1] = True
         seen[:, cfg.start_mel_token] = True

@@ -53,8 +53,9 @@ REFERENCE_CHECKPOINTS = {
     "rlg_diffuser": "rlg_diffuser.pth",
 }
 # names of float parameters that stay float32 under cast_for_inference, as in
-# tortoise_tpu/weights.py::cast_for_inference
-_KEEP_F32 = ("Norm", "norm", "ln_", "qscale")
+# tortoise_tpu/weights.py::cast_for_inference, and the Mamba mixers' A_log,
+# dt_bias and D (models/granite_hybrid.py), float32 in mamba_ssm's serving
+_KEEP_F32 = ("Norm", "norm", "ln_", "qscale", "A_log", "dt_bias", "mamba.D")
 GPT_WEIGHTS = ("bf16", "int8", "int8_decode")
 _QUANT_NAMES = ("c_attn", "c_proj", "mlp_fc", "mlp_proj")
 
@@ -158,7 +159,8 @@ def init_random(model: nn.Module, seed: int) -> None:
 @torch.no_grad()
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast float parameters to the serving dtype, keeping normalization
-    parameters in float32."""
+    parameters (and the hybrid prior's Mamba decay and skip parameters) in
+    float32."""
     for name, p in model.named_parameters():
         if p.dtype == torch.float32 and not any(k in name for k in _KEEP_F32):
             p.data = p.data.to(dtype)
