@@ -17,7 +17,10 @@ Phases, each of which raises on failure (nothing falls back):
      their cache of T=512 rows, pos in {0, 37, the last decode step}): bf16
      at B=64 (tts_batch) and 128 (quality standard), int8_weights at B=96
      (quality fast with int8_decode weights), int8_cache and both at B=256
-     (quality high_quality over the int8 cache);
+     (quality high_quality over the int8 cache); then the bf16 step at
+     B in {1, 16, 64, 96, 128}, pos=500, T=768: its kernels put on the
+     stream a step (one persistent launch, `fused_decode_step.
+     device_launches`), event and device ms beside its bound;
   4. K3 (relative-position attention) against its plain version at B in
      {2, 1} (the fast preset's CFG batch, ultra_fast's), H=16, D=64, T in
      {256, 2229} with per-row valid lengths below T, and at T=1114 with 870
@@ -78,7 +81,7 @@ Phases, each of which raises on failure (nothing falls back):
      own (this script with --trace-worker): one K2 bf16 decode step at B=1,
      one K1 call at B=16 and one K3 call at B=2, T=2229, full width, inside
      one utils/profiling.trace block writing build/trace/*.pt.trace.json,
-     whose kernel events must hold K1, K2's products and attention and K3,
+     whose kernel events must hold K1, K2's one kernel ("K2 gemm") and K3,
      and its host side their launches; then
      profile_diffusion_step in a process of its own (K3 and the dense
      form at B=1 and 2, T=896 and 2229: host, event and busy ms a step);
@@ -186,6 +189,11 @@ printed). Every UnivNet forward of those paths launches K4
 graph's replay runs no wrapper: the decode step adds the S1 launches its
 capture recorded to S1's counter at each replay (phase 17 holds that
 count to the device's).
+
+    python3 chip_smoke.py --k2
+
+builds K2 and runs phases 1-3 alone (about a minute and a half), its record
+in build/chip_smoke_k2.json.
 
     python3 chip_smoke.py --granite
 
@@ -369,7 +377,7 @@ DIFFUSION_PROFILE_ARGS = ["--tout", "896", "2229", "--steps", "4", "--batch", "1
 # call (B=2, the fast preset's CFG batch, T=2229), full width; its file must
 # hold these kernel families and the host's launches
 TRACE_DIR = os.path.join(ROOT, "build", "trace")
-TRACE_FAMILIES = ("K1", "K2 gemm", "K2 attention", "K3")
+TRACE_FAMILIES = ("K1", "K2 gemm", "K3")
 TRACE_TIMEOUT = 300
 # phase 15. CLVP's plain-Transformer variant at the shipped widths (768, 20
 # + 20 layers, 12 heads, text table 350), float32 with TF32 off on the card
@@ -493,7 +501,7 @@ GRANITE_REQUEST = ("fast", FAST_TEXT, 13)
 
 def _step_device_ms(run) -> float:
     """Device ms of a whole K2 step, queued behind a sleep that outlasts the
-    host's ~150 launches a step."""
+    host's work to enqueue it."""
     return _device_ms(run, 20, STEP_SLEEP_CYCLES_PER_RUN)
 
 
@@ -554,7 +562,69 @@ def check_decode_step(record: dict) -> dict:
                                              library_device_ms=None)
     check_decode_step_bench_shapes(stacks, rows, cases, rand)
     record["k2"] = cases
+    record["k2_steps"] = k2_step_times(bf16_stack, rand)
     return rows
+
+
+# (batch, pos) of the bf16 step's times: the paths' batches at one position
+K2_STEP_BATCHES = (1, 16, 64, 96, 128)
+K2_STEP_POS, K2_STEP_T = 500, 768
+
+
+def k2_step_times(stacked, rand) -> list:
+    """The bf16 step at each of K2_STEP_BATCHES: the kernels it puts on the
+    stream a step (fused_decode_step.device_launches over the timed runs)
+    and its event and device ms beside its bound."""
+    import torch
+
+    from tortoise_tpu_torch.ops.decode_step import fused_decode_step
+
+    L, C, H = 30, 1024, 16
+    out = []
+    for b in K2_STEP_BATCHES:
+        cache = {"k": rand(L, b, K2_STEP_T, C), "v": rand(L, b, K2_STEP_T, C)}
+        x = rand(b, C)
+        run = lambda: fused_decode_step(stacked, x, cache, K2_STEP_POS, H)
+        run()
+        launches, steps = fused_decode_step.device_launches, fused_decode_step.launches
+        ms, device_ms = _time_ms(run, 20), _step_device_ms(run)
+        per_step = ((fused_decode_step.device_launches - launches)
+                    / (fused_decode_step.launches - steps))
+        bound_ms, bound_by = _k2_bound(stacked, x, cache, K2_STEP_POS, L, C)
+        row = {"B": b, "pos": K2_STEP_POS, "device_launches_per_step": per_step, "ms": ms,
+               "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K2 bf16 step B={b:3d} pos={K2_STEP_POS}: {per_step:g} kernel launch(es) a step, "
+              f"event {ms:.3f} ms, device {device_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        out.append(row)
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_smoke() -> int:
+    """Phases 1-3 alone: the card, K2's build, K2 against its plain version
+    and its step times."""
+    import torch
+
+    from tortoise_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": _nvidia_smi()}
+    print(f"device: {record['device']}; nvidia-smi: {record['nvidia_smi']}")
+    t0 = time.perf_counter()
+    _build.build("decode_step")
+    record["build_s"] = time.perf_counter() - t0
+    rows = check_decode_step(record)
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_k2.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"nvidia-smi: {_nvidia_smi()}")
+    print(json.dumps({"kernels": [rows[v] for v in K2_VARIANTS], "steps": record["k2_steps"]}))
+    print(json.dumps({"ok": True}))
+    return 0
 
 
 def bench_k2_shapes(text_bucket: int) -> tuple[int, int]:
@@ -3964,4 +4034,6 @@ if __name__ == "__main__":
         sys.exit(k1_ab())
     if sys.argv[1:] == ["--granite"]:
         sys.exit(granite_smoke())
+    if sys.argv[1:] == ["--k2"]:
+        sys.exit(k2_smoke())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

@@ -194,6 +194,67 @@ def test_decode_step_kernel_is_deterministic(cuda, kind, b, pos):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 96, 128])
+def test_decode_step_is_one_kernel_launch(cuda, b):
+    """A step of up to 128 rows is one persistent launch: the step counter
+    and the device-launch counter each rise by one."""
+    L, C, H, T = 2, 1024, 16, K2_EDGE_T
+    g = torch.Generator(device=cuda).manual_seed(3)
+    stacked, cache, x = _k2_inputs(g, cuda, "bf16", L, b, C, H, T)
+    steps, launches = fused_decode_step.launches, fused_decode_step.device_launches
+    fused_decode_step(stacked, x, cache, 100, H)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == steps + 1
+    assert fused_decode_step.device_launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,family", [("bf16", "K2 gemm"), ("int8_cache", "K2 gemm"),
+                                         ("int8_weights", "K2 gemm int8"),
+                                         ("int8_weights_int8_cache", "K2 gemm int8")])
+def test_decode_step_profiles_as_one_k2_op(cuda, kind, family):
+    """Under the profiler a step shows one device op of K2's families, in the
+    family the benchmark's frozen table (portbench.trace) gives its weights;
+    nothing of it falls into "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import trace
+
+    L, C, H, T = 2, 1024, 16, K2_EDGE_T
+    g = torch.Generator(device=cuda).manual_seed(4)
+    stacked, cache, x = _k2_inputs(g, cuda, kind, L, 96, C, H, T)
+    fused_decode_step(stacked, x, cache, 100, H)  # the build and the sync words
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_decode_step(stacked, x, cache, 100, H)
+        torch.cuda.synchronize()
+    device, _ = trace.events(prof)
+    k2 = [name for name, _, _ in device if trace.family(name).startswith("K2")]
+    assert len(k2) == 1 and trace.family(k2[0]) == family, k2
+    assert "tc_gemm_kernel" in k2[0]
+
+
+@pytest.mark.gpu
+def test_decode_step_phase_stamps_split_the_step(cuda):
+    """The kernel's own stamps (profiling.k2_phases): every phase of every
+    layer took time, and the phases' critical paths and barriers add up to
+    no more than the step."""
+    from tortoise_tpu_torch.utils.profiling import K2_PHASES, k2_phases
+
+    L, C, H, T = 2, 1024, 16, K2_EDGE_T
+    g = torch.Generator(device=cuda).manual_seed(5)
+    stacked, cache, x = _k2_inputs(g, cuda, "bf16", L, 16, C, H, T)
+    run = lambda: fused_decode_step(stacked, x, cache, 100, H)
+    run()
+    split = k2_phases(run, L)
+    assert set(split["by_phase"]) == set(K2_PHASES)
+    assert all(p["critical_us"] > 0 and p["mean_block_us"] > 0 for p in split["by_phase"].values())
+    total = sum(p["critical_us"] + p["barrier_us"] for p in split["by_phase"].values()) * L
+    assert 0 < total <= split["step_us"] * 1.01
+    assert fused_decode_step.trace is None
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t", [(1, 2, 100), (2, 16, 333), (2, 16, 64)])
 def test_flash_rel_attention_kernel_matches_plain(cuda, b, h, t):
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -18,12 +18,17 @@ quantization error.
 
 ``fused_decode_step`` dispatches on the device of ``x``: a CPU tensor runs
 ``fused_decode_step_plain``, a CUDA tensor launches the kernel (or raises).
-``plan_step`` sizes the kernel's launches from the step's shapes: how far
-each product splits K and how many prefix rows an attention block takes.
+The kernel is one persistent launch a step (up to ``MAX_ROWS`` batch rows; a
+larger batch launches in parts): one block an SM walks the step's phases
+between grid barriers. ``plan_step`` is its schedule, computed as the kernel
+computes it: each product's tile steps cut into one contiguous share a block
+(``product_pieces``), and the attention's prefix split so that its items
+fill the grid (``attn_split``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,16 +39,26 @@ from tortoise_tpu_torch.ops import _build
 HEAD_DIM = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_KERNEL = _build.Kernel("decode_step", "tt_decode_step", [_P] * 25 + [_I] * 10)
-# the card's SMs and the blocks a launch aims for, at most: two an SM, one
-# wave of the largest blocks (so no launch ends in a partial second wave)
+_KERNEL = _build.Kernel("decode_step", "tt_decode_step", [_P] * 28 + [_I] * 11)
+_GRID_KERNEL = _build.Kernel("decode_step", "tt_decode_step_blocks", [ctypes.POINTER(_I)])
+# an H100's SMs: the plan's grid where no card is asked (the CPU tests); on a
+# card the grid is its SMs times the blocks the occupancy API fits on one
 SMS = 132
-TARGET_BLOCKS = 2 * SMS
-GEMM_TILE = 64       # output features a product block takes (csrc kTM)
-GEMM_DEPTH = 64      # K depth of one of its stages (csrc kBK)
-ATTN_MIN_ROWS = 32   # prefix rows an attention split takes at least
-MAX_SPLITS = 8       # the splits of a tile or a head are one cluster: 8 at most
-                     # (the portable cluster size)
+MAX_ROWS = 128       # batch rows one launch holds (csrc kMaxRows)
+MAX_WIDTH = 1024     # C at most: a row pass gives each of 16 warps one 64-column tile
+GEMM_TILE = 64       # output features of a product tile (csrc kTM)
+GEMM_DEPTH = 64      # K depth of a tile step, one ring slot (csrc kBK)
+ATTN_MIN_ROWS = 32   # prefix rows an attention split takes at least (a bf16 slot's rows)
+ATTN_SPLIT_FLOATS = 68   # a split's (acc[64], m, l) in the workspace (csrc kSplitStride)
+SYNC_HEADER = 64     # sync words before the tile counters (csrc kSyncHeader)
+# a block's threads and shared memory (csrc kBlockThreads, kSmemBytes), and
+# what an H100 SM has: 228 KB of shared memory, 1 KB of it kept a block, and
+# 2048 threads
+BLOCK_THREADS = 544
+BLOCK_SMEM = 232448
+SM_SMEM, SM_SMEM_RESERVED, SM_THREADS = 233472, 1024, 2048
+# (N, K) of each product, in units of C
+PRODUCTS = {"qkv": (3, 1), "proj": (1, 1), "fc": (4, 1), "fc2": (1, 4)}
 _WEIGHTS = ("ln1", "wqkv", "bqkv", "wproj", "bproj", "ln2", "wfc", "bfc", "wfc2", "bfc2")
 _QSCALES = ("sqkv", "sproj", "sfc", "sfc2")
 # (weights, cache) -> variant name; each variant counts its own launches
@@ -129,32 +144,77 @@ def variant(stacked: dict, cache: dict) -> str:
     return VARIANTS[(stacked["wqkv"].dtype, cache["k"].dtype)]
 
 
-def plan_step(b: int, c: int, pos: int, heads: int) -> dict:
-    """The kernel's launch plan for a step at batch b, width c, position pos.
+def blocks_per_sm() -> int:
+    """The blocks of the kernel one SM holds by shared memory and threads:
+    the occupancy the plan's grid of ``SMS`` blocks a card assumes (on a card
+    ``tt_decode_step_blocks`` asks the occupancy API)."""
+    return min(SM_SMEM // (BLOCK_SMEM + SM_SMEM_RESERVED), SM_THREADS // BLOCK_THREADS)
 
-    Each product (N, K) = qkv (3c, c), proj (c, c), fc (4c, c), fc2 (c, 4c)
-    has N/64 output tiles; its K (K/64 steps) is split so that tiles x splits
-    comes near TARGET_BLOCKS without passing it, in MAX_SPLITS at most:
-    "ks_<name>" is the K steps of one split, and "splits_<name>" the count
-    that follows. The attention has b x heads blocks a split; "attn_rows" is
-    the prefix rows of one split (at least ATTN_MIN_ROWS, 0 at pos=0) and
-    "attn_splits" their count."""
-    out = {}
-    for name, (n, k) in {"qkv": (3 * c, c), "proj": (c, c), "fc": (4 * c, c),
-                         "fc2": (c, 4 * c)}.items():
-        steps = k // GEMM_DEPTH
-        want = min(steps, MAX_SPLITS, max(1, TARGET_BLOCKS // (n // GEMM_TILE)))
-        ks = -(-steps // want)
-        out[f"ks_{name}"], out[f"splits_{name}"] = ks, -(-steps // ks)
-    if pos == 0:
-        rows, splits = 0, 1
-    else:
-        want = min(max(1, TARGET_BLOCKS // (b * heads)), max(1, pos // ATTN_MIN_ROWS),
-                   MAX_SPLITS)
-        rows = -(-pos // want)
-        splits = -(-pos // rows)
-    out.update(attn_rows=rows, attn_splits=splits)
+
+def _share(g: int, blocks: int, units: int) -> int:
+    """Block g's share of ``units`` starts here (csrc share_lo)."""
+    return g * units // blocks
+
+
+def product_pieces(n: int, k: int, blocks: int) -> list[list[tuple[int, int, int]]]:
+    """Each block's pieces of an (n, k) product: its contiguous share of the
+    n/64 x k/64 tile steps (tile-major), cut at tile ends into (tile, first K
+    step, end K step). The steps go to the first min(blocks, steps) blocks,
+    so every block of a tile's pieces holds some. A tile whose steps two
+    blocks share is split in K, its pieces summed in block order."""
+    steps = k // GEMM_DEPTH
+    units = n // GEMM_TILE * steps
+    used = min(blocks, units)
+    out = []
+    for g in range(blocks):
+        u, hi, pieces = ((_share(g, used, units), _share(g + 1, used, units), [])
+                         if g < used else (units, units, []))
+        while u < hi:
+            t = u // steps
+            end = min(hi, (t + 1) * steps)
+            pieces.append((t, u - t * steps, end - t * steps))
+            u = end
+        out.append(pieces)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def max_pieces(c: int, blocks: int) -> int:
+    """The most tiles one block's share of any product touches: the
+    workspace's pieces a block."""
+    return max(len(p) for n, k in PRODUCTS.values()
+               for p in product_pieces(n * c, k * c, blocks))
+
+
+def attn_split(rows: int, heads: int, pos: int, blocks: int) -> tuple[int, int]:
+    """(prefix rows of an attention split, splits): as many splits as keep
+    rows x heads x splits items within the grid, ATTN_MIN_ROWS rows a split
+    at least, whole multiples of them; (0, 1) at pos=0."""
+    if pos == 0:
+        return 0, 1
+    want = max(1, min(blocks // (rows * heads), -(-pos // ATTN_MIN_ROWS)))
+    per = -(-(-(-pos // want)) // ATTN_MIN_ROWS) * ATTN_MIN_ROWS
+    return per, -(-pos // per)
+
+
+def plan_step(b: int, c: int, pos: int, heads: int, blocks: int | None = None) -> dict:
+    """The kernel's schedule for a step at batch b, width c, position pos on
+    a grid of ``blocks`` (default: ``SMS`` x ``blocks_per_sm()``).
+
+    "launches": one per ``MAX_ROWS`` batch rows, each (first row, rows,
+    "attn_rows" prefix rows of an attention split, "attn_splits" their
+    count); "max_pieces": the workspace's pieces a block of the products.
+    Each product's pieces a block follow from ``product_pieces``; the
+    attention's items, one a (batch row, head, split), go to the blocks in
+    contiguous shares."""
+    blocks = blocks or SMS * blocks_per_sm()
+    launches = []
+    for row0 in range(0, b, MAX_ROWS):
+        rows = min(MAX_ROWS, b - row0)
+        attn_rows, splits = attn_split(rows, heads, pos, blocks)
+        launches.append({"row0": row0, "rows": rows, "attn_rows": attn_rows,
+                         "attn_splits": splits})
+    return {"blocks": blocks, "max_pieces": max_pieces(c, blocks), "launches": launches}
 
 
 def _gelu_new(x: torch.Tensor) -> torch.Tensor:
@@ -241,6 +301,8 @@ def _check_cuda_args(stacked, x, cache, pos, heads):
     lcount, b, t, c = cache["k"].shape
     if c != heads * HEAD_DIM:
         raise ValueError(f"decode kernel needs head dim {HEAD_DIM}: C={c}, heads={heads}")
+    if c > MAX_WIDTH:
+        raise ValueError(f"decode kernel takes C <= {MAX_WIDTH}: C={c}")
     if x.shape != (b, c):
         raise ValueError(f"x {tuple(x.shape)} does not match cache batch/width {(b, c)}")
     if not 0 <= pos < t:
@@ -292,27 +354,68 @@ def fused_decode_step(stacked: dict, x: torch.Tensor, cache: dict, pos: int, hea
     x = x.to(torch.bfloat16)
     _check_cuda_args(stacked, x, cache, pos, heads)
     lcount, b, t, c = cache["k"].shape
-    plan = plan_step(b, c, pos, heads)
-    dev = x.device
-    bf = dict(dtype=torch.bfloat16, device=dev)
+    dev = x.get_device()
+    blocks = _grid(dev)
+    plan = plan_step(b, c, pos, heads, blocks)
+    rows = plan["launches"][0]["rows"]
+    splits = max(launch["attn_splits"] for launch in plan["launches"])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf = dict(dtype=torch.bfloat16, device=x.device)
     hidden = x.clone()
-    qkv, attn, ffn = (torch.empty((b, n * c), **bf) for n in (3, 1, 4))
+    xn, attn, ffn = (torch.empty((b, n * c), **bf) for n in (1, 1, 4))
     k_rows = torch.empty((lcount, b, c), **bf)
     v_rows = torch.empty_like(k_rows)
-    # the layer-norm statistics: (mean, M2) of each row's 64-column tiles
-    stats = torch.empty((c // GEMM_TILE, b, 2), dtype=torch.float32, device=dev)
+    # a launch's workspace: the products' pieces, the attention's splits
+    part = torch.empty((blocks, plan["max_pieces"], rows, GEMM_TILE), **f32)
+    attn_part = (torch.empty((rows * heads * splits * ATTN_SPLIT_FLOATS,), **f32)
+                 if splits > 1 else None)
+    sync = _sync_words(dev, SYNC_HEADER + 4 * c // GEMM_TILE + rows * heads)
+    trace = fused_decode_step.trace
     ptr = lambda d, n: d[n].data_ptr() if n in d else None
-    _KERNEL(
-        x.get_device(), hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
-        *(stacked[n].data_ptr() for n in _WEIGHTS), *(ptr(stacked, n) for n in _QSCALES),
-        cache["k"].data_ptr(), cache["v"].data_ptr(), ptr(cache, "k_scale"),
-        ptr(cache, "v_scale"), k_rows.data_ptr(), v_rows.data_ptr(), stats.data_ptr(),
-        lcount, b, t, c, int(pos),
-        plan["ks_qkv"], plan["ks_proj"], plan["ks_fc"], plan["ks_fc2"], plan["attn_rows"])
+    args = (hidden.data_ptr(), xn.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
+            *(stacked[n].data_ptr() for n in _WEIGHTS), *(ptr(stacked, n) for n in _QSCALES),
+            cache["k"].data_ptr(), cache["v"].data_ptr(), ptr(cache, "k_scale"),
+            ptr(cache, "v_scale"), k_rows.data_ptr(), v_rows.data_ptr(), part.data_ptr(),
+            attn_part.data_ptr() if attn_part is not None else None, sync.data_ptr(),
+            trace.data_ptr() if trace is not None else None, lcount, b)
+    for launch in plan["launches"]:
+        _KERNEL(dev, *args, launch["row0"], launch["rows"], t, c, int(pos),
+                launch["attn_rows"], launch["attn_splits"], plan["max_pieces"], blocks)
+        fused_decode_step.device_launches += 1
     fused_decode_step.launches += 1
     fused_decode_step.launches_by_variant[variant(stacked, cache)] += 1
     return (hidden, k_rows, v_rows, attn) if with_attention else (hidden, k_rows, v_rows)
 
 
+# the sync words of each device's steps (zero between calls) and its grid
+_SYNC: dict[int, torch.Tensor] = {}
+_GRID: dict[int, int] = {}
+
+
+def _grid(device: int) -> int:
+    """The kernel's grid on CUDA device ``device``: its SMs times the blocks
+    the occupancy API fits on one (asked once)."""
+    if device not in _GRID:
+        n = _I(0)
+        _GRID_KERNEL(device, ctypes.byref(n))
+        _GRID[device] = n.value
+    return _GRID[device]
+
+
+def _sync_words(device: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed words for the kernel's barriers and counters,
+    kept per device: the kernel leaves them zero."""
+    buf = _SYNC.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _SYNC[device] = torch.zeros(n, dtype=torch.int32, device=f"cuda:{device}")
+    return buf
+
+
+# steps (calls; the benchmark counts K2's steps here), steps by variant, and
+# the kernels the steps put on the stream: one a step of up to MAX_ROWS rows
 fused_decode_step.launches = 0
 fused_decode_step.launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)
+fused_decode_step.device_launches = 0
+# None, or an int64 CUDA tensor of (1 + 7 L, blocks, 4) that each launch
+# fills with its blocks' ns stamps (csrc StepArgs.trace): utils/profiling.k2_phases reads it
+fused_decode_step.trace = None

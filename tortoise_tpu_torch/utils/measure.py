@@ -20,7 +20,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # device_ms's head start for the host: ~0.25 ms of sleep (at ~2 GHz) for
 # each run it enqueues, against the few tens of microseconds a launch takes
 SLEEP_CYCLES_PER_RUN = 500_000
-# the same for a whole K2 decode step, whose ~150 launches take the host
+# the same for a whole K2 decode step (one launch up to 128 rows, a few
+# hundred microseconds of the wrapper's host work; more above 128 rows):
 # ~0.5 ms: ~2 ms of sleep a run
 STEP_SLEEP_CYCLES_PER_RUN = 4_000_000
 # the card's clock, about: cycles of sleep a millisecond

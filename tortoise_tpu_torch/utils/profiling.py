@@ -50,12 +50,14 @@ variant at full width (L=30, C=1024, T=768) at the batches the paths run:
 B=1 and B=16 at pos=500, B=96 at pos=566 (the fast request's last step).
 Per step: the CUDA-event time of back-to-back steps, the device time
 (``measure.device_ms``: no host time), and from one ``torch.profiler`` pass
-the device busy time and the device time by kernel family, so the launch
-gaps (event time minus busy time) show beside the kernels' own time. Beside
-the bf16 rows, the yardstick of K2's products: the device time of the
-step's 120 dense products as ``torch.matmul`` (cuBLAS) at the same shapes,
-which the port never calls. Every event and device time is taken before
-the first profiler pass.
+the device busy time and the device time by kernel family, so the host's
+gaps (event time minus busy time) show beside the kernel's own time. For
+the bf16 rows also the step's split by phase (``k2_phases``: the
+persistent kernel's own ns stamps a phase and block). Beside the bf16
+rows, the yardstick of K2's products: the device time of the step's 120
+dense products as ``torch.matmul`` (cuBLAS) at the same shapes, which the
+port never calls. Every event and device time is taken before the first
+profiler pass.
 
 ``--k4k6`` times K4 and K6 alone, event and device ms (no profiler). K4
 at UnivNet c32's shapes (F=2186 frames, B=1, f32) per hop: on kernels laid
@@ -348,6 +350,38 @@ def products_matmul(stacked: dict, xs: dict):
             torch.matmul(x, stacked["w" + key][l].t())
 
 
+K2_PHASES = ("qkv", "attention", "proj", "row_proj", "fc", "fc2", "row_fc2")
+
+
+def k2_phases(run, layers: int) -> dict:
+    """One K2 step (``run()``) with the kernel's stamps on: per phase kind,
+    the mean over layers of the time from the last block past the barrier
+    before it to the last block done with it ("critical_us"), of the
+    barrier after it ("barrier_us"), and of a block's own work
+    ("mean_block_us"); "step_us" from the first block's start to the last
+    block's end. One launch (B <= 128)."""
+    from tortoise_tpu_torch.ops import decode_step as ds
+
+    blocks = ds._grid(torch.cuda.current_device())
+    stamps = torch.zeros((1 + 7 * layers, blocks, 4), dtype=torch.int64, device="cuda")
+    ds.fused_decode_step.trace = stamps
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ds.fused_decode_step.trace = None
+    t = stamps.double().cpu() / 1e3
+    out = {k: {"critical_us": 0.0, "barrier_us": 0.0, "mean_block_us": 0.0} for k in K2_PHASES}
+    for ph in range(1, t.shape[0]):
+        row = out[K2_PHASES[(ph - 1) % 7]]
+        start = t[ph - 1, :, 2]
+        row["critical_us"] += (t[ph, :, 1].max() - start.max()).item() / layers
+        row["mean_block_us"] += (t[ph, :, 1] - start).mean().item() / layers
+        if ph + 1 < t.shape[0]:
+            row["barrier_us"] += (t[ph, :, 2].max() - t[ph, :, 1].max()).item() / layers
+    return {"step_us": (t[-1, :, 1].max() - t[0, :, 2].min()).item(), "by_phase": out}
+
+
 def profile_k2_variants(steps: int = 10) -> dict:
     """Per-step times of each K2 variant on random full-width inputs."""
     from torch.profiler import ProfilerActivity, profile
@@ -379,6 +413,9 @@ def profile_k2_variants(steps: int = 10) -> dict:
     for key, run in runs:
         out[key].update(step_ms=time_ms(run, steps),
                         device_ms=device_ms(run, steps, STEP_SLEEP_CYCLES_PER_RUN))
+    for key, run in runs:
+        if key.startswith("bf16 "):
+            out[key]["phases"] = k2_phases(run, L)
     for key, run in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
