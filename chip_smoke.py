@@ -1212,7 +1212,7 @@ def run_granite(clips, record: dict, launches: Launches) -> None:
 
     from tortoise_tpu_torch.api import TextToSpeech
     from tortoise_tpu_torch.models import ar_sampler
-    from tortoise_tpu_torch.models.granite_hybrid import GraniteVoice, GraniteVoiceConfig
+    from tortoise_tpu_torch.models.granite_hybrid import GraniteVoiceConfig
     from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step
     from tortoise_tpu_torch.utils.profiling import device_events
 
@@ -1229,7 +1229,8 @@ def run_granite(clips, record: dict, launches: Launches) -> None:
         return step(*args, **kwargs)
 
     ar_sampler._step = counted
-    captures, replays = GraniteVoice.graph_captures, GraniteVoice.graph_replays
+    model = tts.autoregressive
+    captures, replays = model.graphs.captures, model.graphs.replays
     launches.reset()
     try:
         preset, text, seed = GRANITE_REQUEST
@@ -1238,10 +1239,9 @@ def run_granite(clips, record: dict, launches: Launches) -> None:
         ar_sampler._step = step
     counts = launches.read()
     launches.add(counts, "run_granite")
-    model = tts.autoregressive
     res.update(init_s=init_s, decode_steps=steps[0],
-               graph_captures=GraniteVoice.graph_captures - captures,
-               graph_replays=GraniteVoice.graph_replays - replays,
+               graph_captures=model.graphs.captures - captures,
+               graph_replays=model.graphs.replays - replays,
                decode_batches=[b for b, _ in model._caches])
     if (res["launches"].get(SSM_NAME) != mamba_layers * steps[0] or steps[0] <= 1
             or res["decode_batches"] != [FAST_CANDIDATES] or res["graph_captures"] != 1
@@ -1253,7 +1253,7 @@ def run_granite(clips, record: dict, launches: Launches) -> None:
 
     cache = model.decode_cache(FAST_CANDIDATES, model.mel_head.weight.device)
     x = torch.randn((FAST_CANDIDATES, tts.ar_cfg.model_dim), device="cuda").to(torch.bfloat16)
-    before, replays = ssm_decode_step.launches, GraniteVoice.graph_replays
+    before, replays = ssm_decode_step.launches, model.graphs.replays
     with torch.inference_mode():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1266,10 +1266,10 @@ def run_granite(clips, record: dict, launches: Launches) -> None:
     print(f"hybrid request: {res['decode_steps']} decode steps, {counts[SSM_NAME]} S1 launches, "
           f"one replay under the profiler: {on_device} S1 kernels on the device, {added} counted")
     if added != mamba_layers or on_device != mamba_layers \
-            or GraniteVoice.graph_replays != replays + 1:
+            or model.graphs.replays != replays + 1:
         raise AssertionError(f"a graph replay must run S1 {mamba_layers} times on the device and "
                              f"count as many: {on_device} ran, {added} counted, "
-                             f"{GraniteVoice.graph_replays - replays} replays")
+                             f"{model.graphs.replays - replays} replays")
     del tts, model, cache
     gc.collect()
     torch.cuda.empty_cache()

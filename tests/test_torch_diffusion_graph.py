@@ -2,7 +2,7 @@
 ``timestep_embedding`` keeps on the device equals the one it built from
 numpy at every call, and a CPU sampling loop, whose calls are those of the
 quality API's, runs every forward eagerly. The graph path itself runs on a
-card only: tests/test_torch_diffusion_graph_gpu.py."""
+card only: tests/test_torch_graphs_gpu.py."""
 import numpy as np
 import pytest
 import torch
@@ -54,8 +54,7 @@ def test_cpu_sampling_loop_runs_every_forward_eagerly():
     model.eval()
     b, t = 1, 24
     gen = torch.Generator().manual_seed(0)
-    before = (dd.DiffusionTts.graph_captures, dd.DiffusionTts.graph_replays,
-              flash_rel_attention.launches)
+    before = (model.graphs.captures, model.graphs.replays, flash_rel_attention.launches)
     calls = []
     with torch.inference_mode():
         pre = torch.randn((2 * b, t, DIFF["model_channels"]), generator=gen)
@@ -71,6 +70,5 @@ def test_cpu_sampling_loop_runs_every_forward_eagerly():
                             torch.randn((b, t, 100), generator=gen), gen, SamplerConfig())
     assert mel.shape == (b, t, 100) and torch.isfinite(mel).all()
     assert len(calls) == 4 and len(set(calls)) == 4
-    assert not model._graphs
-    assert (dd.DiffusionTts.graph_captures, dd.DiffusionTts.graph_replays,
-            flash_rel_attention.launches) == before
+    assert not model.graphs._graphs
+    assert (model.graphs.captures, model.graphs.replays, flash_rel_attention.launches) == before

@@ -1,6 +1,6 @@
 """The hybrid prior's decode on the card: kernel ``ssm_decode_step`` against
-its plain version at the published widths, and the decode step's CUDA graph
-against the eager step.
+its plain version at the published widths. The decode step's CUDA graph is
+held to the eager step in tests/test_torch_graphs_gpu.py.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with a GPU and no jax (tests/conftest.py imports jax; skip it there):
@@ -12,22 +12,18 @@ Without a CUDA device the cases skip.
 import pytest
 import torch
 
-from tortoise_tpu_torch.models.ar_sampler import SamplerSettings, sample_speech
-from tortoise_tpu_torch.models.granite_hybrid import GraniteVoice, GraniteVoiceConfig
 from tortoise_tpu_torch.ops.ssm_step import (D_CONV, D_STATE, HEAD_DIM, ssm_decode_step,
                                              ssm_decode_step_plain)
-from tortoise_tpu_torch.weights import cast_for_inference, float32_device, init_random
+from tortoise_tpu_torch.weights import float32_device
 
 pytestmark = pytest.mark.gpu
 HEADS = 64
-# a period of both layer kinds at the published widths
-SMALL = GraniteVoiceConfig(layers=4, attention_layers=(2,))
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel and the graph run on the card")
+        pytest.skip("needs a CUDA device: the kernel runs on the card")
     return float32_device("cuda")
 
 
@@ -73,52 +69,3 @@ def test_kernel_matches_its_plain_version_at_b96(cuda):
         assert torch.equal(args[2], plain[2])       # shifts of bf16 values: exact
         assert int(args[9].abs().sum()) == 0
     assert ssm_decode_step.launches == launches + 3
-
-
-def _small_model(seed: int = 3) -> GraniteVoice:
-    with torch.device("cuda"):
-        model = GraniteVoice(SMALL)
-    init_random(model, seed)
-    return cast_for_inference(model, torch.bfloat16).eval()
-
-
-@torch.inference_mode()
-def test_graph_replay_equals_the_eager_step_over_50_steps(cuda):
-    model = _small_model()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    b = 8
-    prompt = torch.randn((1, 30, SMALL.model_dim), generator=gen, device="cuda") \
-        .to(torch.bfloat16) * 0.05
-    graphed = model.decode_cache(b, cuda)
-    model.prefill(prompt, graphed)
-    eager = {k: v.clone() for k, v in graphed.items() if torch.is_tensor(v)}
-    captures, replays = GraniteVoice.graph_captures, GraniteVoice.graph_replays
-    for step in range(50):
-        x = (torch.randn((b, SMALL.model_dim), generator=gen, device="cuda") * 0.05) \
-            .to(torch.bfloat16)
-        got = model.decode_step(x, graphed)
-        want = model._decode_layers(x, eager)
-        assert torch.equal(got, want), (step, (got - want).abs().max().item())
-    for name in ("ssm", "conv", "k", "v", "pos"):
-        assert torch.equal(graphed[name], eager[name]), name
-    assert GraniteVoice.graph_captures == captures + 1
-    assert GraniteVoice.graph_replays == replays + 49
-
-
-@torch.inference_mode()
-def test_the_graph_is_captured_once_and_replayed_every_later_step(cuda):
-    model = _small_model()
-    cond = torch.randn((1, SMALL.model_dim), device="cuda").to(torch.bfloat16) * 0.1
-    text = torch.tensor([[5, 6, 7, 8, 0, 0]], device="cuda")
-    settings = SamplerSettings(max_generate=20, emit_latents=False)
-    mamba_layers = len(SMALL.mamba_layers)
-    for call in range(2):
-        captures, replays = GraniteVoice.graph_captures, GraniteVoice.graph_replays
-        launches = ssm_decode_step.launches
-        codes, _ = sample_speech(model, cond, text, torch.Generator(device="cuda").manual_seed(4),
-                                 4, settings)
-        steps = settings.max_generate - 1
-        assert codes.shape == (4, settings.max_generate)
-        assert GraniteVoice.graph_captures == captures + (call == 0)
-        assert GraniteVoice.graph_replays == replays + steps - (call == 0)
-        assert ssm_decode_step.launches == launches + steps * mamba_layers

@@ -34,7 +34,7 @@ from tortoise_tpu_torch.models.blocks import AttentionBlock, GroupNorm32
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, silu
 from tortoise_tpu_torch.ops.attn import flash_rel_attention, rel_bias_vector
 from tortoise_tpu_torch.ops.interpolate import nearest_interpolate
-from tortoise_tpu_torch.utils import profiling
+from tortoise_tpu_torch.utils.graphs import Graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,31 +122,13 @@ class _Stacked(nn.Module):
         self.n = n
 
 
-@dataclasses.dataclass
-class _Graph:
-    """One captured forward: the static inputs a replay refills, the static
-    output it rewrites, and the K3 launches it runs."""
-    graph: torch.cuda.CUDAGraph
-    inputs: tuple
-    out: torch.Tensor
-    k3_launches: int
-
-
 class DiffusionTts(nn.Module):
-    # forward's CUDA graphs, process-wide: captured, and replayed in place
-    # of an eager forward
-    graph_captures = 0
-    graph_replays = 0
-
     def __init__(self, config: DiffusionTtsConfig = DiffusionTtsConfig(),
                  dtype: torch.dtype | None = None):
         super().__init__()
-        # input signature -> _Graph; the graphs share one memory pool and,
-        # per device, one capture stream. A graph's static inputs and output
-        # stay allocated: 9.1 MB at B=2 over 1114 frames
-        self._graphs: dict[tuple, _Graph] = {}
-        self._graph_pool = None
-        self._graph_streams: dict[torch.device, torch.cuda.Stream] = {}
+        # forward's graphs, one an input signature; a graph's static inputs
+        # and output stay allocated: 9.1 MB at B=2 over 1114 frames
+        self.graphs = Graphs("tts.diffusion.capture", ("batch", "frames"), flash_rel_attention)
         cfg = self.config = config
         ch = cfg.model_channels
         self.compute_dtype = dtype
@@ -251,8 +233,7 @@ class DiffusionTts(nn.Module):
         return vec(self.layers_scan), vec(self.cond_scan)
 
     def _apply(self, fn, *args, **kwargs):
-        # a graph reads the parameters where they lay when it was captured
-        self._graphs.clear()
+        self.graphs.clear()
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, x, timesteps, precomputed_aligned_embeddings=None,
@@ -270,67 +251,24 @@ class DiffusionTts(nn.Module):
 
         A call on the card in eval mode without grad, given
         precomputed_aligned_embeddings and rel_biases and outside a capture,
-        takes the graph path: the first call of an input signature (the
-        inputs' shapes, dtypes, strides and devices, which are given,
-        ``conditioning_free``, ``flash``, inference mode) computes eagerly
-        and then captures a CUDA graph of the forward over copies of its
-        inputs; a later call copies its inputs into the graph's, replays it
-        and returns a copy of its output, the eager result bit for bit. One
-        call at a time a module: the graphs share their buffers. Every other
-        call runs eagerly."""
-        if (x.is_cuda and precomputed_aligned_embeddings is not None
-                and rel_biases is not None and not self.training
-                and not torch.is_grad_enabled() and not torch.cuda.is_current_stream_capturing()):
-            return self._forward_graphed(x, timesteps, precomputed_aligned_embeddings,
-                                         conditioning_free, valid_len, rel_biases, flash)
+        replays a CUDA graph of the forward (``utils/graphs.py``), one an
+        input signature (the given inputs' shapes, dtypes, strides and
+        devices, ``conditioning_free``, ``flash``, inference mode), captured
+        after the signature's first call computes eagerly: the eager result
+        bit for bit. One call at a time a module: the graphs share their
+        buffers. Every other call runs eagerly."""
+        if precomputed_aligned_embeddings is not None and rel_biases is not None \
+                and Graphs.eligible(self, x):
+            inputs = (x, timesteps, precomputed_aligned_embeddings, valid_len, *rel_biases)
+            key = (conditioning_free, flash,
+                   *(None if t is None else (t.shape, t.dtype, t.stride(), t.device)
+                     for t in inputs))
+            return self.graphs(key, lambda x, ts, aligned, valid, *biases: self._forward_eager(
+                x, ts, aligned, conditioning_free=conditioning_free, valid_len=valid,
+                rel_biases=biases, flash=flash), inputs)
         return self._forward_eager(x, timesteps, precomputed_aligned_embeddings,
                                    aligned_conditioning, conditioning_latent, conditioning_free,
                                    valid_len, rel_biases, flash)
-
-    def _forward_graphed(self, x, timesteps, aligned, conditioning_free: bool, valid_len,
-                         rel_biases, flash: bool):
-        """``forward``'s graph path."""
-        inputs = (x, timesteps, aligned, valid_len, *rel_biases)
-        key = (conditioning_free, flash, torch.is_inference_mode_enabled(),
-               *(None if t is None else (t.shape, t.dtype, t.stride(), t.device)
-                 for t in inputs))
-        entry = self._graphs.get(key)
-        if entry is None:
-            # this call's result, and the warm-up of the kernels the capture records
-            out = self._forward_eager(x, timesteps, aligned, conditioning_free=conditioning_free,
-                                      valid_len=valid_len, rel_biases=rel_biases, flash=flash)
-            self._graphs[key] = self._capture(inputs, conditioning_free, flash)
-            return out
-        for static, t in zip(entry.inputs, inputs):
-            if t is not None:
-                static.copy_(t)
-        entry.graph.replay()
-        DiffusionTts.graph_replays += 1
-        flash_rel_attention.launches += entry.k3_launches
-        return entry.out.clone()
-
-    def _capture(self, inputs: tuple, conditioning_free: bool, flash: bool) -> _Graph:
-        """A graph of ``_forward_eager`` over copies of ``inputs``; it runs
-        nothing until replayed."""
-        static = tuple(None if t is None else t.clone() for t in inputs)
-        x, timesteps, aligned, valid_len, *rel_biases = static
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        stream = self._graph_streams.get(x.device)
-        if stream is None:
-            stream = self._graph_streams[x.device] = torch.cuda.Stream(x.device)
-        graph = torch.cuda.CUDAGraph()
-        k3_before = flash_rel_attention.launches
-        with profiling.span("tts.diffusion.capture", batch=x.shape[0], frames=x.shape[1]), \
-                torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
-                                 capture_error_mode="thread_local"):
-            out = self._forward_eager(x, timesteps, aligned, conditioning_free=conditioning_free,
-                                      valid_len=valid_len, rel_biases=rel_biases, flash=flash)
-        # the capture's K3 calls launched nothing: each replay counts them
-        k3_launches = flash_rel_attention.launches - k3_before
-        flash_rel_attention.launches = k3_before
-        DiffusionTts.graph_captures += 1
-        return _Graph(graph, static, out, k3_launches)
 
     def _forward_eager(self, x, timesteps, precomputed_aligned_embeddings=None,
                        aligned_conditioning=None, conditioning_latent=None,

@@ -51,6 +51,7 @@ from tortoise_tpu_torch.models.blocks import ConditioningEncoder
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed
 from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step
 from tortoise_tpu_torch.utils import profiling
+from tortoise_tpu_torch.utils.graphs import Graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,22 +312,7 @@ class HybridLayer(nn.Module):
         self.shared_mlp = SharedMLP(cfg)
 
 
-@dataclasses.dataclass
-class _Graph:
-    """One captured decode step: its static input and output, and the
-    ``ssm_decode_step`` launches a replay makes."""
-    graph: torch.cuda.CUDAGraph
-    emb: torch.Tensor
-    out: torch.Tensor
-    launches: int
-
-
 class GraniteVoice(nn.Module):
-    # the decode step's CUDA graphs, process-wide: captured, and replayed
-    # in place of an eager step
-    graph_captures = 0
-    graph_replays = 0
-
     def __init__(self, config: GraniteVoiceConfig = GraniteVoiceConfig()):
         super().__init__()
         cfg = self.config = config
@@ -340,15 +326,13 @@ class GraniteVoice(nn.Module):
         self.final_norm = RMSNorm(d, cfg.rms_norm_eps)
         self.mel_head = Dense(d, cfg.number_mel_codes)
         # (batch, device) -> the decode cache of that many candidate rows, the
-        # last size asked for only; its graphs use one memory pool and a
-        # capture stream a device
+        # last size asked for only; the decode step's graphs read it
         self._caches: dict = {}
-        self._graph_pool = None
-        self._graph_streams: dict = {}
+        self.graphs = Graphs("tts.ar.capture", ("rows",), ssm_decode_step)
 
     def _apply(self, fn, *args, **kwargs):
-        # a cache's graphs read the parameters where they lay when captured
         self._caches.clear()
+        self.graphs.clear()
         return super()._apply(fn, *args, **kwargs)
 
     @property
@@ -449,7 +433,7 @@ class GraniteVoice(nn.Module):
         cache = self._caches.get(key)
         if cache is None:
             self._caches.clear()
-            self._graph_pool = None
+            self.graphs.clear()
             cfg = self.config
             n_m, n_a = len(cfg.mamba_layers), len(cfg.attention_layers)
             kv = (n_a, batch, cfg.num_key_value_heads, cfg.cache_rows, cfg.head_dim)
@@ -462,8 +446,7 @@ class GraniteVoice(nn.Module):
                     "k": torch.zeros(kv, dtype=self._dtype, device=device),
                     "v": torch.zeros(kv, dtype=self._dtype, device=device),
                     "pos": torch.zeros((1,), dtype=torch.long, device=device),
-                    "counters": torch.zeros((batch,), dtype=torch.int32, device=device),
-                    "graphs": {}}
+                    "counters": torch.zeros((batch,), dtype=torch.int32, device=device)}
             self._caches[key] = cache
         return cache
 
@@ -511,41 +494,12 @@ class GraniteVoice(nn.Module):
 
     def decode_step(self, x, cache):
         """One decode step: the embeddings x (B, C) of the rows' last tokens
-        -> the residual (B, C) float32, the cache advanced. On the card in
-        eval mode without grad it replays the cache's CUDA graph (captured
-        after the first such call computes eagerly); otherwise eager."""
-        if not (x.is_cuda and not self.training and not torch.is_grad_enabled()
-                and not torch.cuda.is_current_stream_capturing()):
+        -> the residual (B, C) float32, ``cache`` (the model's, of B rows)
+        advanced. On the card in eval mode without grad it replays a CUDA
+        graph of the step over that cache (``utils/graphs.py``), captured
+        after the cache's first such call computes eagerly; otherwise
+        eager."""
+        if not Graphs.eligible(self, x):
             return self._decode_layers(x, cache)
-        key = (x.dtype, torch.is_inference_mode_enabled())
-        entry = cache["graphs"].get(key)
-        if entry is None:
-            out = self._decode_layers(x, cache)
-            cache["graphs"][key] = self._capture(x, cache)
-            return out
-        entry.emb.copy_(x)
-        entry.graph.replay()
-        GraniteVoice.graph_replays += 1
-        ssm_decode_step.launches += entry.launches
-        return entry.out.clone()
-
-    def _capture(self, x, cache) -> _Graph:
-        """A graph of ``_decode_layers`` over a copy of ``x``; it runs
-        nothing until replayed."""
-        emb = x.clone()
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        stream = self._graph_streams.get(x.device)
-        if stream is None:
-            stream = self._graph_streams[x.device] = torch.cuda.Stream(x.device)
-        graph = torch.cuda.CUDAGraph()
-        before = ssm_decode_step.launches
-        with profiling.span("tts.ar.capture", rows=x.shape[0]), \
-                torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
-                                 capture_error_mode="thread_local"):
-            out = self._decode_layers(emb, cache)
-        # the capture's kernel calls launched nothing: each replay counts them
-        launches = ssm_decode_step.launches - before
-        ssm_decode_step.launches = before
-        GraniteVoice.graph_captures += 1
-        return _Graph(graph, emb, out, launches)
+        # the cache lives until the graphs are cleared (``decode_cache``)
+        return self.graphs((id(cache), x.dtype), lambda x: self._decode_layers(x, cache), (x,))

@@ -160,11 +160,11 @@ def init_random(model: nn.Module, seed: int) -> None:
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast float parameters to the serving dtype, keeping normalization
     parameters (and the hybrid prior's Mamba decay and skip parameters) in
-    float32."""
-    for name, p in model.named_parameters():
-        if p.dtype == torch.float32 and not any(k in name for k in _KEEP_F32):
-            p.data = p.data.to(dtype)
-    return model
+    float32. Through ``Module._apply``, as ``.to()``: a module that keeps
+    what reads its parameters' storage (a CUDA graph) drops it."""
+    cast = {id(p) for name, p in model.named_parameters()
+            if p.dtype == torch.float32 and not any(k in name for k in _KEEP_F32)}
+    return model._apply(lambda t: t.to(dtype) if id(t) in cast else t)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
