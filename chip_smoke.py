@@ -497,6 +497,17 @@ SSM_FAULTS = ("decay_one_bf16_step", "bc_shift_skipped")
 # decode step one CUDA graph replay after the first (captured) step; in
 # each step every Mamba layer launches S1 once
 GRANITE_REQUEST = ("fast", FAST_TEXT, 13)
+# the diffusion decoder's masked GroupNorm chain (group_norm_act): its site
+# forms (film, silu, out dtype), checked at B=2, C=1024 over these frames
+# (one row full, one ragged) and timed at the longest bucket; the decoder's
+# step profiled with the kernel and with every chain op by op
+GN_NAME = "group_norm_act"
+GN_SOURCE = "tortoise_tpu_torch/csrc/group_norm.cu"
+GN_FRAMES = (1, 557, 835, 1114, 777)
+GN_TIMED_FRAMES = 1114
+GN_STEP_FRAMES = (557, 1114)
+GN_STEPS = 20
+GN_SPLIT_TIMEOUT = 600
 
 
 def _step_device_ms(run) -> float:
@@ -1312,6 +1323,261 @@ def granite_smoke() -> int:
     return 0
 
 
+def _gn_forms() -> dict:
+    """group_norm_act's site forms in the diffusion decoder: (film, silu,
+    out dtype)."""
+    import torch
+
+    return {"affine": (False, False, torch.bfloat16), "silu": (False, True, torch.bfloat16),
+            "film_silu_mask": (True, True, torch.bfloat16),
+            "f32_out": (False, True, torch.float32)}
+
+
+def _gn_inputs(t: int):
+    """B=2, C=1024 (32 groups of 32 channels): x, the mask of one full row
+    and one 61 frames short, the affine and a FiLM pair."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(t)
+    valid = torch.tensor([t, max(t - 61, 1)], device="cuda")
+    x = (torch.randn((2, t, 1024), generator=g, device="cuda") * 1.5 + 0.3).to(torch.bfloat16)
+    mask = torch.arange(t, device="cuda")[None, :] < valid[:, None]
+    weight = 1 + 0.3 * torch.randn((1024,), generator=g, device="cuda")
+    bias = 0.2 * torch.randn((1024,), generator=g, device="cuda")
+    film = (0.5 * torch.randn((2, 2048), generator=g, device="cuda")).to(torch.bfloat16)
+    return x, mask, weight, bias, film
+
+
+def check_group_norm(record: dict) -> dict:
+    """Phase 18's first half: group_norm_act against its plain version at
+    GN_FRAMES in each site form: the normalised value within one bf16 ulp
+    (the float32 statistics are summed in another order; float32 rounding
+    where the affine cancels to near zero), the rest of the
+    chain bit for bit PyTorch's ops on it, padded frames zero. Then each form
+    timed at B=2 over GN_TIMED_FRAMES: event ms a call (warm L2, as in the
+    decoder, whose previous kernel has just written x), device ms (calls
+    back to back) and the plain chain's event ms, beside the byte bound (x,
+    mask, parameters and film read once, y written once). Returns the
+    kernel's row, at the FiLM + SiLU form (20 of a forward's 46 norms)."""
+    import torch
+
+    from tortoise_tpu_torch.ops.group_norm import group_norm_act, group_norm_act_plain
+
+    checks = []
+    for t in GN_FRAMES:
+        x, mask, weight, bias, film = _gn_inputs(t)
+        for form, (use_film, silu, out_dtype) in _gn_forms().items():
+            f = film if use_film else None
+            got = group_norm_act(x, mask, weight, bias, 32, 1e-5, f, silu, out_dtype)
+            norm = group_norm_act(x, mask, weight, bias, 32, 1e-5, out_dtype=out_dtype)
+            plain_norm = group_norm_act_plain(x, mask, weight, bias, 32, 1e-5,
+                                              out_dtype=out_dtype)
+            diff = (norm.float() - plain_norm.float()).abs()
+            # one bf16 ulp, or float32 rounding (2^-16 of the call's largest
+            # value) where the affine cancels to a value near zero
+            ulp = torch.maximum(torch.exp2(torch.floor(torch.log2(
+                plain_norm.float().abs().clamp(min=2.0 ** -126))) - 7),
+                2.0 ** -16 * plain_norm.float().abs().max())
+            want = norm
+            if f is not None:
+                scale, shift = f[:, None, :].chunk(2, dim=-1)
+                want = want * (1 + scale) + shift
+            if silu:
+                want = torch.nn.functional.silu(want)
+            if f is not None or silu:
+                want = want * mask[:, :, None].to(want.dtype)
+            plain = group_norm_act_plain(x, mask, weight, bias, 32, 1e-5, f, silu, out_dtype)
+            case = {"T": t, "form": form, "norm_err_over_tol": (diff / ulp).max().item(),
+                    "norm_equal_share": (diff == 0).float().mean().item(),
+                    "chain_equal": torch.equal(got, want),
+                    "padded_zero": bool((got[~mask] == 0).all()),
+                    "max_abs_err": (got.float() - plain.float()).abs().max().item()}
+            checks.append(case)
+            if case["norm_err_over_tol"] > 1 or not case["chain_equal"] or not case["padded_zero"]:
+                raise AssertionError(f"group_norm_act disagrees with its plain version: {case}")
+    print(f"group_norm_act against its plain version, B=2, C=1024, T in {GN_FRAMES}, "
+          f"{len(_gn_forms())} forms: normalised value off by at most "
+          f"{max(c['norm_err_over_tol'] for c in checks):.2f} of its tolerance (a bf16 ulp), "
+          f"{min(c['norm_equal_share'] for c in checks):.4f} or more of it equal; the chain "
+          f"after it bit for bit; max |kernel - plain| "
+          f"{max(c['max_abs_err'] for c in checks):.4g}")
+
+    x, mask, weight, bias, film = _gn_inputs(GN_TIMED_FRAMES)
+    timings = {}
+    for form, (use_film, silu, out_dtype) in _gn_forms().items():
+        f = film if use_film else None
+        call = lambda: group_norm_act(x, mask, weight, bias, 32, 1e-5, f, silu, out_dtype)
+        plain = lambda: group_norm_act_plain(x, mask, weight, bias, 32, 1e-5, f, silu,
+                                             out_dtype)
+        nbytes = _nbytes(x, mask, weight, bias, *([f] if use_film else [])) \
+            + x.numel() * out_dtype.itemsize
+        bound_ms, bound_by = _bound(nbytes, 12 * x.numel(), "f32")
+        timings[form] = {"ms": _time_ms(call, 50), "device_ms": _device_ms(call, 50),
+                         "plain_ms": _time_ms(plain, 10), "bound_ms": bound_ms,
+                         "bound_by": bound_by, "bytes": nbytes}
+        r = timings[form]
+        print(f"group_norm_act {form:14s} B=2 T={GN_TIMED_FRAMES}: event {r['ms']:.4f} ms, "
+              f"device {r['device_ms']:.4f} ms ({100 * bound_ms / r['device_ms']:.1f}% of "
+              f"{bound_ms:.4f} ms, {bound_by}); plain chain {r['plain_ms']:.4f} ms", flush=True)
+    main = timings["film_silu_mask"]
+    row = {"name": GN_NAME, "route": "CUDA sm_90a, port-only (no TPU kernel)",
+           "source": GN_SOURCE, "replaces": "none (port-only: the JAX package leaves GroupNorm "
+                                            "to XLA)",
+           "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": None, "device_ms": main["device_ms"],
+           "library_device_ms": None}
+    record["group_norm"] = {"checks": checks, "timings": timings, "row": row}
+    return row
+
+
+def _step_family(name: str) -> str:
+    """A diffusion step's device kernels by what they do."""
+    low = name.lower()
+    for fragment, fam in (("group_norm_act", "group_norm_act"), ("flash_rel_attn", "K3"),
+                          ("nchwtonhwc", "cuDNN layout"), ("nhwctonchw", "cuDNN layout"),
+                          ("conv", "convolutions"), ("gemm", "products"),
+                          ("nvjet", "products"), ("xmma", "products"), ("cutlass", "products"),
+                          ("reduce_kernel", "reductions"), ("elementwise", "elementwise")):
+        if fragment in low:
+            return fam
+    return "other"
+
+
+def diffusion_norm_split(record: dict) -> None:
+    """Phase 18's second half: profile_diffusion_step's served step (its
+    full-width model, K3, B=2) at GN_STEP_FRAMES, with the kernel and with
+    every norm chain op by op (``group_norm.engages`` refusing; each side
+    captures its own graph): the event ms a step over GN_STEPS replays and
+    the kernel's launches a step first, then one profiler pass a side: the
+    device's kernels a step and their ms a step by family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.ops import group_norm
+    from tortoise_tpu_torch.tools import profile_diffusion_step as pds
+    from tortoise_tpu_torch.utils import measure
+    from tortoise_tpu_torch.utils.profiling import device_events
+
+    dev = torch.device("cuda")
+    model = pds.build_model(dev)
+    engages = group_norm.engages
+    sides = {"plain": lambda *a, **k: False, "kernel": engages}
+    rows = {}
+    try:
+        with torch.inference_mode():
+            for t in GN_STEP_FRAMES:
+                for side, fn in sides.items():
+                    group_norm.engages = fn
+                    model.graphs.clear()
+                    before = group_norm.group_norm_act.launches
+                    r = measure.time_steps(pds.step_run(model, 2, t, True, dev), GN_STEPS, dev)
+                    r["group_norm_act_a_step"] = \
+                        (group_norm.group_norm_act.launches - before) / (GN_STEPS + 1)
+                    rows[f"{side} T={t}"] = r
+            # the profiler passes, after every timing
+            for t in GN_STEP_FRAMES:
+                for side, fn in sides.items():
+                    group_norm.engages = fn
+                    model.graphs.clear()
+                    run = pds.step_run(model, 2, t, True, dev)
+                    run(1)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        run(GN_STEPS)
+                        torch.cuda.synchronize()
+                    events = device_events(prof, f"{GN_STEPS} diffusion steps")
+                    by_family: dict = {}
+                    for e in events:
+                        fam = _step_family(e["name"])
+                        by_family[fam] = by_family.get(fam, 0.0) \
+                            + (e["end_us"] - e["start_us"]) / 1e3 / GN_STEPS
+                    r = rows[f"{side} T={t}"]
+                    r.update(kernels_a_step=len(events) / GN_STEPS,
+                             busy_ms=sum(by_family.values()), ms_by_family=by_family)
+    finally:
+        group_norm.engages = engages
+        model.graphs.clear()
+    record["diffusion_norm_split"] = rows
+    for name, r in rows.items():
+        fams = ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["ms_by_family"].items(),
+                                                            key=lambda kv: -kv[1]))
+        print(f"diffusion step {name}: event {r['device_ms']:.3f} ms, host {r['host_ms']:.3f} "
+              f"ms, {r['kernels_a_step']:.0f} kernels and {r['group_norm_act_a_step']:.0f} "
+              f"group_norm_act a step; device ms by family: {fams}", flush=True)
+    for t in GN_STEP_FRAMES:
+        if rows[f"kernel T={t}"]["group_norm_act_a_step"] != 46 \
+                or rows[f"plain T={t}"]["group_norm_act_a_step"] != 0:
+            raise AssertionError(f"a served step must launch group_norm_act 46 times: {rows}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def group_norm_split_worker() -> int:
+    """``--group-norm-split``: ``diffusion_norm_split`` alone, its rows on
+    the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    record = {}
+    diffusion_norm_split(record)
+    print(json.dumps(record["diffusion_norm_split"]))
+    return 0
+
+
+def run_group_norm_split(record: dict) -> None:
+    """Phase 18's second half in a process of its own, after this process's
+    last profiler window (run in this process before run_tools, its passes
+    left check_k1_one_kernel's window with no device event on the H100).
+    Fails if the worker does."""
+    import subprocess
+
+    print("--- phase 18: python3 chip_smoke.py --group-norm-split")
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--group-norm-split"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=GN_SPLIT_TIMEOUT)
+    print(run.stdout[-3000:])
+    if run.returncode:
+        raise AssertionError(f"the group norm split worker exited {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    record["diffusion_norm_split"] = json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def group_norm_smoke() -> int:
+    """``--group-norm``: phase 18 alone (group_norm_act against its plain
+    version, timed, and the diffusion step with and without it); the
+    kernels line holds its row."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs only on the GPU")
+    from tortoise_tpu_torch.ops import _build
+
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {_nvidia_smi()}; torch {torch.__version__}")
+    record = {"device": kind}
+    t0 = time.perf_counter()
+    sources = ("group_norm", "flash_rel_attn")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        usage = pool.submit(_build.resource_usage, "group_norm")
+        list(pool.map(_build.build, sources))
+        record["group_norm_ptxas"] = [ln.strip() for ln in usage.result().splitlines()
+                                      if "Used" in ln or "spill" in ln]
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s; group_norm_act, nvcc -Xptxas "
+          "-v:\n  " + "\n  ".join(record["group_norm_ptxas"]))
+    row = check_group_norm(record)
+    diffusion_norm_split(record)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_group_norm.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"nvidia-smi: {_nvidia_smi()}")
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _head_rel_err(got, want, heads: int) -> float:
     """Largest error over (batch row, head) of a (B, C) attention output,
     each relative to that head's max|want|."""
@@ -1684,6 +1950,7 @@ class Launches:
         from tortoise_tpu_torch.ops import lvc
         from tortoise_tpu_torch.ops.attn import decode_attention_merged, flash_rel_attention
         from tortoise_tpu_torch.ops.decode_step import fused_decode_step
+        from tortoise_tpu_torch.ops.group_norm import group_norm_act
         from tortoise_tpu_torch.ops.ssm_step import ssm_decode_step
         from tortoise_tpu_torch.tools.bench_attn_body import attn_body
         from tortoise_tpu_torch.tools.decode_attn_kv128 import decode_attention_kv128
@@ -1694,7 +1961,7 @@ class Launches:
         self.single = {K1_NAME: decode_attention_merged, K3_NAME: flash_rel_attention,
                        K4_NAME: lvc.location_variable_convolution_lvc,
                        K5_NAME: decode_attention_kv128, K7_NAME: probe, K8_NAME: contraction,
-                       SSM_NAME: ssm_decode_step}
+                       SSM_NAME: ssm_decode_step, GN_NAME: group_norm_act}
         self.total = {name(v): 0 for fn, name in self.by_variant.items()
                       for v in fn.launches_by_variant}
         self.total.update(dict.fromkeys(self.single, 0))
@@ -1817,8 +2084,9 @@ def run_tools(record: dict, launches: Launches) -> None:
     profile_ar_step timed; then one K1 call under the profiler
     (``check_k1_one_kernel``), phase 17's request (``run_granite``: after
     every timing of this process, before the first process after which a
-    profiler window of this one records no device event), the trace phase
-    and profile_diffusion_step in processes of their own."""
+    profiler window of this one records no device event), phase 18's step
+    profile, the trace phase and profile_diffusion_step in processes of
+    their own."""
     import importlib
     import math
 
@@ -1876,6 +2144,7 @@ def run_tools(record: dict, launches: Launches) -> None:
     print("tools path launches", json.dumps(counts))
     check_k1_one_kernel(record)
     run_granite(load_voice("train_dotrice")[0], record, launches)
+    run_group_norm_split(record)
     run_trace_phase(record, launches)
     _profile_diffusion_step(record)
 
@@ -3944,7 +4213,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     sources = ("decode_step", "flash_rel_attn", "lvc", "decode_attn_merged", "decode_attn_kv128",
-               "attn_body", "probe_ops", "ssm_step")
+               "attn_body", "probe_ops", "ssm_step", "group_norm")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         usage = pool.submit(_build.resource_usage, "decode_attn_merged")
         list(pool.map(_build.build, sources))
@@ -3959,6 +4228,7 @@ def main() -> int:
     k4_row = check_lvc(record)
     k1_row = check_decode_attention_merged(record)
     ssm_row = check_ssm_step(record)
+    gn_row = check_group_norm(record)
 
     t0 = time.perf_counter()
     tts = TextToSpeech(device="cuda", enable_redaction=False)
@@ -3995,7 +4265,8 @@ def main() -> int:
     print("K1 launches by path:", json.dumps({p: n[K1_NAME] for p, n in launches.by_path.items()
                                               if n[K1_NAME]}))
 
-    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows + [ssm_row]
+    rows = [k2_rows[v] for v in K2_VARIANTS] + [k3_row, k4_row, k1_row] + tool_rows \
+        + [ssm_row, gn_row]
     for row in rows:
         row["launches"] = launches.total[row["name"]]
         if row["launches"] <= 0:
@@ -4036,4 +4307,8 @@ if __name__ == "__main__":
         sys.exit(granite_smoke())
     if sys.argv[1:] == ["--k2"]:
         sys.exit(k2_smoke())
+    if sys.argv[1:] == ["--group-norm"]:
+        sys.exit(group_norm_smoke())
+    if sys.argv[1:] == ["--group-norm-split"]:
+        sys.exit(group_norm_split_worker())
     sys.exit(serving_walls() if "--serving-walls" in sys.argv else main())

@@ -915,3 +915,174 @@ def test_device_ms_leaves_out_launch_time(cuda):
     call = lambda: contraction(a, a.transpose(1, 2))
     dev, event = measure.device_ms(call, 10), measure.time_ms(call, 10)
     assert 0 < dev < event
+
+
+# --- group_norm_act: the diffusion decoder's masked GroupNorm chain ----------
+
+# the decoder's site forms: (film, silu, out dtype); frames: a row as short
+# as 1, the quality path's buckets, and an odd length
+GN_FORMS = {"affine": (False, False, torch.bfloat16), "silu": (False, True, torch.bfloat16),
+            "film_silu_mask": (True, True, torch.bfloat16),
+            "f32_out": (False, True, torch.float32)}
+GN_FRAMES = (1, 557, 835, 1114, 777)
+
+
+def _gn_inputs(dev, t, valid, c=1024, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + t)
+    b = len(valid)
+    x = (torch.randn((b, t, c), generator=g, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+    mask = torch.arange(t, device=dev)[None, :] < torch.tensor(valid, device=dev)[:, None]
+    weight = 1 + 0.3 * torch.randn((c,), generator=g, device=dev)
+    bias = 0.2 * torch.randn((c,), generator=g, device=dev)
+    film = (0.5 * torch.randn((b, 2 * c), generator=g, device=dev)).to(torch.bfloat16)
+    return x, mask, weight, bias, film
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (the smallest normal's below it)."""
+    e = torch.floor(torch.log2(v.abs().float().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", GN_FORMS)
+@pytest.mark.parametrize("t", GN_FRAMES)
+def test_group_norm_kernel_matches_plain(cuda, t, form):
+    """B=2, C=1024 (32 groups of 32), one row full and one ragged. The
+    normalised value (the affine form) within one bf16 ulp of the plain
+    version's (float32 rounding where the affine cancels to near zero):
+    only the float32 statistics' summation order differs, so bf16 values
+    rarely differ at all. Every
+    later op rounds as PyTorch's: the kernel's FiLM, SiLU and mask of its
+    own normalised value equal those ops applied to it bit for bit. Padded
+    frames are zero."""
+    from tortoise_tpu_torch.ops.group_norm import group_norm_act, group_norm_act_plain
+
+    use_film, silu, out_dtype = GN_FORMS[form]
+    x, mask, weight, bias, film = _gn_inputs(cuda, t, [t, max(t - 61, 1)])
+    film = film if use_film else None
+    before = group_norm_act.launches
+    got = group_norm_act(x, mask, weight, bias, 32, 1e-5, film, silu, out_dtype)
+    assert group_norm_act.launches == before + 1 and got.dtype == out_dtype
+    norm = group_norm_act(x, mask, weight, bias, 32, 1e-5, out_dtype=out_dtype)
+    plain_norm = group_norm_act_plain(x, mask, weight, bias, 32, 1e-5, out_dtype=out_dtype)
+    diff = (norm.float() - plain_norm.float()).abs()
+    # one bf16 ulp, or float32 rounding (2^-16 of the call's largest value)
+    # where the affine cancels to a value near zero
+    tol = torch.maximum(_bf16_ulp(plain_norm), 2.0 ** -16 * plain_norm.float().abs().max())
+    assert (diff <= tol).all(), diff.max().item()
+    if out_dtype == torch.bfloat16:     # a flip needs a value at a rounding tie's edge
+        assert (diff == 0).float().mean().item() > 0.99
+    # the rest of the chain on the kernel's normalised value, op by op
+    want = norm
+    if film is not None:
+        scale, shift = film[:, None, :].chunk(2, dim=-1)
+        want = want * (1 + scale) + shift
+    if silu:
+        want = torch.nn.functional.silu(want)
+    if film is not None or silu:
+        want = want * mask[:, :, None].to(want.dtype)
+    assert torch.equal(got, want)
+    assert (got[~mask] == 0).all()
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_empty_row_gives_zeros(cuda):
+    from tortoise_tpu_torch.ops.group_norm import group_norm_act, group_norm_act_plain
+
+    x, mask, weight, bias, film = _gn_inputs(cuda, 835, [0, 300])
+    for use_film, silu, out_dtype in GN_FORMS.values():
+        f = film if use_film else None
+        got = group_norm_act(x, mask, weight, bias, 32, 1e-5, f, silu, out_dtype)
+        assert (got[0] == 0).all() and torch.isfinite(got).all()
+        plain = group_norm_act_plain(x, mask, weight, bias, 32, 1e-5, f, silu, out_dtype)
+        assert (plain[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_is_deterministic(cuda):
+    from tortoise_tpu_torch.ops.group_norm import group_norm_act
+
+    x, mask, weight, bias, film = _gn_inputs(cuda, 1114, [1114, 1000])
+    first = group_norm_act(x, mask, weight, bias, 32, 1e-5, film, True)
+    for _ in range(5):
+        assert torch.equal(group_norm_act(x, mask, weight, bias, 32, 1e-5, film, True), first)
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_rejects_bad_input(cuda):
+    from tortoise_tpu_torch.ops.group_norm import MAX_FRAMES, group_norm_act
+
+    x, mask, weight, bias, film = _gn_inputs(cuda, 64, [64, 30])
+    good = dict(x=x, mask=mask, weight=weight, bias=bias, groups=32, eps=1e-5, film=film)
+    bad = [dict(x=x.float()),                                       # dtype
+           dict(x=x.transpose(1, 2).contiguous().transpose(1, 2)),  # contiguity
+           dict(groups=64), dict(groups=8),                         # groups of 16, 128
+           dict(mask=mask.float()),
+           dict(mask=mask[:1]),
+           dict(weight=weight.to(torch.bfloat16)),
+           dict(bias=bias[:512]),
+           dict(film=film[:, :1024].contiguous()),
+           dict(film=film.float()),
+           dict(mask=None)]
+    for change in bad:
+        with pytest.raises(ValueError):
+            group_norm_act(**{**good, **change})
+    with pytest.raises(ValueError):
+        group_norm_act(**good, out_dtype=torch.float16)
+    long_x = torch.zeros((1, MAX_FRAMES + 1, 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        group_norm_act(long_x, torch.ones((1, MAX_FRAMES + 1), dtype=torch.bool, device=cuda),
+                       weight, bias, 32, 1e-5)
+
+
+def _served_diffusion(dev):
+    from tortoise_tpu_torch.models.diffusion_decoder import DiffusionTts
+    from tortoise_tpu_torch.weights import cast_for_inference, init_random
+
+    with torch.device(dev):
+        model = DiffusionTts(DiffusionTtsConfig())
+    init_random(model, 0)
+    return cast_for_inference(model, torch.bfloat16).eval()
+
+
+def _diffusion_step_inputs(model, dev, b=2, t=835):
+    g = torch.Generator(device=dev).manual_seed(t)
+    x = torch.randn((b, t, 100), generator=g, device=dev)
+    ts = torch.tensor([1200, 37][:b], device=dev)
+    pre = torch.randn((b, t, 1024), generator=g, device=dev).to(model.dtype)
+    valid = torch.tensor([t - 40, t - 101][:b], device=dev)
+    return x, ts, pre, valid, model.rel_bias_vectors(t)
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_in_the_served_diffusion_forward(cuda, monkeypatch):
+    """The full-width served forward (10 layers, 1024 channels, bf16): a
+    captured and replayed forward equals its eager forward bit for bit; each
+    forward launches the kernel 46 times (3 + 10 layers x 3 norms, 3 tails x
+    2, out_norm), a replay counting what its capture recorded; and the
+    forward with the kernel is within the benchmark's diffusion_err limit
+    (0.04, relative L2 over a row's valid frames) of the one with every
+    chain op by op."""
+    from tortoise_tpu_torch.ops import group_norm
+
+    model = _served_diffusion(cuda)
+    x, ts, pre, valid, biases = _diffusion_step_inputs(model, cuda)
+    with torch.inference_mode():
+        run = lambda: model(x, ts, pre, valid_len=valid, rel_biases=biases, flash=True)
+        counts = []
+        for _ in range(3):          # eager and capture, then two replays
+            before = group_norm.group_norm_act.launches
+            out = run()
+            counts.append(group_norm.group_norm_act.launches - before)
+        assert counts == [46, 46, 46], counts
+        assert model.graphs.captures == 1 and model.graphs.replays == 2
+        eager = model._forward_eager(x, ts, pre, valid_len=valid, rel_biases=biases, flash=True)
+        assert torch.equal(out, eager)
+        monkeypatch.setattr(group_norm, "engages", lambda *a, **k: False)
+        before = group_norm.group_norm_act.launches
+        plain = model._forward_eager(x, ts, pre, valid_len=valid, rel_biases=biases, flash=True)
+        assert group_norm.group_norm_act.launches == before
+    for row, n in enumerate(valid.tolist()):
+        err = ((out[row, :n] - plain[row, :n]).norm() / plain[row, :n].norm()).item()
+        assert err < 0.04, (row, err)

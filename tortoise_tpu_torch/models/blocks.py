@@ -16,6 +16,7 @@ from torch import nn
 
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, Norm
 from tortoise_tpu_torch.ops import attn as attn_ops
+from tortoise_tpu_torch.ops import group_norm
 
 
 def norm_num_groups(channels: int) -> int:
@@ -34,29 +35,32 @@ def norm_num_groups(channels: int) -> int:
 class GroupNorm32(nn.Module):
     """GroupNorm in float32. With ``mask`` ((B, T) bool) the statistics cover
     valid positions only and padded positions come out zero, so a
-    right-padded run equals an unpadded one."""
+    right-padded run equals an unpadded one. ``dtype`` is the owner's
+    compute dtype (``models/layers.py``).
 
-    def __init__(self, channels: int, eps: float = 1e-5, lead: tuple = ()):
+    ``forward`` may go on with the chain that follows the norm in the
+    diffusion decoder (``ops/group_norm.py``): the FiLM of ``film`` ((B, 2C),
+    scale then shift), SiLU, and the mask again. On the card the serving
+    model's (dtype None) masked chain without grad is one launch of kernel
+    ``group_norm_act``; every other call runs the plain ops."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, lead: tuple = (),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.GroupNorm_0 = Norm(channels, lead)
         self.groups = norm_num_groups(channels)
         self.eps = eps
+        self.dtype = dtype
 
-    def forward(self, x, mask=None, l: int | None = None):
+    def forward(self, x, mask=None, l: int | None = None, film=None, silu: bool = False,
+                out_dtype: torch.dtype | None = None):
+        """(B, T, C) in ``out_dtype`` (x's by default)."""
         scale, bias = self.GroupNorm_0.params(l)
-        b, t, c = x.shape
-        if mask is None:
-            y = F.group_norm(x.float().transpose(1, 2), self.groups, scale, bias, self.eps)
-            return y.transpose(1, 2).to(x.dtype)
-        g = self.groups
-        m = mask.float()[:, :, None]                              # (B, T, 1)
-        xg = (x.float() * m).reshape(b, t, g, c // g)
-        count = m.sum(dim=1, keepdim=True) * (c // g)             # (B, 1, 1)
-        mean = xg.sum(dim=(1, 3)) / count[:, 0]                   # (B, G)
-        dev = xg - mean[:, None, :, None]
-        var = (dev ** 2 * m[..., None]).sum(dim=(1, 3)) / count[:, 0]
-        xn = (dev * torch.rsqrt(var[:, None, :, None] + self.eps)).reshape(b, t, c)
-        return ((xn * scale + bias) * m).to(x.dtype)
+        if self.dtype is None and group_norm.engages(x, mask, scale, bias, self.groups, film):
+            return group_norm.group_norm_act(x, mask, scale, bias, self.groups, self.eps, film,
+                                             silu, out_dtype)
+        return group_norm.group_norm_act_plain(x, mask, scale, bias, self.groups, self.eps, film,
+                                               silu, out_dtype, self.dtype)
 
 
 def attention_logits(q, k):
@@ -86,7 +90,7 @@ class AttentionBlock(nn.Module):
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
-        self.GroupNorm32_0 = GroupNorm32(channels, lead=lead)
+        self.GroupNorm32_0 = GroupNorm32(channels, lead=lead, dtype=dtype)
         self.qkv = Dense(channels, 3 * channels, lead=lead, dtype=dtype)
         self.proj_out = Dense(channels, channels, lead=lead, dtype=dtype)
         self.rel_pos = Embed(32, num_heads, lead=lead) if relative_pos_embeddings else None

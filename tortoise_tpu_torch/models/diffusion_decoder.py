@@ -15,10 +15,12 @@ sampling call (``rel_bias_vectors``), in place of the JAX package's
 ``dtype`` is the compute dtype of every product but ``out_conv``, which is
 float32, as in the JAX model (None: each weight's, the serving models').
 
-On the card a sampling step's forward is ~300 small launches, more host
-time than device time, so an inference call with precomputed conditioning
-and bias vectors replays a CUDA graph of the forward, one per input
-signature (``DiffusionTts.forward``).
+On the card a sampling step's forward is hundreds of small launches, more
+host time than device time, so an inference call with precomputed
+conditioning and bias vectors replays a CUDA graph of the forward, one per
+input signature (``DiffusionTts.forward``). Each of its 46 masked norm
+chains (GroupNorm, then FiLM, SiLU and the mask) is one launch of kernel
+``group_norm_act`` there (``models/blocks.py`` ``GroupNorm32``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from torch import nn
 from tortoise_tpu_torch.models.blocks import AttentionBlock, GroupNorm32
 from tortoise_tpu_torch.models.layers import Conv1d, Dense, Embed, silu
 from tortoise_tpu_torch.ops.attn import flash_rel_attention, rel_bias_vector
+from tortoise_tpu_torch.ops.group_norm import group_norm_act
 from tortoise_tpu_torch.ops.interpolate import nearest_interpolate
 from tortoise_tpu_torch.utils.graphs import Graphs
 
@@ -81,20 +84,19 @@ class TimestepResBlock(nn.Module):
         out_ch = out_channels or channels
         pad = {1: 0, 3: 1, 5: 2}[kernel_size]
         self.dtype = dtype
-        self.GroupNorm32_0 = GroupNorm32(channels, lead=lead)
+        self.GroupNorm32_0 = GroupNorm32(channels, lead=lead, dtype=dtype)
         self.in_conv = Dense(channels, out_ch, lead=lead, dtype=dtype)
         self.emb_proj = Dense(emb_channels, 2 * out_ch, lead=lead, dtype=dtype)
-        self.GroupNorm32_1 = GroupNorm32(out_ch, lead=lead)
+        self.GroupNorm32_1 = GroupNorm32(out_ch, lead=lead, dtype=dtype)
         self.out_conv = Conv1d(out_ch, out_ch, kernel_size, padding=pad, lead=lead, dtype=dtype)
         self.skip_conv = Dense(channels, out_ch, lead=lead, dtype=dtype) \
             if out_ch != channels else None
 
     def forward(self, x, emb, valid_mask=None, l: int | None = None):
-        h = silu(self.GroupNorm32_0(x, mask=valid_mask, l=l), self.dtype)
-        h = self.in_conv(h, l)
-        scale, shift = self.emb_proj(silu(emb, self.dtype), l)[:, None, :].chunk(2, dim=-1)
-        h = self.GroupNorm32_1(h, mask=valid_mask, l=l) * (1 + scale) + shift
-        h = _masked(silu(h, self.dtype), valid_mask)
+        h = self.in_conv(self.GroupNorm32_0(x, mask=valid_mask, l=l, silu=True), l)
+        # the FiLM: (B, 2C), scale then shift
+        film = self.emb_proj(silu(emb, self.dtype), l)
+        h = self.GroupNorm32_1(h, mask=valid_mask, l=l, film=film, silu=True)
         h = self.out_conv(h, l)
         skip = x if self.skip_conv is None else self.skip_conv(x, l)
         return _masked(skip + h, valid_mask)
@@ -128,7 +130,8 @@ class DiffusionTts(nn.Module):
         super().__init__()
         # forward's graphs, one an input signature; a graph's static inputs
         # and output stay allocated: 9.1 MB at B=2 over 1114 frames
-        self.graphs = Graphs("tts.diffusion.capture", ("batch", "frames"), flash_rel_attention)
+        self.graphs = Graphs("tts.diffusion.capture", ("batch", "frames"), flash_rel_attention,
+                             group_norm_act)
         cfg = self.config = config
         ch = cfg.model_channels
         self.compute_dtype = dtype
@@ -137,7 +140,7 @@ class DiffusionTts(nn.Module):
         self.inp_block = Conv1d(cfg.in_channels, ch, 3, padding=1, dtype=dtype)
         self.time_embed_1 = Dense(ch, ch, dtype=dtype)
         self.time_embed_2 = Dense(ch, ch, dtype=dtype)
-        self.code_norm = GroupNorm32(ch)
+        self.code_norm = GroupNorm32(ch, dtype=dtype)
         self.latent_conv = Conv1d(cfg.in_latent_channels, ch, 3, padding=1, dtype=dtype)
         for i in range(4):
             setattr(self, f"latent_attn_{i}", attn(ch))
@@ -153,7 +156,7 @@ class DiffusionTts(nn.Module):
             cfg.num_layers)
         for i in range(3):
             setattr(self, f"tail_{i}", TimestepResBlock(ch, ch, dtype=dtype))
-        self.out_norm = GroupNorm32(ch)
+        self.out_norm = GroupNorm32(ch, dtype=dtype)
         self.out_conv = Conv1d(ch, cfg.out_channels, 3, padding=1)
         # the code path, registered last so that weights.init_random draws
         # every other parameter as it did before the path existed
@@ -192,8 +195,7 @@ class DiffusionTts(nn.Module):
             blocks = [f"code_converter_{i}" for i in range(3)]
         for name in blocks:
             code_emb = getattr(self, name)(code_emb, flash=False)
-        cond_scale, cond_shift = conditioning_latent.chunk(2, dim=-1)
-        code_emb = self.code_norm(code_emb) * (1 + cond_scale[:, None]) + cond_shift[:, None]
+        code_emb = self.code_norm(code_emb, film=conditioning_latent)
         expanded = nearest_interpolate(code_emb, expected_seq_len)
         if not return_code_pred:
             return expanded
@@ -212,10 +214,7 @@ class DiffusionTts(nn.Module):
         code_emb = self.latent_conv(_masked(latents, lat_mask))
         for i in range(4):
             code_emb = getattr(self, f"latent_attn_{i}")(code_emb, valid_mask=lat_mask)
-        cond_scale, cond_shift = conditioning_latent.chunk(2, dim=-1)
-        code_emb = self.code_norm(code_emb, mask=lat_mask) * (1 + cond_scale[:, None]) \
-            + cond_shift[:, None]
-        code_emb = _masked(code_emb, lat_mask)
+        code_emb = self.code_norm(code_emb, mask=lat_mask, film=conditioning_latent)
         # frame i < out_len[b] reads latent floor(i * n[b] / out_len[b]), the
         # exact-length F.interpolate(mode="nearest")
         i = torch.arange(out_bucket, device=dev)
@@ -300,8 +299,7 @@ class DiffusionTts(nn.Module):
                                        None if b_layers is None else b_layers[l], flash, l)
         for i in range(3):
             h = getattr(self, f"tail_{i}")(h, time_emb, valid_mask=valid_mask)
-        h = _masked(silu(self.out_norm(h.float(), mask=valid_mask), self.compute_dtype),
-                    valid_mask)
+        h = self.out_norm(h, mask=valid_mask, silu=True, out_dtype=torch.float32)
         w = self.out_conv
         # float32 like the JAX out_conv (dtype=float32 over the stored weights)
         return F.conv1d(h.transpose(1, 2), w.weight.float(), w.bias.float(),

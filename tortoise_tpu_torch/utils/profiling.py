@@ -250,6 +250,7 @@ FAMILIES = (
     ("flash_rel_attn_kernel", "K3"),
     ("decode_attn_merged_kernel", "K1"),
     ("lvc_kernel", "K4"),
+    ("group_norm_act_kernel", "GroupNorm"),
     ("gemm", "cuBLAS/cuDNN"), ("cutlass", "cuBLAS/cuDNN"), ("xmma", "cuBLAS/cuDNN"),
     ("cudnn", "cuBLAS/cuDNN"), ("conv", "cuBLAS/cuDNN"),
     ("nvjet", "cuBLAS/cuDNN"),   # cuBLAS's own Hopper GEMMs (CUDA 12.8)
